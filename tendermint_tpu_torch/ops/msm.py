@@ -1,0 +1,203 @@
+"""Randomized-linear-combination batched ed25519 verification (MSM).
+
+One equation checks a whole batch,
+
+    [8](-[sum z_i s_i mod L]B + sum [z_i]R_i + sum [z_i h_i mod L]A_i) == 0
+
+with per-batch random 128-bit z_i (the reference node's batch verifier).
+All-valid batches accept deterministically; any invalid signature makes
+the check fail except with probability about 2^-128 over z, and the
+caller then localizes with the bitmap plane (ops/verify.py), so the
+end-to-end acceptance equals the per-signature plane's.
+
+`msm_verify_kernel` launches csrc/msm.cu for CUDA tensors and runs its
+plain PyTorch version (the JAX package's window-parallel Straus
+formulation, tendermint_tpu/ops/msm.py) for CPU tensors; its launch count
+is `msm_verify_kernel.launches`.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from . import _build
+from . import curve as C
+from .verify import (
+    L, _check_rows, _limb_major, _route, _to_device, device_table, pad_pow2_rows,
+    prepare_batch, resolve_device,
+)
+
+# Parallel point streams, rounded down to a power of two: padded batches
+# are powers of two, so a power-of-two G always divides them.
+G_STREAMS = 1 << max(0, int(os.environ.get("TM_TPU_MSM_STREAMS", "128")).bit_length() - 1)
+
+
+def _streams(n: int) -> int:
+    """Stream count for a batch of n rows, with the loud divisibility guard:
+    rounds = n // g would silently drop the tail rows from the sum, and a
+    tail row holding the only invalid signature would be accepted."""
+    g = min(G_STREAMS, n)
+    if n % g:
+        raise ValueError(
+            f"MSM batch size {n} is not a multiple of the stream count {g}; "
+            f"pad the batch (pad_pow2_rows) so no rows drop from the RLC sum"
+        )
+    return g
+
+
+def _select_windows(table: torch.Tensor, nibs: torch.Tensor) -> torch.Tensor:
+    """table (16, 4, 32, G), nibs (W, G) -> (4, 32, W, G): entry nibs[w, g]
+    of column g for every window."""
+    w, g = nibs.shape
+    idx = nibs.long().reshape(1, 1, w, g).expand(4, 32, w, g)
+    return torch.gather(table.permute(1, 2, 0, 3), 2, idx)
+
+
+def _tree_reduce_points(p: torch.Tensor) -> torch.Tensor:
+    """Sum a (4, 32, G) stack of points down to (4, 32, 1)."""
+    g = p.shape[-1]
+    while g > 1:
+        half = g // 2
+        p = C.point_add(p[..., :half], p[..., half:2 * half], out_t=True)
+        g = half
+    return p
+
+
+def _accumulate_windows(neg, nibs_zk, nibs_z, n):
+    """Window-parallel Straus accumulation, Horner over the windows and the
+    stream reduction: neg holds -A | -R stacked, (4, 32, 2n); returns the
+    (4, 32, 1) sum of zk_i (-A_i) + z_i (-R_i) with a valid T."""
+    g = _streams(n)
+    w_acc = C.identity_point((64, g), neg.device)
+    for t in range(n // g):
+        col_a = neg[:, :, t * g:(t + 1) * g]
+        col_r = neg[:, :, n + t * g:n + (t + 1) * g]
+        tables = C._build_var_table(torch.cat([col_a, col_r], dim=2))
+        entry_a = _select_windows(tables[..., :g], nibs_zk[:, t * g:(t + 1) * g])
+        entry_r = _select_windows(tables[..., g:], nibs_z[:, t * g:(t + 1) * g])
+        w_acc = C.point_add(w_acc, entry_a, out_t=True)
+        lo = C.point_add(w_acc[:, :, :32], entry_r, out_t=True)
+        w_acc = torch.cat([lo, w_acc[:, :, 32:]], dim=2)
+    acc = w_acc[:, :, 63]
+    for w in range(62, -1, -1):
+        for _ in range(3):
+            acc = C.point_double(acc, out_t=False)
+        acc = C.point_double(acc, out_t=True)
+        acc = C.point_add(acc, w_acc[:, :, w], out_t=True)
+    return _tree_reduce_points(acc)
+
+
+def msm_verify_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """Plain version. a_enc/r_enc (B, 32) uint8 encodings; zk_bytes (B, 32)
+    with z_i h_i mod L; z_bytes (B, 16) with z_i; zs_bytes (1, 32) with
+    sum z_i s_i mod L. Padding rows carry z = zk = 0 and a decodable
+    encoding. Returns a () bool: every encoding decodes and the combined
+    equation holds."""
+    a, r = _limb_major(a_enc), _limb_major(r_enc)
+    n = a.shape[1]
+    pts, oks = C.decompress(torch.cat([a, r], dim=1))
+    neg = C.point_neg(pts)
+    all_ok = torch.all(oks)
+    nibs_zk = C.scalar_to_nibbles(_limb_major(zk_bytes))  # (64, B)
+    nibs_z = C.scalar_to_nibbles(_limb_major(z_bytes))  # (32, B)
+    total = _accumulate_windows(neg, nibs_zk, nibs_z, n)
+    sb = C.fixed_base_mul(_limb_major(zs_bytes))  # (4, 32, 1)
+    total = C.point_add(total, sb, out_t=False)
+    for _ in range(3):
+        total = C.point_double(total, out_t=False)
+    return all_ok & C.point_is_identity(total)[0]
+
+
+def msm_verify_kernel(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """RLC check: csrc/msm.cu on CUDA tensors (three launches from one entry
+    point, counted once), the plain version on CPU tensors."""
+    args = (a_enc, r_enc, zk_bytes, z_bytes, zs_bytes)
+    if not _route("msm_verify_kernel", *args):
+        return msm_verify_kernel_plain(*args)
+    n = a_enc.shape[0]
+    g = _streams(n)
+    _check_rows("msm_verify_kernel", n, 32, a_enc, r_enc, zk_bytes)
+    _check_rows("msm_verify_kernel", n, 16, z_bytes)
+    _check_rows("msm_verify_kernel", 1, 32, zs_bytes)
+    dev = a_enc.device
+    tabs = torch.empty((16 * 4 * 10, 2 * n), dtype=torch.int32, device=dev)
+    oks = torch.empty(2 * n, dtype=torch.uint8, device=dev)
+    wsum = torch.empty((4 * 10, 64 * g), dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    lib = _build.load("msm")
+    rc = lib.tm_msm_verify(
+        a_enc.data_ptr(), r_enc.data_ptr(), zk_bytes.data_ptr(), z_bytes.data_ptr(),
+        zs_bytes.data_ptr(), device_table("fixed", dev).data_ptr(), tabs.data_ptr(),
+        oks.data_ptr(), wsum.data_ptr(), out.data_ptr(), n, g, _build.stream_of(a_enc),
+    )
+    _build.check(rc, "msm_verify_kernel")
+    msm_verify_kernel.launches += 1
+    return out
+
+
+msm_verify_kernel.launches = 0
+
+
+def _rlc_scalars_py(s_rows, k_rows, n, z_raw):
+    """Randomizer math: per-signature zk = z*h mod L rows, the z rows, and
+    zs = sum z*s mod L."""
+    zk = np.zeros((len(k_rows), 32), np.uint8)
+    z_out = np.zeros((len(k_rows), 16), np.uint8)
+    zs = 0
+    from_bytes = int.from_bytes
+    for i in range(n):
+        z = from_bytes(z_raw[16 * i:16 * i + 16], "little")
+        h = from_bytes(k_rows[i].tobytes(), "little")
+        s = from_bytes(s_rows[i].tobytes(), "little")
+        zk[i] = np.frombuffer(((z * h) % L).to_bytes(32, "little"), np.uint8)
+        z_out[i] = np.frombuffer(z.to_bytes(16, "little"), np.uint8)
+        zs = (zs + z * s) % L
+    zs_row = np.frombuffer(zs.to_bytes(32, "little"), np.uint8).reshape(1, 32)
+    return zk, z_out, zs_row
+
+
+def _ensure_z_raw(n: int, z_raw: bytes | None) -> bytes:
+    """Sample (or validate) the per-batch randomizers. They come from
+    os.urandom: their unpredictability is the soundness argument. A zero
+    z_i would null that signature's contribution, so it is redrawn; a
+    short caller buffer would leave tail rows out of the sum."""
+    if z_raw is None:
+        z_raw = os.urandom(16 * n)
+        while any(z_raw[16 * i:16 * i + 16] == b"\x00" * 16 for i in range(n)):  # pragma: no cover
+            z_raw = os.urandom(16 * n)
+    elif len(z_raw) != 16 * n:
+        raise ValueError(f"z_raw must be {16 * n} bytes, got {len(z_raw)}")
+    return z_raw
+
+
+def _dispatch_rlc(pubkeys, msgs, sigs, z_raw, device):
+    """Prep, precheck refusal (None: the caller goes straight to the bitmap
+    plane), randomizer math, padding, launch."""
+    n = len(sigs)
+    if n == 0:
+        return None
+    dev = resolve_device(device)
+    a_enc, r_enc, s_rows, k_rows, precheck = prepare_batch(pubkeys, msgs, sigs)
+    if not precheck.all():
+        return None
+    z_raw = _ensure_z_raw(n, z_raw)
+    zk, z_out, zs_row = _rlc_scalars_py(s_rows, k_rows, n, z_raw)
+    rows = pad_pow2_rows([a_enc, r_enc, zk, z_out], n)
+    return msm_verify_kernel(*_to_device(rows + [zs_row], dev))
+
+
+def verify_batch_rlc_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):
+    """Dispatch the RLC check without blocking. Returns a handle for
+    collect_rlc, or None on precheck refusal."""
+    return _dispatch_rlc(pubkeys, msgs, sigs, z_raw, device)
+
+
+def collect_rlc(dispatched) -> bool:
+    """Block on a verify_batch_rlc_async handle -> all-valid bool."""
+    if dispatched is None:
+        return False
+    return bool(dispatched.item())
+

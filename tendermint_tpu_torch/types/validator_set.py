@@ -1,0 +1,316 @@
+"""Validator and ValidatorSet (ref: types/validator.go, types/validator_set.go),
+trimmed to what commit verification needs: construction, proposer
+rotation, the deterministic update algorithm and lookups.
+
+The proposer-priority rotation and the deterministic update algorithm are
+consensus-critical: every node must compute the identical proposer for
+every (height, round) and the identical post-update set, so the arithmetic
+(int64 clipping, centering, rescaling) matches the reference exactly
+(validator_set.go:116 IncrementProposerPriority, :584 updateWithChangeSet).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..crypto import PubKey
+
+# ref: types/validator_set.go:25 — cap so priority arithmetic can't overflow.
+MAX_TOTAL_VOTING_POWER = (2**63 - 1) // 8
+# ref: types/validator_set.go:30 — priority window = 2 * total power.
+PRIORITY_WINDOW_SIZE_FACTOR = 2
+# ref: types/vote_set.go:19 — DoS bound on set size; commits by a larger
+# set fail validation (validator_set.go:68 commentary).
+MAX_VOTES_COUNT = 10000
+
+_INT64_MAX = 2**63 - 1
+_INT64_MIN = -(2**63)
+
+
+def _clip64(v: int) -> int:
+    """int64 saturating clamp (ref: safeAddClip/safeSubClip, types/utils.go)."""
+    if v > _INT64_MAX:
+        return _INT64_MAX
+    if v < _INT64_MIN:
+        return _INT64_MIN
+    return v
+
+
+class NotEnoughVotingPowerError(Exception):
+    """ref: ErrNotEnoughVotingPowerSigned (types/validator_set.go)."""
+
+    def __init__(self, got: int, needed: int):
+        self.got = got
+        self.needed = needed
+        super().__init__(f"invalid commit -- insufficient voting power: got {got}, needed more than {needed}")
+
+
+@dataclass
+class Validator:
+    address: bytes
+    pub_key: PubKey
+    voting_power: int
+    proposer_priority: int = 0
+
+    @classmethod
+    def new(cls, pub_key: PubKey, voting_power: int) -> "Validator":
+        return cls(address=pub_key.address(), pub_key=pub_key, voting_power=voting_power)
+
+    def copy(self) -> "Validator":
+        return Validator(self.address, self.pub_key, self.voting_power, self.proposer_priority)
+
+    def compare_proposer_priority(self, other: "Validator") -> "Validator":
+        """Higher priority wins; ties break toward the lower address
+        (ref: types/validator.go:101)."""
+        if self.proposer_priority > other.proposer_priority:
+            return self
+        if self.proposer_priority < other.proposer_priority:
+            return other
+        if self.address < other.address:
+            return self
+        if self.address > other.address:
+            return other
+        raise ValueError("cannot compare identical validators")
+
+
+def _sorted_by_address(vals: list[Validator]) -> list[Validator]:
+    return sorted(vals, key=lambda v: v.address)
+
+
+def _sort_by_voting_power(vals: list[Validator]) -> None:
+    # Descending power, ascending address (ref: ValidatorsByVotingPower,
+    # types/validator_set.go:751).
+    vals.sort(key=lambda v: (-v.voting_power, v.address))
+
+
+@dataclass
+class ValidatorSet:
+    validators: list[Validator] = field(default_factory=list)
+    proposer: Validator | None = None
+    _total_voting_power: int = 0
+
+    @classmethod
+    def new(cls, vals: list[Validator]) -> "ValidatorSet":
+        """ref: NewValidatorSet (types/validator_set.go:47) — applies the
+        update algorithm to an empty set, then shifts proposer rotation
+        by one round."""
+        vs = cls()
+        vs._update_with_change_set(vals, allow_deletes=False)
+        if vals:
+            vs.increment_proposer_priority(1)
+        return vs
+
+    # -- accessors --------------------------------------------------------
+
+    def is_nil_or_empty(self) -> bool:
+        return not self.validators
+
+    def size(self) -> int:
+        return len(self.validators)
+
+    def __len__(self) -> int:
+        return len(self.validators)
+
+    def copy(self) -> "ValidatorSet":
+        return ValidatorSet(
+            validators=[v.copy() for v in self.validators],
+            proposer=self.proposer,
+            _total_voting_power=self._total_voting_power,
+        )
+
+    def has_address(self, address: bytes) -> bool:
+        return any(v.address == address for v in self.validators)
+
+    def get_by_address(self, address: bytes) -> tuple[int, Validator | None]:
+        for idx, v in enumerate(self.validators):
+            if v.address == address:
+                return idx, v.copy()
+        return -1, None
+
+    def total_voting_power(self) -> int:
+        if self._total_voting_power == 0:
+            self._update_total_voting_power()
+        return self._total_voting_power
+
+    def _update_total_voting_power(self) -> None:
+        total = 0
+        for v in self.validators:
+            total = _clip64(total + v.voting_power)
+            if total > MAX_TOTAL_VOTING_POWER:
+                raise OverflowError(f"total voting power exceeds {MAX_TOTAL_VOTING_POWER}: {total}")
+        self._total_voting_power = total
+
+    def get_proposer(self) -> Validator | None:
+        if not self.validators:
+            return None
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return self.proposer.copy()
+
+    def _find_proposer(self) -> Validator:
+        result = None
+        for v in self.validators:
+            result = v if result is None else result.compare_proposer_priority(v)
+        return result
+
+    # -- proposer rotation ------------------------------------------------
+
+    def increment_proposer_priority(self, times: int) -> None:
+        """ref: IncrementProposerPriority (types/validator_set.go:116)."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("cannot call increment_proposer_priority with non-positive times")
+        diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        self.rescale_priorities(diff_max)
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = _clip64(v.proposer_priority + v.voting_power)
+        mostest = self._find_proposer()
+        mostest.proposer_priority = _clip64(mostest.proposer_priority - self.total_voting_power())
+        return mostest
+
+    def rescale_priorities(self, diff_max: int) -> None:
+        """Compress the priority spread below diff_max by integer division
+        (ref: RescalePriorities, types/validator_set.go:142)."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if diff_max <= 0:
+            return
+        diff = self._max_min_priority_diff()
+        ratio = (diff + diff_max - 1) // diff_max
+        if diff > diff_max:
+            for v in self.validators:
+                # Go int division truncates toward zero; Python floors.
+                q, r = divmod(v.proposer_priority, ratio)
+                if r and v.proposer_priority < 0:
+                    q += 1
+                v.proposer_priority = q
+
+    def _max_min_priority_diff(self) -> int:
+        prios = [v.proposer_priority for v in self.validators]
+        diff = max(prios) - min(prios)
+        return -diff if diff < 0 else diff
+
+    def _compute_avg_proposer_priority(self) -> int:
+        n = len(self.validators)
+        total = sum(v.proposer_priority for v in self.validators)
+        # Go big.Int Div floors (Euclidean for positive divisor) — Python's
+        # // matches for positive n.
+        return total // n
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        avg = self._compute_avg_proposer_priority()
+        for v in self.validators:
+            v.proposer_priority = _clip64(v.proposer_priority - avg)
+
+    # -- deterministic updates (ref: updateWithChangeSet, :584) -----------
+
+    def _update_with_change_set(self, changes: list[Validator], allow_deletes: bool) -> None:
+        if not changes:
+            return
+        updates, deletes = _process_changes(changes)
+        if not allow_deletes and deletes:
+            raise ValueError(f"cannot process validators with voting power 0: {deletes}")
+        num_new = sum(1 for u in updates if not self.has_address(u.address))
+        if num_new == 0 and len(self.validators) == len(deletes):
+            raise ValueError("applying the validator changes would result in empty set")
+        removed_power = self._verify_removals(deletes)
+        tvp_after_updates_before_removals = self._verify_updates(updates, removed_power)
+        self._compute_new_priorities(updates, tvp_after_updates_before_removals)
+        self._apply_updates(updates)
+        self._apply_removals(deletes)
+        self._update_total_voting_power()
+        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power())
+        self._shift_by_avg_proposer_priority()
+        _sort_by_voting_power(self.validators)
+
+    def _verify_removals(self, deletes: list[Validator]) -> int:
+        removed = 0
+        for d in deletes:
+            _, val = self.get_by_address(d.address)
+            if val is None:
+                raise ValueError(f"failed to find validator {d.address.hex().upper()} to remove")
+            removed += val.voting_power
+        if len(deletes) > len(self.validators):
+            raise ValueError("more deletes than validators")
+        return removed
+
+    def _verify_updates(self, updates: list[Validator], removed_power: int) -> int:
+        """Checks the updated total power stays under the cap; returns the
+        total power with updates applied but before removals
+        (ref: verifyUpdates, types/validator_set.go:426)."""
+
+        def delta(update: Validator) -> int:
+            _, val = self.get_by_address(update.address)
+            if val is not None:
+                return update.voting_power - val.voting_power
+            return update.voting_power
+
+        tvp_after_removals = self.total_voting_power() - removed_power
+        for upd in sorted(updates, key=delta):
+            tvp_after_removals += delta(upd)
+            if tvp_after_removals > MAX_TOTAL_VOTING_POWER:
+                raise OverflowError("total voting power overflow")
+        return tvp_after_removals + removed_power
+
+    def _compute_new_priorities(self, updates: list[Validator], updated_total_voting_power: int) -> None:
+        # New validators start at -1.125 * total power so un-bond/re-bond
+        # can't reset a negative priority (ref: computeNewPriorities, :467).
+        for u in updates:
+            _, val = self.get_by_address(u.address)
+            if val is None:
+                u.proposer_priority = -(updated_total_voting_power + (updated_total_voting_power >> 3))
+            else:
+                u.proposer_priority = val.proposer_priority
+
+    def _apply_updates(self, updates: list[Validator]) -> None:
+        existing = _sorted_by_address(self.validators)
+        merged: list[Validator] = []
+        i = j = 0
+        while i < len(existing) and j < len(updates):
+            if existing[i].address < updates[j].address:
+                merged.append(existing[i])
+                i += 1
+            else:
+                merged.append(updates[j])
+                if existing[i].address == updates[j].address:
+                    i += 1
+                j += 1
+        merged.extend(existing[i:])
+        merged.extend(updates[j:])
+        self.validators = merged
+
+    def _apply_removals(self, deletes: list[Validator]) -> None:
+        if not deletes:
+            return
+        delete_addrs = {d.address for d in deletes}
+        self.validators = [v for v in self.validators if v.address not in delete_addrs]
+
+
+def _process_changes(orig_changes: list[Validator]) -> tuple[list[Validator], list[Validator]]:
+    """Split sorted changes into updates and removals, rejecting duplicates
+    and invalid powers (ref: processChanges, types/validator_set.go:370)."""
+    changes = _sorted_by_address([c.copy() for c in orig_changes])
+    updates: list[Validator] = []
+    removals: list[Validator] = []
+    prev_addr = None
+    for c in changes:
+        if c.address == prev_addr:
+            raise ValueError(f"duplicate entry {c} in changes")
+        if c.voting_power < 0:
+            raise ValueError(f"voting power can't be negative: {c.voting_power}")
+        if c.voting_power > MAX_TOTAL_VOTING_POWER:
+            raise ValueError(f"voting power can't be higher than {MAX_TOTAL_VOTING_POWER}: {c.voting_power}")
+        if c.voting_power == 0:
+            removals.append(c)
+        else:
+            updates.append(c)
+        prev_addr = c.address
+    return updates, removals

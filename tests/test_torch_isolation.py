@@ -1,0 +1,98 @@
+"""The port stands alone and runs on the card unless told otherwise:
+importing every module of tendermint_tpu_torch loads no JAX and nothing of
+tendermint_tpu, a default-device verifier raises without CUDA instead of
+running on the host, and the cases this slice does not cover raise."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tendermint_tpu_torch.crypto import batch as B
+from tendermint_tpu_torch.crypto import ed25519 as ed
+from tendermint_tpu_torch.crypto import ed25519_ref as ref
+from tendermint_tpu_torch.ops import _build
+
+# The plain versions run many small ops: one intra-op thread per test
+# worker keeps parallel workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import tendermint_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "tendermint_tpu" or m.startswith("tendermint_tpu."))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def test_import_loads_no_jax_and_no_reference():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+def _jobs(n):
+    bv = ed.Ed25519BatchVerifier()
+    for i in range(n):
+        priv = ref.gen_privkey(bytes([i + 1]) * 32)
+        bv.add(ed.Ed25519PubKey(priv[32:]), b"m", ref.sign(priv, b"m"))
+    return bv
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TM_TPU_CRYPTO", "auto")
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _jobs(3).verify()
+    # routing by size is not a fallback: below the cutover the host verifies
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 64)
+    assert _jobs(3).verify() == (True, [True, True, True])
+    # an explicit request for the host path stays one
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
+    monkeypatch.setenv("TM_TPU_CRYPTO", "off")
+    assert _jobs(3).verify() == (True, [True, True, True])
+
+
+def test_uncovered_settings_raise(monkeypatch):
+    monkeypatch.setenv("TM_TPU_CRYPTO", "on")
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
+    monkeypatch.setattr(ed, "MSM_BATCH_CUTOVER", 2)
+    monkeypatch.setenv("TM_TPU_MSM_CACHE", "on")
+    bv = _jobs(2)
+    bv.device = "cpu"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        bv.verify()
+
+    class Sr25519Key(ed.Ed25519PubKey):
+        type_name = "sr25519"
+
+    assert B.supports_batch_verifier(Sr25519Key(b"\x01" * 32))
+    with pytest.raises(NotImplementedError, match="sr25519 slice"):
+        B.create_batch_verifier(Sr25519Key(b"\x01" * 32))
+    with pytest.raises(ValueError, match="pubkey is not ed25519"):
+        B.create_batch_verifier(ed.Ed25519PubKey(b"\x01" * 32)).add(Sr25519Key(b"\x01" * 32), b"", b"\x00" * 64)
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    """No quiet fallback when the toolkit is missing: the build raises."""
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", os.path.join(ROOT, "no-such-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+    assert set(_build.KERNELS) == {"verify", "pk_tables", "verify_cached", "msm"}
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").exists()
