@@ -12,11 +12,16 @@ Phases, each fatal on failure:
      pure-Python oracle;
   3. the main path: verify_commit on commits of 150, 1,000 and 10,000
      validators (valid, and with one tampered signature that must be
-     reported at its index), with every kernel's launch counter set to 0
-     just before and read just after;
-  4. times: each kernel with CUDA events at the main path's shapes beside
-     its plain version, its bound and its launches, and the end-to-end
-     verify_commit wall times.
+     reported at its index), every kernel's launch counter set to 0 just
+     before each call and read just after, and held to the launches that
+     call must make;
+  4. each kernel against its plain version again, on the rows phase 3's
+     commits give it (16384 rows for the uncached bitmap, 1024 for the
+     cache fill and the cache hit through the main path's own cache, both
+     for the RLC, in both verdicts with one z_raw), exact equality and the
+     tampered row alone invalid; the same calls timed with CUDA events
+     beside the plain version, the bound and the launches, and the
+     end-to-end verify_commit wall times.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -49,10 +54,6 @@ MULS_PER_FE_SQ = 36
 # csrc/ge25519.cuh: decode 256S+19M, addition 8M (+1 for T), doubling
 # 4S+3M (+1 for T), cofactored equality tail 24S+22M.
 DECODE = (256, 19)
-
-# Padded row counts of the main path's 1,000- and 10,000-validator commits.
-TIMING_ROWS = (1024, 16384)
-
 
 def _ops(squares: int, mults: int) -> int:
     return squares * MULS_PER_FE_SQ + mults * MULS_PER_FE_MUL
@@ -269,22 +270,21 @@ def check_kernels(rng, dev):
 # -- phase 3: the main path ---------------------------------------------------
 
 
-def reset_counts():
+def kernel_wrappers():
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
 
-    for fn in (V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
-               M.msm_verify_kernel):
+    return (V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
+            M.msm_verify_kernel)
+
+
+def reset_counts():
+    for fn in kernel_wrappers():
         fn.launches = 0
 
 
 def read_counts():
-    from tendermint_tpu_torch.ops import msm as M
-    from tendermint_tpu_torch.ops import verify as V
-
-    return {fn.__name__: fn.launches for fn in (
-        V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
-        M.msm_verify_kernel)}
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
 def timed(fn):
@@ -307,65 +307,82 @@ def expect_wrong_signature(fn, idx):
     raise AssertionError(f"tampered signature #{idx} was accepted")
 
 
-def main_path(pool, rng, seeds, pubs, sizes=(150, 1000, 10000), device=None):
+# The launches each main-path call must make, in the order of the calls. The
+# pubkey cache starts empty, and the 150 validators' keys are among the
+# 1,000's: a valid commit of 256 or more signatures runs the RLC alone; a
+# tampered one then runs the bitmap plane, through the cache (fill, then
+# hit) up to 4,096 distinct keys and uncached beyond; the 150-validator
+# commit goes straight to the cached bitmap, and the trusting check stops
+# at 51 signatures, below the 64-signature cutover, so it runs on the host.
+EXPECTED_LAUNCHES = {
+    (150, "valid"): {"build_pk_tables_split": 1, "verify_kernel_cached_split": 1},
+    (150, "trusting"): {},
+    (1000, "valid"): {"msm_verify_kernel": 1},
+    (1000, "tampered"): {"msm_verify_kernel": 1, "build_pk_tables_split": 1,
+                         "verify_kernel_cached_split": 1},
+    (10000, "valid"): {"msm_verify_kernel": 1},
+    (10000, "tampered"): {"msm_verify_kernel": 1, "verify_kernel": 1},
+}
+SIZES = (150, 1000, 10000)
+
+
+def main_path(pool, rng, seeds, pubs, chain_id):
+    """verify_commit on each commit, with every launch counter set to 0 just
+    before each call and read just after; returns the commits, the tampered
+    index of each, the summed launches and the wall times."""
     from tendermint_tpu_torch.types.validation import (
         Fraction, verify_commit, verify_commit_light_trusting,
     )
 
-    chain_id = "chip-smoke"
-    commits = {n: build_commit(pool, seeds, pubs, rng, n, chain_id, 100 + n) for n in sizes}
-    bad_index = {n: (n * 5) // 12 for n in sizes}
+    commits = {n: build_commit(pool, seeds, pubs, rng, n, chain_id, 100 + n) for n in SIZES}
+    bad_index = {n: (n * 5) // 12 for n in SIZES}
+    totals = dict.fromkeys(read_counts(), 0)
     runs = []
-    reset_counts()
+
+    def drive(n, kind, fn):
+        reset_counts()
+        out, t = timed(fn)
+        got = read_counts()
+        want = {name: EXPECTED_LAUNCHES[n, kind].get(name, 0) for name in got}
+        if got != want:
+            raise AssertionError(f"{kind} call on {n} validators launched {got}, expected {want}")
+        for name, c in got.items():
+            totals[name] += c
+        return out, t
+
     for n, (vals, bid, commit) in commits.items():
-        _, t = timed(lambda: verify_commit(chain_id, vals, bid, commit.height, commit, device))
+        _, t = drive(n, "valid", lambda: verify_commit(chain_id, vals, bid, commit.height, commit))
         runs.append({"commit": n, "run": "verify_commit valid", "s": t, "sigs_per_s": n / t})
-        if n == sizes[0]:
-            _, t = timed(lambda: verify_commit_light_trusting(
-                chain_id, vals, commit, Fraction(1, 3), device))
+        if n == SIZES[0]:
+            _, t = drive(n, "trusting", lambda: verify_commit_light_trusting(
+                chain_id, vals, commit, Fraction(1, 3)))
             runs.append({"commit": n, "run": "verify_commit_light_trusting 1/3", "s": t})
             continue
         bad = bad_index[n]
         good = commit.signatures[bad].signature
         commit.signatures[bad].signature = tamper(good)
-        msg, t = timed(lambda: expect_wrong_signature(
-            lambda: verify_commit(chain_id, vals, bid, commit.height, commit, device), bad))
+        msg, t = drive(n, "tampered", lambda: expect_wrong_signature(
+            lambda: verify_commit(chain_id, vals, bid, commit.height, commit), bad))
         commit.signatures[bad].signature = good
         runs.append({"commit": n, "run": f"verify_commit tampered #{bad}", "s": t, "sigs_per_s": n / t,
                      "error": msg[:40]})
-    counts = read_counts()
-    # the host share of the largest commit: challenges and RLC scalars
-    from tendermint_tpu_torch.ops import msm as M
-    from tendermint_tpu_torch.ops import verify as V
-
-    n = sizes[-1]
-    vals, _, commit = commits[n]
-    jobs = ([v.pub_key.bytes() for v in vals.validators],
-            [commit.vote_sign_bytes(chain_id, i) for i in range(n)],
-            [cs.signature for cs in commit.signatures])
-    t0 = time.perf_counter()
-    a, r, s_rows, k_rows, _ = V.prepare_batch(*jobs)
-    t1 = time.perf_counter()
-    M._rlc_scalars_py(s_rows, k_rows, n, M._ensure_z_raw(n, None))
-    t2 = time.perf_counter()
-    runs.append({"commit": n, "run": "host prep: challenges, RLC scalars", "s": t2 - t0,
-                 "prepare_batch_s": t1 - t0, "rlc_scalars_s": t2 - t1})
     for r in runs:
         log("phase 3: " + json.dumps(r))
-    log(f"phase 3: launches {json.dumps(counts)}")
-    idle = [k for k, v in counts.items() if v == 0]
+    log(f"phase 3: launches {json.dumps(totals)}")
+    idle = [k for k, v in totals.items() if v == 0]
     if idle:
         raise AssertionError(f"main path never launched {idle}")
-    return counts, runs
+    return commits, bad_index, totals, runs
 
 
-# -- phase 4: times -----------------------------------------------------------
+# -- phase 4: kernels at the main path's shapes, and times --------------------
 
 
-def event_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int):
+    """(first output, mean ms of reps launches after two warm-up launches)."""
     import torch
 
-    fn()
+    out = fn()
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -374,21 +391,23 @@ def event_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
 
 
-def plain_ms(fn) -> float:
-    """One warm run and one timed run (the plain versions take seconds)."""
+def plain_ms(fn, warm: bool = True):
+    """(output, ms) of one timed run, after one warm run unless the caller
+    has just run the same shapes (the plain versions take seconds)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(ops: int, nbytes: int, int32_rate: float):
@@ -397,70 +416,128 @@ def bound_ms(ops: int, nbytes: int, int32_rate: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_kernels(rng, dev, pubs, counts, errs, int32_rate):
+def commit_jobs(commit_entry, chain_id, bad=None):
+    """The (pubkeys, messages, signatures) verify_commit hands the batch
+    verifier, with signature #bad tampered when bad is given."""
+    vals, _, commit = commit_entry
+    sigs = [cs.signature for cs in commit.signatures]
+    if bad is not None:
+        sigs[bad] = tamper(sigs[bad])
+    return ([v.pub_key.bytes() for v in vals.validators],
+            [commit.vote_sign_bytes(chain_id, i) for i in range(len(sigs))], sigs)
+
+
+def kernels_at_main_path(rng, dev, chain_id, commits, bad_index, counts, errs, int32_rate, runs):
+    """Hold each kernel against its plain version on the rows phase 3's
+    commits give it (exact equality), check the verdicts, and time those
+    same calls."""
     import numpy as np
     import torch
 
+    from tendermint_tpu_torch.ops import field as F
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
 
-    def rows(n, width=32):
-        return torch.from_numpy(rng.integers(0, 256, size=(n, width), dtype=np.uint8)).to(dev)
+    def cuda(arrays):
+        return V._to_device(arrays, dev)
 
-    def keys(n):  # the validators' keys, repeated to fill the padded rows
-        enc = np.frombuffer(b"".join(pubs), np.uint8).reshape(-1, 32)
-        return torch.from_numpy(np.resize(enc, (n, 32))).to(dev)
+    def expect_bitmap(name, out, pre, n, bad):
+        ok = out[:n].cpu().numpy() & pre
+        if ok[bad] or int(ok.sum()) != n - 1:
+            raise AssertionError(f"{name}: bitmap on the tampered {n}-validator commit has "
+                                 f"{n - int(ok.sum())} invalid rows, #{bad} valid={bool(ok[bad])}")
 
-    def scalars(n, width=32):
-        x = rows(n, width)
-        if width == 32:
-            x[:, 31] &= 0x0F  # below L's top byte, as reduced scalars are
-        return x
-
-    specs = []
-    n = TIMING_ROWS[-1]  # the 10,000-validator commit, padded
-    a, r, s, k = keys(n), keys(n).roll(1, 0).contiguous(), scalars(n), scalars(n)
-    specs.append(("verify_kernel", "csrc/verify.cu", "tendermint_tpu/ops/verify.py:81", n,
-                  lambda: V.verify_kernel(a, r, s, k), lambda: V.verify_kernel_plain(a, r, s, k),
-                  ops_verify(n), 128 * n + n, 5))
-    n = TIMING_ROWS[0]  # the 1,000-validator commit's cache fill, padded
-    a1 = keys(n)
-    specs.append(("build_pk_tables_split", "csrc/pk_tables.cu", "tendermint_tpu/ops/verify.py:141", n,
-                  lambda: V.build_pk_tables_split(a1), lambda: V.build_pk_tables_split_plain(a1),
-                  ops_pk_tables(n), 32 * n + n * (4 * 16 * 4 * 32 * 2 + 1), 10))
-    tabs, oks = V.build_pk_tables_split(a1)
-    slots = torch.arange(n, dtype=torch.int32, device=dev)
-    r1, s1, k1 = keys(n).roll(1, 0).contiguous(), scalars(n), scalars(n)
-    specs.append(("verify_kernel_cached_split", "csrc/verify_cached.cu",
-                  "tendermint_tpu/ops/verify.py:157", n,
-                  lambda: V.verify_kernel_cached_split(tabs, oks, slots, r1, s1, k1),
-                  lambda: V.verify_kernel_cached_split_plain(tabs, oks, slots, r1, s1, k1),
-                  ops_verify_cached(n), n * (4 + 96 + 1 + 1 + 4 * 16 * 4 * 32 * 2), 10))
-    for n in TIMING_ROWS:  # the 1,000- and 10,000-validator commits
-        g = M._streams(n)
-        am, rm, zk, z, zs = keys(n), keys(n).roll(1, 0).contiguous(), scalars(n), scalars(n, 16), scalars(1)
-        specs.append(("msm_verify_kernel", "csrc/msm.cu", "tendermint_tpu/ops/msm.py:162", n,
-                      (lambda am=am, rm=rm, zk=zk, z=z, zs=zs: M.msm_verify_kernel(am, rm, zk, z, zs)),
-                      (lambda am=am, rm=rm, zk=zk, z=z, zs=zs: M.msm_verify_kernel_plain(am, rm, zk, z, zs)),
-                      ops_msm(n, g), n * (32 + 32 + 32 + 16) + 32 + 1, 5))
-
-    launches_before = read_counts()
     records = {}
-    for name, src, replaces, n, kern, plain, ops, nbytes, reps in specs:
-        ms = event_ms(kern, reps)
-        p_ms = plain_ms(plain)
+
+    def record(name, src, replaces, n, ms, p_ms, err, ops, nbytes):
         b_ms, b_by = bound_ms(ops, nbytes, int32_rate)
-        rec = {"name": name, "route": "cuda", "source": f"tendermint_tpu_torch/{src}",
-               "replaces": replaces, "launches": counts[name], "max_abs_err": errs[name],
-               "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None, "rows": n}
-        log(f"phase 4: {name} rows={n} kernel {ms:.3f} ms, plain {p_ms:.1f} ms, "
+        log(f"phase 4: {name} rows={n} == plain; kernel {ms:.3f} ms, plain {p_ms:.1f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {counts[name]} launches on the main path")
-        records[name] = rec  # the largest main-path shape is kept
-    # timing launches are not main-path launches
-    for fn, c in zip((V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
-                      M.msm_verify_kernel), launches_before.values()):
-        fn.launches = c
+        records[name] = {  # the largest main-path shape is kept
+            "name": name, "route": "cuda", "source": f"tendermint_tpu_torch/{src}",
+            "replaces": replaces, "launches": counts[name], "max_abs_err": max(errs[name], err),
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "rows": n}
+
+    # verify_kernel: the tampered 10,000-validator commit (16384 rows)
+    n, bad = 10000, bad_index[10000]
+    a, r, s, k, pre = V.prepare_batch(*commit_jobs(commits[n], chain_id, bad))
+    rows = cuda(V.pad_pow2_rows([a, r, s, k], n))
+    got, ms = event_ms(lambda: V.verify_kernel(*rows), 5)
+    want, p_ms = plain_ms(lambda: V.verify_kernel_plain(*rows))
+    if not torch.equal(got, want):
+        raise AssertionError(f"verify_kernel: {int((got != want).sum())} rows differ from plain")
+    expect_bitmap("verify_kernel", got, pre, n, bad)
+    record("verify_kernel", "csrc/verify.cu", "tendermint_tpu/ops/verify.py:81", len(rows[0]),
+           ms, p_ms, 0, ops_verify(len(rows[0])), 129 * len(rows[0]))
+
+    # build_pk_tables_split and verify_kernel_cached_split: the tampered
+    # 1,000-validator commit (1024 rows)
+    n, bad = 1000, bad_index[1000]
+    jobs = commit_jobs(commits[n], chain_id, bad)
+    a, r, s, k, pre = V.prepare_batch(*jobs)
+    a, r, s, k = cuda(V.pad_pow2_rows([a, r, s, k], n))
+    m = len(a)
+    (tabs, oks), ms = event_ms(lambda: V.build_pk_tables_split(a), 10)
+    (ptabs, poks), p_ms = plain_ms(lambda: V.build_pk_tables_split_plain(a))
+
+    def canonical(t):  # limb axis first for fe_canonical, and back
+        return F.fe_canonical(t.to(torch.int32).permute(4, 0, 1, 2, 3)).permute(1, 2, 3, 4, 0)
+
+    err = int((canonical(tabs) - canonical(ptabs)).abs().max())
+    if err or not torch.equal(oks, poks) or not bool(oks.all()):
+        raise AssertionError(f"build_pk_tables_split: max |kernel - plain| after fe_canonical = {err}, "
+                             f"{int((oks != poks).sum())} decode bits differ")
+    if not torch.equal(tabs.to(torch.int32), canonical(tabs)):
+        raise AssertionError("build_pk_tables_split: the kernel wrote non-canonical coordinates")
+    record("build_pk_tables_split", "csrc/pk_tables.cu", "tendermint_tpu/ops/verify.py:141", m,
+           ms, p_ms, err, ops_pk_tables(m), m * (32 + 4 * 16 * 4 * 32 * 2 + 1))
+
+    # the main path's own cache, which phase 3 filled with these keys: its
+    # slots and tables as dispatch_cached hands them to the kernel
+    slots, cache_t, cache_o = V.pubkey_cache(dev).ensure_snapshot(jobs[0])
+    (slots,) = cuda([np.pad(slots, (0, m - n))])
+    args = (cache_t, cache_o, slots, r, s, k)
+    got, ms = event_ms(lambda: V.verify_kernel_cached_split(*args), 10)
+    want, p_ms = plain_ms(lambda: V.verify_kernel_cached_split_plain(*args))
+    if not torch.equal(got, want):
+        raise AssertionError(f"verify_kernel_cached_split: {int((got != want).sum())} rows differ from plain")
+    expect_bitmap("verify_kernel_cached_split", got, pre, n, bad)
+    record("verify_kernel_cached_split", "csrc/verify_cached.cu", "tendermint_tpu/ops/verify.py:157",
+           m, ms, p_ms, 0, ops_verify_cached(m), m * (4 + 96 + 1 + 1 + 4 * 16 * 4 * 32 * 2))
+
+    # msm_verify_kernel: the 1,000- and 10,000-validator commits, valid and
+    # tampered, with one z_raw for both verdicts
+    for n in (1000, 10000):
+        z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
+        verdicts = {}
+        for label, bad in (("valid", None), ("tampered", bad_index[n])):
+            jobs = commit_jobs(commits[n], chain_id, bad)
+            t0 = time.perf_counter()
+            a, r, s_rows, k_rows, pre = V.prepare_batch(*jobs)
+            t1 = time.perf_counter()
+            zk, z, zs = M._rlc_scalars_py(s_rows, k_rows, n, z_raw)
+            t2 = time.perf_counter()
+            if n == SIZES[-1] and bad is None:
+                runs.append({"commit": n, "run": "host prep: challenges, RLC scalars", "s": t2 - t0,
+                             "prepare_batch_s": t1 - t0, "rlc_scalars_s": t2 - t1})
+            if not pre.all():
+                raise AssertionError(f"msm_verify_kernel: the {label} {n}-validator commit fails the precheck")
+            rows = cuda(V.pad_pow2_rows([a, r, zk, z], n) + [zs])
+            if bad is None:  # time the valid polarity; it warms the plain version's shapes
+                got, ms = event_ms(lambda: M.msm_verify_kernel(*rows), 5)
+                want = M.msm_verify_kernel_plain(*rows)
+            else:
+                got = M.msm_verify_kernel(*rows)
+                want, p_ms = plain_ms(lambda: M.msm_verify_kernel_plain(*rows), warm=False)
+            if bool(got) != bool(want) or bool(got) != (bad is None):
+                raise AssertionError(f"msm_verify_kernel ({label}, {n} validators): "
+                                     f"kernel {bool(got)} plain {bool(want)}")
+            verdicts[label] = bool(got)
+        m = len(rows[0])
+        log(f"phase 4: msm_verify_kernel verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
+        record("msm_verify_kernel", "csrc/msm.cu", "tendermint_tpu/ops/msm.py:162", m, ms, p_ms, 0,
+               ops_msm(m, M._streams(m)), m * (32 + 32 + 32 + 16) + 32 + 1)
     return list(records.values())
 
 
@@ -489,7 +566,6 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    card = nvidia_smi("name,power.limit").replace(", ", ",")
     card_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -510,22 +586,24 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     errs = check_kernels(rng, dev)
     if args.kernels_only:
-        log(f"kernels only: stopping after phase 2 on {card}")
+        log(f"kernels only: stopping after phase 2 on {card_line}")
         return 0
 
     t0 = time.perf_counter()
-    seeds = [rng.bytes(32) for _ in range(10000)]
+    seeds = [rng.bytes(32) for _ in range(SIZES[-1])]
+    chain_id = "chip-smoke"
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(workers) as pool:
         pubs = make_keys(pool, seeds)
         log(f"phase 3: {len(pubs)} validator keys in {time.perf_counter() - t0:.1f} s")
-        counts, runs = main_path(pool, rng, seeds, pubs)
-    kernels = time_kernels(rng, dev, pubs, counts, errs, int32_rate)
+        commits, bad_index, counts, runs = main_path(pool, rng, seeds, pubs, chain_id)
+    kernels = kernels_at_main_path(rng, dev, chain_id, commits, bad_index, counts, errs,
+                                   int32_rate, runs)
     for r in runs:
         log(f"phase 4: {r['run']} on {r['commit']} validators: {r['s'] * 1e3:.1f} ms"
             + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else ""))
-    log(f"phase 4: card {card}; total {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 4: card {card_line}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,11 @@
 // Bound on this card: integer multiplies. Per row: two decodes (about 265
 // field multiplications each), two 16-multiples tables (14 additions
 // each, 9M) and 96 window additions (9M): about 1,650 field
-// multiplications, each at least 100 32x32->64-bit multiplies. The tail
-// (Horner over 64 windows per stream, the stream tree, the fixed-base comb
-// and the cofactor) is a fixed cost of about 330,000 field multiplications
+// multiplications, each at least 64 32-bit multiplies (36 for a square),
+// the count the bound in chip_smoke.py uses; this design issues 100 wide
+// multiplies per product and per square. The tail (Horner over 64
+// windows per stream, the stream tree, the fixed-base comb and the
+// cofactor) is a fixed cost of about 330,000 field multiplications
 // for G = 128 streams, shared by the whole batch.
 //
 // Design: three launches from one entry point, on the caller's stream.

@@ -14,8 +14,10 @@
 //
 // Bound on this card: integer multiplies. A key costs one decode (about
 // 265 field multiplications), 192 doublings (7-8M) and 4 x 14 additions
-// (9M): about 2,300 field multiplications, each at least 100 32x32->64-bit
-// multiplies; 256 canonicalizations; 32 bytes in and 16 KiB out.
+// (9M): about 2,300 field multiplications, each at least 64 32-bit
+// multiplies (36 for a square), the count the bound in chip_smoke.py uses;
+// this design issues 100 wide multiplies per product and per square.
+// 256 canonicalizations; 32 bytes in and 16 KiB out.
 //
 // Design: one thread per key; each table entry is canonicalized and
 // written as it is produced, so nothing but the running point stays live.

@@ -8,8 +8,10 @@
 // Bound on this card: integer multiplies. A row decodes two points (about
 // 265 field multiplications each), builds 15 table entries (9M each) and
 // runs 63 windows of 4 doublings and 2 additions plus the 6 cofactor
-// doublings: about 4,400 field multiplications, each at least 100
-// 32x32->64-bit multiplies. Memory traffic is 128 bytes in and 1 byte out.
+// doublings: about 4,400 field multiplications, each at least 64 32-bit
+// multiplies (36 for a square), the count the bound in chip_smoke.py uses;
+// this design issues 100 wide multiplies per product and per square.
+// Memory traffic is 128 bytes in and 1 byte out.
 //
 // Design: one thread per signature with the ten-limb radix-2^25.5 field
 // (fe25519.cuh). The 16-multiples table of -A lives in scratch that the

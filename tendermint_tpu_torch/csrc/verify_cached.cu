@@ -8,7 +8,9 @@
 // Bound on this card: integer multiplies. A row decodes R (about 265 field
 // multiplications), runs 16 steps of 4 doublings and 8 additions and the
 // 6 cofactor doublings: about 1,900 field multiplications, each at least
-// 100 32x32->64-bit multiplies. It reads 96 bytes of input, and 64 table
+// 64 32-bit multiplies (36 for a square), the count the bound in
+// chip_smoke.py uses; this design issues 100 wide multiplies per product
+// and per square. It reads 96 bytes of input, and 64 table
 // entries of 256 bytes (16 KiB) from the cache.
 //
 // Design: one thread per signature. Cache entries are int16 radix-2^8
