@@ -3,25 +3,27 @@
 
     python3 chip_smoke.py [--seed N] [--kernels-only]
 
-Phases, each fatal on failure:
+Both signature planes run the same phases, each fatal on failure:
   1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
      and print the card's name and power limit;
-  2. hold each kernel against its plain PyTorch version on the card at 64
-     rows with tampered rows and the ZIP-215 edge encodings (exact
-     equality: the arithmetic is integer), and the bitmap against the
-     pure-Python oracle;
-  3. the main path: verify_commit on commits of 150, 1,000 and 10,000
-     validators (valid, and with one tampered signature that must be
-     reported at its index), every kernel's launch counter set to 0 just
-     before each call and read just after, and held to the launches that
-     call must make;
+  2. hold each kernel against its plain PyTorch version on the card on an
+     edge batch (exact equality: the arithmetic is integer): tampered
+     rows, the ZIP-215 edge encodings for ed25519, the RFC 9496 bad
+     encodings, a missing marker bit, s >= L and a zero row for sr25519;
+     and the bitmap against the plane's pure-Python oracle;
+  3. the main path: verify_commit on ed25519 and on sr25519 validator sets
+     of 150, 1,000 and 10,000 validators (valid, and with one tampered
+     signature that must be reported at its index), every kernel's launch
+     counter set to 0 just before each call and read just after, and held
+     to the launches that call must make;
   4. each kernel against its plain version again, on the rows phase 3's
      commits give it (16384 rows for the uncached bitmap, 1024 for the
      cache fill and the cache hit through the main path's own cache, both
      for the RLC, in both verdicts with one z_raw), exact equality and the
      tampered row alone invalid; the same calls timed with CUDA events
-     beside the plain version, the bound and the launches, and the
-     end-to-end verify_commit wall times.
+     beside the plain version, the bound and the launches, the host prep
+     of the 10,000-validator commits, and the end-to-end verify_commit
+     wall times.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -36,8 +38,10 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PLANES = ("ed25519", "sr25519")
 
 # Published H100 SXM memory rate (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -50,10 +54,14 @@ INT32_LANES_PER_SM = 64
 MULS_PER_FE_MUL = 64
 MULS_PER_FE_SQ = 36
 
-# Field multiplications (M) and squarings (S) of each formula, counted from
-# csrc/ge25519.cuh: decode 256S+19M, addition 8M (+1 for T), doubling
-# 4S+3M (+1 for T), cofactored equality tail 24S+22M.
+# Field squarings (S) and multiplications (M) of each formula, counted from
+# csrc/ge25519.cuh and csrc/ristretto.cuh: ZIP-215 decode 256S+19M,
+# ristretto decode 256S+18M, ristretto encode 255S+21M, addition 8M (+1
+# for T), doubling 4S+3M (+1 for T), cofactored equality tail 24S+22M.
 DECODE = (256, 19)
+RDECODE = (256, 18)
+RENCODE = (255, 21)
+
 
 def _ops(squares: int, mults: int) -> int:
     return squares * MULS_PER_FE_SQ + mults * MULS_PER_FE_MUL
@@ -66,9 +74,16 @@ def ops_verify(n: int) -> int:
                     2 * DECODE[1] + 14 * 9 + 8 + 63 * (13 + 9 + 8) + 22)
 
 
-def ops_pk_tables(n: int) -> int:
+def ops_verify_sr(n: int) -> int:
+    # 1 ristretto decode, 14 table additions, top window add, 63 windows
+    # (the last addition with T), 1 encode
+    return n * _ops(RDECODE[0] + 63 * 16 + RENCODE[0],
+                    RDECODE[1] + 14 * 9 + 8 + 63 * (13 + 9 + 8) + 1 + RENCODE[1])
+
+
+def ops_pk_tables(n: int, decode=DECODE) -> int:
     # decode, 3 power chains of 64 doublings, 4 tables of 14 additions
-    return n * _ops(DECODE[0] + 3 * 64 * 4, DECODE[1] + 3 * (64 * 3 + 1) + 4 * 14 * 9)
+    return n * _ops(decode[0] + 3 * 64 * 4, decode[1] + 3 * (64 * 3 + 1) + 4 * 14 * 9)
 
 
 def ops_verify_cached(n: int) -> int:
@@ -76,11 +91,19 @@ def ops_verify_cached(n: int) -> int:
     return n * _ops(DECODE[0] + 16 * 16 + 24, DECODE[1] + 16 * (13 + 8 * 8 + 7) + 22)
 
 
-def ops_msm(n: int, g: int) -> int:
-    per_row = _ops(2 * DECODE[0], 2 * DECODE[1] + 2 * 14 * 9 + 96 * 9)
+def ops_verify_sr_cached(n: int) -> int:
+    # 16 steps of 4 doublings and 8 additions (7 with T, and the last), encode
+    return n * _ops(16 * 16 + RENCODE[0], 16 * (13 + 8 * 8 + 7) + 1 + RENCODE[1])
+
+
+def ops_msm(n: int, g: int, sr: bool = False) -> int:
+    dec = RDECODE if sr else DECODE
+    per_row = _ops(2 * dec[0], 2 * dec[1] + 2 * 14 * 9 + 96 * 9)
     horner = _ops(63 * 16, 63 * (13 + 9))
-    fixed = _ops(12, (g - 1) * 9 + 64 * 9 + 8 + 9)
-    return n * per_row + g * horner + fixed
+    # the stream tree and the comb, then [zs]B added with T and one encode
+    # (sr25519), or added without T and 3 doublings (ed25519)
+    decide = _ops(RENCODE[0], 9 + RENCODE[1]) if sr else _ops(12, 8 + 9)
+    return n * per_row + g * horner + _ops(0, (g - 1) * 9 + 64 * 9) + decide
 
 
 def nvidia_smi(query: str) -> str:
@@ -95,11 +118,64 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# -- the two signature planes -------------------------------------------------
+
+
+def plane(kind: str) -> SimpleNamespace:
+    """One signature plane's host pieces, kernels, plain versions and
+    bound model, under shared names."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.ops import verify_sr as VS
+
+    if kind == "ed25519":
+        return SimpleNamespace(
+            kind=kind, prepare=V.prepare_batch, oracle=ref.verify, cache=V.pubkey_cache,
+            edges=edge_batch,
+            bitmap=V.verify_kernel, bitmap_plain=V.verify_kernel_plain,
+            fill=V.build_pk_tables_split, fill_plain=V.build_pk_tables_split_plain,
+            hit=V.verify_kernel_cached_split, hit_plain=V.verify_kernel_cached_split_plain,
+            rlc=M.msm_verify_kernel, rlc_plain=M.msm_verify_kernel_plain,
+            ops_bitmap=ops_verify, ops_fill=ops_pk_tables, ops_hit=ops_verify_cached,
+            ops_rlc=lambda n, g: ops_msm(n, g),
+        )
+    return SimpleNamespace(
+        kind=kind, prepare=VS.prepare_batch, oracle=sr.verify, cache=VS.sr_pubkey_cache,
+        edges=sr_edge_batch,
+        bitmap=VS.verify_sr_kernel, bitmap_plain=VS.verify_sr_kernel_plain,
+        fill=VS.build_sr_tables_split, fill_plain=VS.build_sr_tables_split_plain,
+        hit=VS.verify_sr_kernel_cached_split, hit_plain=VS.verify_sr_kernel_cached_split_plain,
+        rlc=M.msm_verify_sr_kernel, rlc_plain=M.msm_verify_sr_kernel_plain,
+        ops_bitmap=ops_verify_sr, ops_fill=lambda n: ops_pk_tables(n, RDECODE),
+        ops_hit=ops_verify_sr_cached, ops_rlc=lambda n, g: ops_msm(n, g, sr=True),
+    )
+
+
+# kernel -> (its source, the JAX program it replaces)
+KERNEL_SOURCES = {
+    "verify_kernel": ("csrc/verify.cu", "tendermint_tpu/ops/verify.py:81"),
+    "build_pk_tables_split": ("csrc/pk_tables.cu", "tendermint_tpu/ops/verify.py:141"),
+    "verify_kernel_cached_split": ("csrc/verify_cached.cu", "tendermint_tpu/ops/verify.py:157"),
+    "msm_verify_kernel": ("csrc/msm.cu", "tendermint_tpu/ops/msm.py:162"),
+    "verify_sr_kernel": ("csrc/verify_sr.cu", "tendermint_tpu/ops/verify_sr.py:46"),
+    "build_sr_tables_split": ("csrc/sr_tables.cu", "tendermint_tpu/ops/verify_sr.py:89"),
+    "verify_sr_kernel_cached_split": ("csrc/verify_sr_cached.cu", "tendermint_tpu/ops/verify_sr.py:112"),
+    "msm_verify_sr_kernel": ("csrc/msm_sr.cu", "tendermint_tpu/ops/msm.py:272"),
+}
+
+
 # -- keys and signatures (set-up, not timed) ---------------------------------
 
 
 def _sign_worker(job):
-    seed, msgs = job
+    kind, seed, msgs = job
+    if kind == "sr25519":
+        from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
+
+        priv = Sr25519PrivKey(seed)
+        return priv.pub_key().bytes(), [priv.sign(m) for m in msgs]
     try:
         from cryptography.hazmat.primitives import serialization
         from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PrivateKey
@@ -114,24 +190,27 @@ def _sign_worker(job):
         return priv[32:], [ref.sign(priv, m) for m in msgs]
 
 
-def make_keys(pool, seeds):
-    return [pub for pub, _ in pool.map(_sign_worker, [(s, []) for s in seeds], chunksize=64)]
+def make_keys(pool, kind, seeds):
+    return [pub for pub, _ in pool.map(_sign_worker, [(kind, s, []) for s in seeds], chunksize=64)]
 
 
-def sign_all(pool, seeds, msg_lists):
-    return [sigs for _, sigs in pool.map(_sign_worker, list(zip(seeds, msg_lists)), chunksize=64)]
+def sign_all(pool, kind, seeds, msg_lists):
+    jobs = [(kind, s, m) for s, m in zip(seeds, msg_lists)]
+    return [sigs for _, sigs in pool.map(_sign_worker, jobs, chunksize=64)]
 
 
-def build_commit(pool, seeds, pubs, rng, n, chain_id, height):
+def build_commit(pool, kind, seeds, pubs, rng, n, chain_id, height):
     """A commit of n validators of equal power, every one voting for the
     block, signed over the canonical vote sign bytes."""
     from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
     from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, PartSetHeader
     from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
     from tendermint_tpu_torch.utils.tmtime import Time
 
-    vals = ValidatorSet.new([Validator.new(Ed25519PubKey(pubs[i]), 10) for i in range(n)])
-    seed_of = {Ed25519PubKey(pubs[i]).address(): seeds[i] for i in range(n)}
+    key = Sr25519PubKey if kind == "sr25519" else Ed25519PubKey
+    vals = ValidatorSet.new([Validator.new(key(pubs[i]), 10) for i in range(n)])
+    seed_of = {key(pubs[i]).address(): seeds[i] for i in range(n)}
     block_id = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
     commit = Commit(height=height, round=0, block_id=block_id, signatures=[
         CommitSig.new_commit(v.address, Time(1_700_000_000 + i, 1000 * i + 7), b"")
@@ -139,7 +218,7 @@ def build_commit(pool, seeds, pubs, rng, n, chain_id, height):
     ])
     msgs = [commit.vote_sign_bytes(chain_id, i) for i in range(n)]
     order = [seed_of[v.address] for v in vals.validators]
-    for cs, sigs in zip(commit.signatures, sign_all(pool, order, [[m] for m in msgs])):
+    for cs, sigs in zip(commit.signatures, sign_all(pool, kind, order, [[m] for m in msgs])):
         cs.signature = sigs[0]
     return vals, block_id, commit
 
@@ -187,83 +266,145 @@ def edge_batch(rng, n=64):
     return pks, msgs, sigs
 
 
-def check_kernels(rng, dev):
+# RFC 9496 appendix A.2: encodings every ristretto255 decoder rejects
+# (non-canonical s, negative s, non-square x^2, negative xy, s = -1).
+RISTRETTO_BAD_ENCODINGS = [
+    "00ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff",
+    "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "f3ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "edffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "0100000000000000000000000000000000000000000000000000000000000000",
+    "01ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "ed57ffd8c914fb201471d1c3d245ce3c746fcbe63a3679d51b6a516ebebe0e20",
+    "26948d35ca62e643e26a83177332e6b6afeb9d08e4268b650f1f5bbd8d81d371",
+    "4eac077a713c57b4f4397629a4145982c661f48044dd3f96427d40b147d9742f",
+    "3eb858e78f5a7254d8c9731174a94f76755fd3941c0ac93735c07ba14579630e",
+    "ecffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "c7176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac037a",
+]
+
+
+def sr_edge_batch(rng, n=64):
+    """n rows: honest sr25519 signatures, tampered s and tampered R, the RFC
+    9496 bad encodings as keys, a missing marker bit, s >= L, and the zero
+    row (identity key, identity R, s = 0: valid)."""
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+
+    pks, msgs, sigs = [], [], []
+    for i in range(n - len(RISTRETTO_BAD_ENCODINGS) - 4):
+        priv = sr.Sr25519PrivKey(rng.bytes(32))
+        msg = b"chip-smoke-sr-%d" % i + rng.bytes(16)
+        sig = priv.sign(msg)
+        if i % 9 == 4:
+            sig = tamper(sig)
+        elif i % 9 == 7:
+            sig = bytes([sig[0] ^ 0x04]) + sig[1:]  # R
+        pks.append(priv.pub_key().bytes())
+        msgs.append(msg)
+        sigs.append(sig)
+    for enc in RISTRETTO_BAD_ENCODINGS:
+        pks.append(bytes.fromhex(enc)); msgs.append(msgs[0]); sigs.append(sigs[0])
+    # a bad R encoding on an honest key: R is compared, never decoded
+    pks.append(pks[0]); msgs.append(msgs[0]); sigs.append(bytes.fromhex(RISTRETTO_BAD_ENCODINGS[7]) + sigs[0][32:])
+    # the marker bit cleared
+    nomark = bytearray(sigs[0]); nomark[63] &= 0x7F
+    pks.append(pks[0]); msgs.append(msgs[0]); sigs.append(bytes(nomark))
+    # s + L with the marker bit: fails the host precheck
+    s = int.from_bytes(sigs[0][32:], "little") & ((1 << 255) - 1)
+    big = bytearray((s + sr.L).to_bytes(32, "little")); big[31] |= 0x80
+    pks.append(pks[0]); msgs.append(msgs[0]); sigs.append(sigs[0][:32] + bytes(big))
+    # the zero row, marked
+    pks.append(bytes(32)); msgs.append(b"zero"); sigs.append(bytes(63) + b"\x80")
+    return pks, msgs, sigs
+
+
+def canonical_tables(t):
+    """Cache tables with every coordinate made canonical (limb axis first
+    for fe_canonical, and back)."""
+    import torch
+
+    from tendermint_tpu_torch.ops import field as F
+
+    return F.fe_canonical(t.to(torch.int32).permute(4, 0, 1, 2, 3)).permute(1, 2, 3, 4, 0)
+
+
+def check_kernels(rng, dev, P):
+    """One plane's four kernels against their plain versions and its oracle
+    on the plane's edge batch; returns each kernel's max |error|."""
     import numpy as np
     import torch
 
-    from tendermint_tpu_torch.crypto import ed25519_ref as ref
-    from tendermint_tpu_torch.ops import field as F
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
 
     def cuda(*arrays):
-        return [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev) for a in arrays]
+        return V._to_device(list(arrays), dev)
 
     errs = {}
-    pks, msgs, sigs = edge_batch(rng)
+    pks, msgs, sigs = P.edges(rng)
     n = len(sigs)
-    a, r, s, k, pre = V.prepare_batch(pks, msgs, sigs)
+    a, r, s, k, pre = P.prepare(pks, msgs, sigs)
     a_d, r_d, s_d, k_d = cuda(a, r, s, k)
+    name = P.bitmap.__name__
 
-    got = V.verify_kernel(a_d, r_d, s_d, k_d)
-    want = V.verify_kernel_plain(a_d, r_d, s_d, k_d)
+    got = P.bitmap(a_d, r_d, s_d, k_d)
+    want = P.bitmap_plain(a_d, r_d, s_d, k_d)
     torch.cuda.synchronize()
-    oracle = np.array([ref.verify(p, m, g) for p, m, g in zip(pks, msgs, sigs)])
+    oracle = np.array([P.oracle(p, m, g) for p, m, g in zip(pks, msgs, sigs)])
     bitmap = got.cpu().numpy() & pre
     if not torch.equal(got, want) or not (bitmap == oracle).all():
-        raise AssertionError(f"verify_kernel: kernel {got.tolist()} plain {want.tolist()} "
+        raise AssertionError(f"{name}: kernel {got.tolist()} plain {want.tolist()} "
                              f"oracle {oracle.tolist()}")
-    errs["verify_kernel"] = 0
-    log(f"phase 2: verify_kernel == plain == oracle on {n} rows ({int(oracle.sum())} valid)")
+    errs[name] = 0
+    log(f"phase 2: {name} == plain == oracle on {n} rows ({int(oracle.sum())} valid)")
 
-    tabs, oks = V.build_pk_tables_split(a_d)
-    ptabs, poks = V.build_pk_tables_split_plain(a_d)
+    name = P.fill.__name__
+    tabs, oks = P.fill(a_d)
+    ptabs, poks = P.fill_plain(a_d)
     torch.cuda.synchronize()
-
-    def canonical(t):  # limb axis first for fe_canonical, and back
-        return F.fe_canonical(t.to(torch.int32).permute(4, 0, 1, 2, 3)).permute(1, 2, 3, 4, 0)
-
-    err = int((canonical(tabs) - canonical(ptabs)).abs().max())
+    err = int((canonical_tables(tabs) - canonical_tables(ptabs)).abs().max())
     if err or not torch.equal(oks, poks):
-        raise AssertionError(f"build_pk_tables_split: max |kernel - plain| after fe_canonical = {err}")
-    if tabs.is_cuda and not torch.equal(tabs.to(torch.int32), canonical(tabs)):
-        raise AssertionError("build_pk_tables_split: the kernel wrote non-canonical coordinates")
-    errs["build_pk_tables_split"] = err
-    log(f"phase 2: build_pk_tables_split == canonical(plain) on {n} keys, "
-        f"{tabs.numel() // 32} coordinates")
+        raise AssertionError(f"{name}: max |kernel - plain| after fe_canonical = {err}")
+    if tabs.is_cuda and not torch.equal(tabs.to(torch.int32), canonical_tables(tabs)):
+        raise AssertionError(f"{name}: the kernel wrote non-canonical coordinates")
+    errs[name] = err
+    log(f"phase 2: {name} == canonical(plain) on {n} keys, {tabs.numel() // 32} coordinates "
+        f"({int(oks.sum())} decode)")
 
+    name = P.hit.__name__
     perm = torch.from_numpy(rng.permutation(n).astype(np.int64)).to(dev)
     cache_t = torch.empty_like(tabs).index_copy_(0, perm, tabs)
     cache_o = torch.empty_like(oks).index_copy_(0, perm, oks)
     slots = perm.to(torch.int32)
-    got = V.verify_kernel_cached_split(cache_t, cache_o, slots, r_d, s_d, k_d)
-    want = V.verify_kernel_cached_split_plain(cache_t, cache_o, slots, r_d, s_d, k_d)
+    got = P.hit(cache_t, cache_o, slots, r_d, s_d, k_d)
+    want = P.hit_plain(cache_t, cache_o, slots, r_d, s_d, k_d)
     # the plain fill's signed limbs through the kernel (the carried-across cache)
     plain_cache = torch.empty_like(ptabs).index_copy_(0, perm, ptabs)
-    got_signed = V.verify_kernel_cached_split(plain_cache, cache_o, slots, r_d, s_d, k_d)
+    got_signed = P.hit(plain_cache, cache_o, slots, r_d, s_d, k_d)
     torch.cuda.synchronize()
     if not (torch.equal(got, want) and torch.equal(got, got_signed)) or not (
             (got.cpu().numpy() & pre) == oracle).all():
-        raise AssertionError(f"verify_kernel_cached_split: kernel {got.tolist()} plain {want.tolist()}")
-    errs["verify_kernel_cached_split"] = 0
-    log(f"phase 2: verify_kernel_cached_split == plain == oracle on {n} rows (both table forms)")
+        raise AssertionError(f"{name}: kernel {got.tolist()} plain {want.tolist()}")
+    errs[name] = 0
+    log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms)")
 
+    name = P.rlc.__name__
     keep = [i for i in range(n) if oracle[i]]
     bad = next(i for i in range(n) if pre[i] and not oracle[i])  # a tampered row
     for label, idx in (("valid", keep), ("tampered", keep[:-1] + [bad])):
         bp, bm, bs = [pks[i] for i in idx], [msgs[i] for i in idx], [sigs[i] for i in idx]
-        a2, r2, s2, k2, pre2 = V.prepare_batch(bp, bm, bs)
+        a2, r2, s2, k2, pre2 = P.prepare(bp, bm, bs)
         z_raw = rng.bytes(16 * len(idx))
         zk, z, zs = M._rlc_scalars_py(s2, k2, len(idx), z_raw)
         rows = cuda(*V.pad_pow2_rows([a2, r2, zk, z], len(idx)), zs)
-        got = M.msm_verify_kernel(*rows)
-        want = M.msm_verify_kernel_plain(*rows)
+        got = P.rlc(*rows)
+        want = P.rlc_plain(*rows)
         torch.cuda.synchronize()
         expect = label == "valid"
         if bool(got) != bool(want) or bool(got) != expect:
-            raise AssertionError(f"msm_verify_kernel ({label}): kernel {bool(got)} plain {bool(want)}")
-        log(f"phase 2: msm_verify_kernel == plain == {expect} on a {label} batch of {len(idx)} rows")
-    errs["msm_verify_kernel"] = 0
+            raise AssertionError(f"{name} ({label}): kernel {bool(got)} plain {bool(want)}")
+        log(f"phase 2: {name} == plain == {expect} on a {label} batch of {len(idx)} rows")
+    errs[name] = 0
     return errs
 
 
@@ -273,9 +414,11 @@ def check_kernels(rng, dev):
 def kernel_wrappers():
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.ops import verify_sr as VS
 
     return (V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
-            M.msm_verify_kernel)
+            M.msm_verify_kernel, VS.verify_sr_kernel, VS.build_sr_tables_split,
+            VS.verify_sr_kernel_cached_split, M.msm_verify_sr_kernel)
 
 
 def reset_counts():
@@ -307,65 +450,84 @@ def expect_wrong_signature(fn, idx):
     raise AssertionError(f"tampered signature #{idx} was accepted")
 
 
-# The launches each main-path call must make, in the order of the calls. The
-# pubkey cache starts empty, and the 150 validators' keys are among the
-# 1,000's: a valid commit of 256 or more signatures runs the RLC alone; a
-# tampered one then runs the bitmap plane, through the cache (fill, then
-# hit) up to 4,096 distinct keys and uncached beyond; the 150-validator
-# commit goes straight to the cached bitmap, and the trusting check stops
-# at 51 signatures, below the 64-signature cutover, so it runs on the host.
-EXPECTED_LAUNCHES = {
-    (150, "valid"): {"build_pk_tables_split": 1, "verify_kernel_cached_split": 1},
-    (150, "trusting"): {},
-    (1000, "valid"): {"msm_verify_kernel": 1},
-    (1000, "tampered"): {"msm_verify_kernel": 1, "build_pk_tables_split": 1,
-                         "verify_kernel_cached_split": 1},
-    (10000, "valid"): {"msm_verify_kernel": 1},
-    (10000, "tampered"): {"msm_verify_kernel": 1, "verify_kernel": 1},
-}
+def _expected(bitmap, fill, hit, rlc):
+    """The launches each main-path call of one plane must make. Each plane
+    has its own pubkey cache, which starts empty, and the 150 validators'
+    keys are among the 1,000's: a valid commit of 256 or more signatures
+    runs the RLC alone; a tampered one then runs the bitmap plane, through
+    the cache (fill, then hit) up to 4,096 distinct keys and uncached
+    beyond; the 150-validator commit goes straight to the cached bitmap,
+    and the trusting check stops at 51 signatures, below the 64-signature
+    cutover, so it runs on the host."""
+    small, mid, large = SIZES
+    return {
+        (small, "valid"): {fill: 1, hit: 1},
+        (small, "trusting"): {},
+        (mid, "valid"): {rlc: 1},
+        (mid, "tampered"): {rlc: 1, fill: 1, hit: 1},
+        (large, "valid"): {rlc: 1},
+        (large, "tampered"): {rlc: 1, bitmap: 1},
+    }
+
+
 SIZES = (150, 1000, 10000)
+EXPECTED_LAUNCHES = {
+    "ed25519": _expected("verify_kernel", "build_pk_tables_split", "verify_kernel_cached_split",
+                         "msm_verify_kernel"),
+    "sr25519": _expected("verify_sr_kernel", "build_sr_tables_split",
+                         "verify_sr_kernel_cached_split", "msm_verify_sr_kernel"),
+}
 
 
-def main_path(pool, rng, seeds, pubs, chain_id):
-    """verify_commit on each commit, with every launch counter set to 0 just
-    before each call and read just after; returns the commits, the tampered
-    index of each, the summed launches and the wall times."""
+def main_path(pool, rng, keys, chain_id):
+    """verify_commit on each plane's commits, with every launch counter set
+    to 0 just before each call and read just after; returns the commits,
+    the tampered index of each, the summed launches and the wall times."""
     from tendermint_tpu_torch.types.validation import (
         Fraction, verify_commit, verify_commit_light_trusting,
     )
 
-    commits = {n: build_commit(pool, seeds, pubs, rng, n, chain_id, 100 + n) for n in SIZES}
+    commits = {}
+    for kind in PLANES:
+        t0 = time.perf_counter()
+        seeds, pubs = keys[kind]
+        commits[kind] = {n: build_commit(pool, kind, seeds, pubs, rng, n, chain_id, 100 + n)
+                         for n in SIZES}
+        log(f"phase 3: {kind} commits signed in {time.perf_counter() - t0:.1f} s")
     bad_index = {n: (n * 5) // 12 for n in SIZES}
     totals = dict.fromkeys(read_counts(), 0)
     runs = []
 
-    def drive(n, kind, fn):
+    def drive(kind, n, run, fn):
         reset_counts()
         out, t = timed(fn)
         got = read_counts()
-        want = {name: EXPECTED_LAUNCHES[n, kind].get(name, 0) for name in got}
+        want = {name: EXPECTED_LAUNCHES[kind][n, run].get(name, 0) for name in got}
         if got != want:
-            raise AssertionError(f"{kind} call on {n} validators launched {got}, expected {want}")
+            raise AssertionError(f"{kind} {run} call on {n} validators launched {got}, expected {want}")
         for name, c in got.items():
             totals[name] += c
         return out, t
 
-    for n, (vals, bid, commit) in commits.items():
-        _, t = drive(n, "valid", lambda: verify_commit(chain_id, vals, bid, commit.height, commit))
-        runs.append({"commit": n, "run": "verify_commit valid", "s": t, "sigs_per_s": n / t})
-        if n == SIZES[0]:
-            _, t = drive(n, "trusting", lambda: verify_commit_light_trusting(
-                chain_id, vals, commit, Fraction(1, 3)))
-            runs.append({"commit": n, "run": "verify_commit_light_trusting 1/3", "s": t})
-            continue
-        bad = bad_index[n]
-        good = commit.signatures[bad].signature
-        commit.signatures[bad].signature = tamper(good)
-        msg, t = drive(n, "tampered", lambda: expect_wrong_signature(
-            lambda: verify_commit(chain_id, vals, bid, commit.height, commit), bad))
-        commit.signatures[bad].signature = good
-        runs.append({"commit": n, "run": f"verify_commit tampered #{bad}", "s": t, "sigs_per_s": n / t,
-                     "error": msg[:40]})
+    for kind in PLANES:
+        for n, (vals, bid, commit) in commits[kind].items():
+            _, t = drive(kind, n, "valid", lambda: verify_commit(chain_id, vals, bid, commit.height, commit))
+            runs.append({"plane": kind, "commit": n, "run": "verify_commit valid", "s": t,
+                         "sigs_per_s": n / t})
+            if n == SIZES[0]:
+                _, t = drive(kind, n, "trusting", lambda: verify_commit_light_trusting(
+                    chain_id, vals, commit, Fraction(1, 3)))
+                runs.append({"plane": kind, "commit": n, "run": "verify_commit_light_trusting 1/3",
+                             "s": t})
+                continue
+            bad = bad_index[n]
+            good = commit.signatures[bad].signature
+            commit.signatures[bad].signature = tamper(good)
+            msg, t = drive(kind, n, "tampered", lambda: expect_wrong_signature(
+                lambda: verify_commit(chain_id, vals, bid, commit.height, commit), bad))
+            commit.signatures[bad].signature = good
+            runs.append({"plane": kind, "commit": n, "run": f"verify_commit tampered #{bad}", "s": t,
+                         "sigs_per_s": n / t, "error": msg[:40]})
     for r in runs:
         log("phase 3: " + json.dumps(r))
     log(f"phase 3: launches {json.dumps(totals)}")
@@ -427,14 +589,38 @@ def commit_jobs(commit_entry, chain_id, bad=None):
             [commit.vote_sign_bytes(chain_id, i) for i in range(len(sigs))], sigs)
 
 
-def kernels_at_main_path(rng, dev, chain_id, commits, bad_index, counts, errs, int32_rate, runs):
-    """Hold each kernel against its plain version on the rows phase 3's
-    commits give it (exact equality), check the verdicts, and time those
-    same calls."""
+def host_prep(P, jobs, n, z_raw):
+    """One plane's host prep of a commit, timed by part: the challenges
+    alone (a separate call), prepare_batch (challenges included) and the
+    RLC scalars."""
+    import hashlib
+
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+    from tendermint_tpu_torch.ops import msm as M
+
+    pks, msgs, sigs = jobs
+    t0 = time.perf_counter()
+    if P.kind == "sr25519":
+        sr.challenges_batch(pks, msgs, [g[:32] for g in sigs])
+    else:
+        for p, m, g in zip(pks, msgs, sigs):
+            hashlib.sha512(g[:32] + p + m).digest()
+    t1 = time.perf_counter()
+    a, r, s_rows, k_rows, pre = P.prepare(*jobs)
+    t2 = time.perf_counter()
+    zk, z, zs = M._rlc_scalars_py(s_rows, k_rows, n, z_raw)
+    t3 = time.perf_counter()
+    split = {"challenges_s": t1 - t0, "prepare_batch_s": t2 - t1, "rlc_scalars_s": t3 - t2}
+    return (a, r, zk, z, zs, pre), split
+
+
+def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs, int32_rate, runs):
+    """Hold one plane's kernels against their plain versions on the rows
+    phase 3's commits give them (exact equality), check the verdicts, and
+    time those same calls."""
     import numpy as np
     import torch
 
-    from tendermint_tpu_torch.ops import field as F
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
 
@@ -449,95 +635,86 @@ def kernels_at_main_path(rng, dev, chain_id, commits, bad_index, counts, errs, i
 
     records = {}
 
-    def record(name, src, replaces, n, ms, p_ms, err, ops, nbytes):
+    def record(fn, n, ms, p_ms, err, ops, nbytes):
+        name = fn.__name__
         b_ms, b_by = bound_ms(ops, nbytes, int32_rate)
         log(f"phase 4: {name} rows={n} == plain; kernel {ms:.3f} ms, plain {p_ms:.1f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {counts[name]} launches on the main path")
+        src, replaces = KERNEL_SOURCES[name]
         records[name] = {  # the largest main-path shape is kept
             "name": name, "route": "cuda", "source": f"tendermint_tpu_torch/{src}",
             "replaces": replaces, "launches": counts[name], "max_abs_err": max(errs[name], err),
             "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "rows": n}
 
-    # verify_kernel: the tampered 10,000-validator commit (16384 rows)
-    n, bad = 10000, bad_index[10000]
-    a, r, s, k, pre = V.prepare_batch(*commit_jobs(commits[n], chain_id, bad))
+    # the uncached bitmap: the tampered 10,000-validator commit (16384 rows)
+    n = SIZES[2]
+    bad = bad_index[n]
+    a, r, s, k, pre = P.prepare(*commit_jobs(commits[n], chain_id, bad))
     rows = cuda(V.pad_pow2_rows([a, r, s, k], n))
-    got, ms = event_ms(lambda: V.verify_kernel(*rows), 5)
-    want, p_ms = plain_ms(lambda: V.verify_kernel_plain(*rows))
+    got, ms = event_ms(lambda: P.bitmap(*rows), 5)
+    want, p_ms = plain_ms(lambda: P.bitmap_plain(*rows))
     if not torch.equal(got, want):
-        raise AssertionError(f"verify_kernel: {int((got != want).sum())} rows differ from plain")
-    expect_bitmap("verify_kernel", got, pre, n, bad)
-    record("verify_kernel", "csrc/verify.cu", "tendermint_tpu/ops/verify.py:81", len(rows[0]),
-           ms, p_ms, 0, ops_verify(len(rows[0])), 129 * len(rows[0]))
+        raise AssertionError(f"{P.bitmap.__name__}: {int((got != want).sum())} rows differ from plain")
+    expect_bitmap(P.bitmap.__name__, got, pre, n, bad)
+    record(P.bitmap, len(rows[0]), ms, p_ms, 0, P.ops_bitmap(len(rows[0])), 129 * len(rows[0]))
 
-    # build_pk_tables_split and verify_kernel_cached_split: the tampered
-    # 1,000-validator commit (1024 rows)
-    n, bad = 1000, bad_index[1000]
+    # the cache fill and the cache hit: the tampered 1,000-validator commit
+    # (1024 rows)
+    n = SIZES[1]
+    bad = bad_index[n]
     jobs = commit_jobs(commits[n], chain_id, bad)
-    a, r, s, k, pre = V.prepare_batch(*jobs)
+    a, r, s, k, pre = P.prepare(*jobs)
     a, r, s, k = cuda(V.pad_pow2_rows([a, r, s, k], n))
     m = len(a)
-    (tabs, oks), ms = event_ms(lambda: V.build_pk_tables_split(a), 10)
-    (ptabs, poks), p_ms = plain_ms(lambda: V.build_pk_tables_split_plain(a))
-
-    def canonical(t):  # limb axis first for fe_canonical, and back
-        return F.fe_canonical(t.to(torch.int32).permute(4, 0, 1, 2, 3)).permute(1, 2, 3, 4, 0)
-
-    err = int((canonical(tabs) - canonical(ptabs)).abs().max())
+    (tabs, oks), ms = event_ms(lambda: P.fill(a), 10)
+    (ptabs, poks), p_ms = plain_ms(lambda: P.fill_plain(a))
+    err = int((canonical_tables(tabs) - canonical_tables(ptabs)).abs().max())
     if err or not torch.equal(oks, poks) or not bool(oks.all()):
-        raise AssertionError(f"build_pk_tables_split: max |kernel - plain| after fe_canonical = {err}, "
+        raise AssertionError(f"{P.fill.__name__}: max |kernel - plain| after fe_canonical = {err}, "
                              f"{int((oks != poks).sum())} decode bits differ")
-    if not torch.equal(tabs.to(torch.int32), canonical(tabs)):
-        raise AssertionError("build_pk_tables_split: the kernel wrote non-canonical coordinates")
-    record("build_pk_tables_split", "csrc/pk_tables.cu", "tendermint_tpu/ops/verify.py:141", m,
-           ms, p_ms, err, ops_pk_tables(m), m * (32 + 4 * 16 * 4 * 32 * 2 + 1))
+    if tabs.is_cuda and not torch.equal(tabs.to(torch.int32), canonical_tables(tabs)):
+        raise AssertionError(f"{P.fill.__name__}: the kernel wrote non-canonical coordinates")
+    record(P.fill, m, ms, p_ms, err, P.ops_fill(m), m * (32 + 4 * 16 * 4 * 32 * 2 + 1))
 
     # the main path's own cache, which phase 3 filled with these keys: its
     # slots and tables as dispatch_cached hands them to the kernel
-    slots, cache_t, cache_o = V.pubkey_cache(dev).ensure_snapshot(jobs[0])
-    (slots,) = cuda([np.pad(slots, (0, m - n))])
+    slots, cache_t, cache_o = P.cache(dev).ensure_snapshot(jobs[0])
+    (slots,) = cuda([np.pad(slots, (0, m - n), mode="edge")])
     args = (cache_t, cache_o, slots, r, s, k)
-    got, ms = event_ms(lambda: V.verify_kernel_cached_split(*args), 10)
-    want, p_ms = plain_ms(lambda: V.verify_kernel_cached_split_plain(*args))
+    got, ms = event_ms(lambda: P.hit(*args), 10)
+    want, p_ms = plain_ms(lambda: P.hit_plain(*args))
     if not torch.equal(got, want):
-        raise AssertionError(f"verify_kernel_cached_split: {int((got != want).sum())} rows differ from plain")
-    expect_bitmap("verify_kernel_cached_split", got, pre, n, bad)
-    record("verify_kernel_cached_split", "csrc/verify_cached.cu", "tendermint_tpu/ops/verify.py:157",
-           m, ms, p_ms, 0, ops_verify_cached(m), m * (4 + 96 + 1 + 1 + 4 * 16 * 4 * 32 * 2))
+        raise AssertionError(f"{P.hit.__name__}: {int((got != want).sum())} rows differ from plain")
+    expect_bitmap(P.hit.__name__, got, pre, n, bad)
+    record(P.hit, m, ms, p_ms, 0, P.ops_hit(m), m * (4 + 96 + 1 + 1 + 4 * 16 * 4 * 32 * 2))
 
-    # msm_verify_kernel: the 1,000- and 10,000-validator commits, valid and
-    # tampered, with one z_raw for both verdicts
-    for n in (1000, 10000):
+    # the RLC: the 1,000- and 10,000-validator commits, valid and tampered,
+    # with one z_raw for both verdicts
+    for n in SIZES[1:]:
         z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
         verdicts = {}
         for label, bad in (("valid", None), ("tampered", bad_index[n])):
-            jobs = commit_jobs(commits[n], chain_id, bad)
-            t0 = time.perf_counter()
-            a, r, s_rows, k_rows, pre = V.prepare_batch(*jobs)
-            t1 = time.perf_counter()
-            zk, z, zs = M._rlc_scalars_py(s_rows, k_rows, n, z_raw)
-            t2 = time.perf_counter()
+            (a, r, zk, z, zs, pre), split = host_prep(P, commit_jobs(commits[n], chain_id, bad), n, z_raw)
             if n == SIZES[-1] and bad is None:
-                runs.append({"commit": n, "run": "host prep: challenges, RLC scalars", "s": t2 - t0,
-                             "prepare_batch_s": t1 - t0, "rlc_scalars_s": t2 - t1})
+                runs.append({"plane": P.kind, "commit": n, "run": "host prep of the RLC",
+                             "s": split["prepare_batch_s"] + split["rlc_scalars_s"], **split})
             if not pre.all():
-                raise AssertionError(f"msm_verify_kernel: the {label} {n}-validator commit fails the precheck")
+                raise AssertionError(f"{P.rlc.__name__}: the {label} {n}-validator commit fails the precheck")
             rows = cuda(V.pad_pow2_rows([a, r, zk, z], n) + [zs])
             if bad is None:  # time the valid polarity; it warms the plain version's shapes
-                got, ms = event_ms(lambda: M.msm_verify_kernel(*rows), 5)
-                want = M.msm_verify_kernel_plain(*rows)
+                got, ms = event_ms(lambda: P.rlc(*rows), 5)
+                want = P.rlc_plain(*rows)
             else:
-                got = M.msm_verify_kernel(*rows)
-                want, p_ms = plain_ms(lambda: M.msm_verify_kernel_plain(*rows), warm=False)
+                got = P.rlc(*rows)
+                want, p_ms = plain_ms(lambda: P.rlc_plain(*rows), warm=False)
             if bool(got) != bool(want) or bool(got) != (bad is None):
-                raise AssertionError(f"msm_verify_kernel ({label}, {n} validators): "
+                raise AssertionError(f"{P.rlc.__name__} ({label}, {n} validators): "
                                      f"kernel {bool(got)} plain {bool(want)}")
             verdicts[label] = bool(got)
         m = len(rows[0])
-        log(f"phase 4: msm_verify_kernel verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
-        record("msm_verify_kernel", "csrc/msm.cu", "tendermint_tpu/ops/msm.py:162", m, ms, p_ms, 0,
-               ops_msm(m, M._streams(m)), m * (32 + 32 + 32 + 16) + 32 + 1)
+        log(f"phase 4: {P.rlc.__name__} verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
+        record(P.rlc, m, ms, p_ms, 0, P.ops_rlc(m, M._streams(m)), m * (32 + 32 + 32 + 16) + 32 + 1)
     return list(records.values())
 
 
@@ -584,25 +761,34 @@ def main() -> int:
                 log(f"phase 1: {name}: {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
-    errs = check_kernels(rng, dev)
+    planes = {kind: plane(kind) for kind in PLANES}
+    errs = {}
+    for P in planes.values():
+        errs.update(check_kernels(rng, dev, P))
     if args.kernels_only:
         log(f"kernels only: stopping after phase 2 on {card_line}")
         return 0
 
-    t0 = time.perf_counter()
-    seeds = [rng.bytes(32) for _ in range(SIZES[-1])]
     chain_id = "chip-smoke"
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(workers) as pool:
-        pubs = make_keys(pool, seeds)
-        log(f"phase 3: {len(pubs)} validator keys in {time.perf_counter() - t0:.1f} s")
-        commits, bad_index, counts, runs = main_path(pool, rng, seeds, pubs, chain_id)
-    kernels = kernels_at_main_path(rng, dev, chain_id, commits, bad_index, counts, errs,
-                                   int32_rate, runs)
+        keys = {}
+        for kind in PLANES:
+            t0 = time.perf_counter()
+            seeds = [rng.bytes(32) for _ in range(SIZES[-1])]
+            keys[kind] = seeds, make_keys(pool, kind, seeds)
+            log(f"phase 3: {len(seeds)} {kind} validator keys in {time.perf_counter() - t0:.1f} s")
+        commits, bad_index, counts, runs = main_path(pool, rng, keys, chain_id)
+    kernels = []
+    for kind, P in planes.items():
+        kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
+                                        int32_rate, runs)
     for r in runs:
-        log(f"phase 4: {r['run']} on {r['commit']} validators: {r['s'] * 1e3:.1f} ms"
-            + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else ""))
+        extra = {k: round(r[k], 4) for k in ("challenges_s", "prepare_batch_s", "rlc_scalars_s") if k in r}
+        log(f"phase 4: {r['plane']} {r['run']} on {r['commit']} validators: {r['s'] * 1e3:.1f} ms"
+            + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else "")
+            + (f" {json.dumps(extra)}" if extra else ""))
     log(f"phase 4: card {card_line}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

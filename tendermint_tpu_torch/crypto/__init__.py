@@ -1,8 +1,9 @@
 """Crypto interfaces (ref: crypto/crypto.go:38-80).
 
 `PubKey`/`PrivKey`/`BatchVerifier` mirror the reference node's interfaces;
-the ed25519 batch verifier (crypto/ed25519.py) runs on the port's device
-plane (ops/), with the pure-Python oracle (`ed25519_ref`) as the
+the ed25519 and sr25519 batch verifiers (crypto/ed25519.py,
+crypto/sr25519.py) run on the port's device plane (ops/), with the
+pure-Python verifiers (`ed25519_ref`, `sr25519.verify`) as the
 correctness reference.
 """
 

@@ -1,7 +1,8 @@
 """Key-type -> BatchVerifier dispatch (ref: crypto/batch/batch.go:12-33).
 
-The seam commit verification (types/validation.py) plugs into. The port
-batches ed25519; sr25519 batching is a later slice of the port.
+The seam commit verification (types/validation.py) plugs into: ed25519
+and sr25519 batch on the port's device plane; other key types are verified
+serially by the caller (types/validation.go:267 semantics).
 """
 
 from __future__ import annotations
@@ -9,8 +10,8 @@ from __future__ import annotations
 from . import BatchVerifier, PubKey
 from .ed25519 import KEY_TYPE as ED25519_TYPE
 from .ed25519 import Ed25519BatchVerifier
-
-SR25519_TYPE = "sr25519"
+from .sr25519 import KEY_TYPE as SR25519_TYPE
+from .sr25519 import Sr25519BatchVerifier
 
 
 def create_batch_verifier(pk: PubKey, device=None) -> BatchVerifier:
@@ -19,10 +20,7 @@ def create_batch_verifier(pk: PubKey, device=None) -> BatchVerifier:
     if pk.type_name == ED25519_TYPE:
         return Ed25519BatchVerifier(device=device)
     if pk.type_name == SR25519_TYPE:
-        raise NotImplementedError(
-            "sr25519 batch verification comes with the port's sr25519 slice "
-            "(ops/ristretto.py, ops/verify_sr.py and the sr25519 RLC kernel)"
-        )
+        return Sr25519BatchVerifier(device=device)
     raise ValueError(f"key type {pk.type_name} does not support batch verification")
 
 

@@ -14,7 +14,9 @@ Routing of a batch of n signatures (direct dispatch):
     (TM_TPU_PK_CACHE, default on), which falls back to the uncached kernel
     when a batch has more distinct keys than the cache holds.
 TM_TPU_CRYPTO=auto (the default) and on both mean the card: with no card
-the verifier raises instead of running on the host.
+the verifier raises instead of running on the host. TM_TPU_ENGINE=auto (the
+default) or unset is this direct dispatch; an explicit TM_TPU_ENGINE=on
+raises, since the coalescing engine comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -135,6 +137,19 @@ def _msm_cache_setting() -> None:
         )
 
 
+def _engine_setting() -> None:
+    """TM_TPU_ENGINE: auto (the default) or unset runs the direct dispatch
+    below, which is what the reference's engine computes, scheduled per
+    caller; off asks for direct dispatch by name. An explicit on asks for
+    the coalescing engine (tendermint_tpu/ops/engine.py), which this slice
+    does not cover, so it raises instead of quietly running direct."""
+    if _flag("TM_TPU_ENGINE", "auto", False):
+        raise NotImplementedError(
+            "TM_TPU_ENGINE=on: the coalescing verify engine (ops/engine.py) comes "
+            "with the port's engine slice; unset it or use auto for direct dispatch"
+        )
+
+
 try:  # native (OpenSSL) fast path for single verification
     from cryptography.exceptions import InvalidSignature as _InvalidSignature
     from cryptography.hazmat.primitives.asymmetric.ed25519 import (
@@ -191,46 +206,59 @@ class Ed25519BatchVerifier(BatchVerifier):
     def verify_async(self):
         """Launch now, return a completion callable: callers overlap the
         kernels with host work. The host path completes eagerly."""
-        n = len(self._sigs)
-        if n == 0:
-            return lambda: (False, [])
-        if _use_device() and n >= DEVICE_BATCH_CUTOVER:
-            from ..ops import verify as dev
+        from ..ops import msm, verify
 
-            device = dev.resolve_device(self.device)
-            pks, msgs, sigs = self._pks, self._msgs, self._sigs
+        def rlc_async(pks, msgs, sigs, device):
+            _msm_cache_setting()
+            return msm.verify_batch_rlc_async(pks, msgs, sigs, device=device)
 
-            def bitmap_async():
-                if _pk_cache_enabled():
-                    return dev.verify_batch_cached_async(pks, msgs, sigs, device)
-                return dev.verify_batch_async(pks, msgs, sigs, device)
+        return dispatch_batch(self._pks, self._msgs, self._sigs, self.device, verify, rlc_async,
+                              _single_verify)
 
-            if _msm_enabled() and n >= MSM_BATCH_CUTOVER:
-                # Phase 1: the RLC all-valid check; phase 2 localizes with
-                # the bitmap plane on failure or precheck refusal.
-                from ..ops import msm as dev_msm
 
-                _msm_cache_setting()
-                handle = dev_msm.verify_batch_rlc_async(pks, msgs, sigs, device=device)
-                # a refusal makes phase 2 certain: dispatch it now
-                dispatched = bitmap_async() if handle is None else None
+def dispatch_batch(pks, msgs, sigs, device, bitmap, rlc_async, host_verify):
+    """The direct two-phase dispatch of one batch, shared by the ed25519 and
+    sr25519 verifiers: `bitmap` is the plane's bitmap module (ops/verify.py
+    or ops/verify_sr.py), `rlc_async(pks, msgs, sigs, device=...)` its RLC
+    dispatch (None on precheck refusal), `host_verify(pk, msg, sig)` its
+    serial check. Returns the completion callable."""
+    n = len(sigs)
+    if n == 0:
+        return lambda: (False, [])
+    _engine_setting()
+    if _use_device() and n >= DEVICE_BATCH_CUTOVER:
+        device = bitmap.resolve_device(device)
 
-                def complete_msm():
-                    if handle is not None and dev_msm.collect_rlc(handle):
-                        return True, [True] * n
-                    pending = dispatched if dispatched is not None else bitmap_async()
-                    bools = [bool(b) for b in dev.collect(pending)]
-                    return all(bools), bools
+        def bitmap_async():
+            if _pk_cache_enabled():
+                return bitmap.verify_batch_cached_async(pks, msgs, sigs, device)
+            return bitmap.verify_batch_async(pks, msgs, sigs, device)
 
-                return complete_msm
+        if _msm_enabled() and n >= MSM_BATCH_CUTOVER:
+            # Phase 1: the RLC all-valid check; phase 2 localizes with the
+            # bitmap plane on failure or precheck refusal.
+            from ..ops import msm
 
-            dispatched = bitmap_async()
+            handle = rlc_async(pks, msgs, sigs, device=device)
+            # a refusal makes phase 2 certain: dispatch it now
+            dispatched = bitmap_async() if handle is None else None
 
-            def complete():
-                bools = [bool(b) for b in dev.collect(dispatched)]
+            def complete_msm():
+                if handle is not None and msm.collect_rlc(handle):
+                    return True, [True] * n
+                pending = dispatched if dispatched is not None else bitmap_async()
+                bools = [bool(b) for b in bitmap.collect(pending)]
                 return all(bools), bools
 
-            return complete
-        bools = [_single_verify(p, m, s) for p, m, s in zip(self._pks, self._msgs, self._sigs)]
-        result = (all(bools), bools)
-        return lambda: result
+            return complete_msm
+
+        dispatched = bitmap_async()
+
+        def complete():
+            bools = [bool(b) for b in bitmap.collect(dispatched)]
+            return all(bools), bools
+
+        return complete
+    bools = [host_verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    result = (all(bools), bools)
+    return lambda: result

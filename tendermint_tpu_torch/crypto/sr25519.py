@@ -1,0 +1,359 @@
+"""sr25519: Schnorr signatures over ristretto255 (schnorrkel), and the
+CUDA-backed batch verifier (ref: crypto/sr25519/privkey.go, pubkey.go,
+batch.go:15-47).
+
+Key and signature formats match the reference node exactly:
+  - 32-byte MiniSecretKey, expanded Ed25519-style (SHA-512, clamp,
+    divide-by-cofactor) into (scalar key, nonce) — privkey.go:129
+  - public key = key * ristretto basepoint, 32-byte ristretto encoding
+  - signatures bind a Merlin transcript: SigningContext([]) fed the
+    message (privkey.go:18), protocol name "Schnorr-sig", pk, R, and a
+    64-byte wide challenge
+  - 64-byte signature R || s with the schnorrkel v1 marker bit
+    (s[31] |= 0x80), required on verify
+  - address = SHA256-20 of the pubkey bytes (pubkey.go:29)
+
+The host codec, signing and verification are the port's own copy of
+tendermint_tpu/crypto/sr25519.py (RFC 9496 over the curve arithmetic of
+crypto/ed25519_ref.py), byte for byte: signing derives its witness scalar
+deterministically from (nonce, transcript), so signatures are
+reproducible; verification accepts either origin.
+
+Routing of a batch of n signatures (direct dispatch, as the ed25519
+verifier; the reference's tendermint_tpu/crypto/sr25519.py:362-432):
+  - n < DEVICE_BATCH_CUTOVER, or TM_TPU_CRYPTO=off: serial host checks;
+  - n >= MSM_BATCH_CUTOVER (with TM_TPU_MSM on): the sr25519 RLC check
+    first (ops/msm.py), and the bitmap plane only when it fails or the
+    host precheck refuses the batch;
+  - otherwise the bitmap plane (ops/verify_sr.py), through the device's
+    sr25519 pubkey cache (TM_TPU_PK_CACHE, default on), which takes the
+    uncached kernel when a batch has more distinct keys than it holds.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+
+from . import BatchVerifier, PrivKey, PubKey, address_hash
+from .ed25519_ref import BASE, IDENTITY, L, P, D, point_add, point_neg
+from .merlin import Transcript
+
+KEY_TYPE = "sr25519"
+SEED_SIZE = 32
+PUBKEY_SIZE = 32
+SIG_SIZE = 64
+
+SQRT_M1 = pow(2, (P - 1) // 4, P)
+
+
+def _is_negative(e: int) -> bool:
+    return (e % P) & 1 == 1
+
+
+def _abs(e: int) -> int:
+    e %= P
+    return P - e if e & 1 else e
+
+
+def _sqrt_ratio_m1(u: int, v: int) -> tuple[bool, int]:
+    """RFC 9496 §4.2 SQRT_RATIO_M1: (was_square, sqrt(u/v) or
+    sqrt(i*u/v)), result non-negative."""
+    v3 = v * v % P * v % P
+    v7 = v3 * v3 % P * v % P
+    r = u * v3 % P * pow(u * v7 % P, (P - 5) // 8, P) % P
+    check = v * r % P * r % P
+    u_neg = (-u) % P
+    correct = check == u % P
+    flipped = check == u_neg
+    flipped_i = check == u_neg * SQRT_M1 % P
+    if flipped or flipped_i:
+        r = r * SQRT_M1 % P
+    return (correct or flipped), _abs(r)
+
+
+INVSQRT_A_MINUS_D = _sqrt_ratio_m1(1, (-1 - D) % P)[1]
+
+
+def ristretto_decode(data: bytes):
+    """32 bytes -> extended Edwards point, or None (RFC 9496 §4.3.1)."""
+    if len(data) != 32:
+        return None
+    s = int.from_bytes(data, "little")
+    if s >= P or s & 1:  # non-canonical or negative
+        return None
+    ss = s * s % P
+    u1 = (1 - ss) % P
+    u2 = (1 + ss) % P
+    u2_sqr = u2 * u2 % P
+    v = ((-D * u1 % P) * u1 - u2_sqr) % P
+    was_square, invsqrt = _sqrt_ratio_m1(1, v * u2_sqr % P)
+    den_x = invsqrt * u2 % P
+    den_y = invsqrt * den_x % P * v % P
+    x = _abs(2 * s % P * den_x % P)
+    y = u1 * den_y % P
+    t = x * y % P
+    if not was_square or _is_negative(t) or y == 0:
+        return None
+    return (x, y, 1, t)
+
+
+def ristretto_encode(p) -> bytes:
+    """Extended Edwards point -> canonical 32 bytes (RFC 9496 §4.3.2)."""
+    x0, y0, z0, t0 = p
+    u1 = (z0 + y0) % P * ((z0 - y0) % P) % P
+    u2 = x0 * y0 % P
+    _, invsqrt = _sqrt_ratio_m1(1, u1 * u2 % P * u2 % P)
+    den1 = invsqrt * u1 % P
+    den2 = invsqrt * u2 % P
+    z_inv = den1 * den2 % P * t0 % P
+    if _is_negative(t0 * z_inv % P):
+        x = y0 * SQRT_M1 % P
+        y = x0 * SQRT_M1 % P
+        den_inv = den1 * INVSQRT_A_MINUS_D % P
+    else:
+        x, y, den_inv = x0, y0, den2
+    if _is_negative(x * z_inv % P):
+        y = (-y) % P
+    s = _abs(den_inv * ((z0 - y) % P) % P)
+    return s.to_bytes(32, "little")
+
+
+# ---------------------------------------------------------------- schnorrkel
+
+
+def _expand_ed25519(mini: bytes) -> tuple[int, bytes]:
+    """MiniSecretKey -> (key scalar, 32-byte nonce): SHA-512, ed25519
+    clamp, divide-by-cofactor (ref: privkey.go:129 ExpandEd25519)."""
+    h = hashlib.sha512(mini).digest()
+    key = bytearray(h[:32])
+    key[0] &= 248
+    key[31] &= 63
+    key[31] |= 64
+    return int.from_bytes(bytes(key), "little") >> 3, h[32:64]
+
+
+def _signing_transcript(msg: bytes, context: bytes = b"") -> Transcript:
+    """signingCtx.NewTranscriptBytes(msg): tendermint uses the EMPTY
+    signing context (ref: privkey.go:18)."""
+    t = Transcript(b"SigningContext")
+    t.append_message(b"", context)
+    t.append_message(b"sign-bytes", msg)
+    return t
+
+
+def _challenge(t: Transcript, pk_enc: bytes, r_enc: bytes) -> int:
+    t.append_message(b"proto-name", b"Schnorr-sig")
+    t.append_message(b"sign:pk", pk_enc)
+    t.append_message(b"sign:R", r_enc)
+    return int.from_bytes(t.challenge_bytes(b"sign:c", 64), "little") % L
+
+
+def challenges_batch(pks, msgs, r_encs) -> list[int]:
+    """Merlin challenges for many (pk, msg, R) jobs at once. Lanes with a
+    shared message length run through the numpy-vectorized transcript
+    (crypto/merlin_batch.py); groups of fewer than 4 lanes take the scalar
+    transcript. Equal to _challenge lane for lane."""
+    import numpy as np
+
+    from .merlin_batch import BatchTranscript
+
+    n = len(msgs)
+    out = [0] * n
+    groups: dict[int, list[int]] = {}
+    for i, m in enumerate(msgs):
+        groups.setdefault(len(m), []).append(i)
+    prefix = Transcript(b"SigningContext")
+    prefix.append_message(b"", b"")
+    for length, idxs in groups.items():
+        if len(idxs) < 4:  # batch setup not worth it
+            for i in idxs:
+                t = prefix.clone()
+                t.append_message(b"sign-bytes", msgs[i])
+                out[i] = _challenge(t, pks[i], r_encs[i])
+            continue
+        bt = BatchTranscript(prefix, len(idxs))
+        stack = lambda items: np.stack([np.frombuffer(b, np.uint8) for b in items])  # noqa: E731
+        bt.append_message(b"sign-bytes", stack([msgs[i] for i in idxs]))
+        bt.append_scalar(b"proto-name", b"Schnorr-sig")
+        bt.append_message(b"sign:pk", stack([pks[i] for i in idxs]))
+        bt.append_message(b"sign:R", stack([r_encs[i] for i in idxs]))
+        ch = bt.challenge_bytes(b"sign:c", 64)
+        for j, i in enumerate(idxs):
+            out[i] = int.from_bytes(ch[j].tobytes(), "little") % L
+    return out
+
+
+def sign(mini: bytes, msg: bytes) -> bytes:
+    key, nonce = _expand_ed25519(mini)
+    pk_enc = ristretto_encode(_base_mult(key % L))
+    t = _signing_transcript(msg)
+    # Deterministic witness bound to (nonce, transcript state).
+    wt = t.clone()
+    wt.append_message(b"witness-nonce", nonce)
+    r = int.from_bytes(wt.challenge_bytes(b"witness-scalar", 64), "little") % L
+    r_enc = ristretto_encode(_base_mult(r))
+    k = _challenge(t, pk_enc, r_enc)
+    s = (k * key + r) % L
+    sig = bytearray(r_enc + s.to_bytes(32, "little"))
+    sig[63] |= 0x80  # schnorrkel v1 marker
+    return bytes(sig)
+
+
+def _window_table(p) -> list:
+    """[identity, p, 2p, ..., 15p] for 4-bit Straus windows."""
+    table = [IDENTITY, p]
+    for _ in range(14):
+        table.append(point_add(table[-1], p))
+    return table
+
+
+_BASE_WINDOW = _window_table(BASE)
+
+
+def _base_mult(a: int) -> tuple:
+    """a*B through the precomputed 4-bit window (sign/pubkey path)."""
+    acc = IDENTITY
+    for shift in range(252, -1, -4):
+        for _ in range(4):
+            acc = point_add(acc, acc)
+        da = (a >> shift) & 0xF
+        if da:
+            acc = point_add(acc, _BASE_WINDOW[da])
+    return acc
+
+
+def _double_scalar_mult(a: int, b: int, q) -> tuple:
+    """a*B + b*q via Straus simultaneous 4-bit windows."""
+    tq = _window_table(q)
+    acc = IDENTITY
+    for shift in range(252, -1, -4):
+        for _ in range(4):
+            acc = point_add(acc, acc)
+        da = (a >> shift) & 0xF
+        if da:
+            acc = point_add(acc, _BASE_WINDOW[da])
+        db = (b >> shift) & 0xF
+        if db:
+            acc = point_add(acc, tq[db])
+    return acc
+
+
+def verify(pub: bytes, msg: bytes, sig: bytes, context: bytes = b"") -> bool:
+    if len(pub) != PUBKEY_SIZE or len(sig) != SIG_SIZE:
+        return False
+    if not sig[63] & 0x80:  # marker bit required (schnorrkel "not marked")
+        return False
+    s_bytes = bytearray(sig[32:64])
+    s_bytes[31] &= 0x7F
+    s = int.from_bytes(bytes(s_bytes), "little")
+    if s >= L:  # scalar must be canonical
+        return False
+    a_pt = ristretto_decode(pub)
+    r_pt = ristretto_decode(sig[:32])
+    if a_pt is None or r_pt is None:
+        return False
+    t = _signing_transcript(msg, context)
+    k = _challenge(t, pub, sig[:32])
+    # R =? s*B - k*A, compared as canonical ristretto encodings (ristretto
+    # points are cosets of the 4-torsion: Edwards equality is wrong here).
+    expect = _double_scalar_mult(s, k, point_neg(a_pt))
+    return ristretto_encode(expect) == sig[:32]
+
+
+def gen_mini_from_secret(secret: bytes) -> bytes:
+    """ref: GenPrivKeyFromSecret (privkey.go:156): sha256(secret)."""
+    return hashlib.sha256(secret).digest()
+
+
+# ----------------------------------------------------------- tendermint API
+
+
+class Sr25519PubKey(PubKey):
+    __slots__ = ("_data",)
+
+    def __init__(self, data: bytes):
+        if len(data) != PUBKEY_SIZE:
+            raise ValueError(f"sr25519 pubkey must be {PUBKEY_SIZE} bytes")
+        self._data = bytes(data)
+
+    def address(self) -> bytes:
+        return address_hash(self._data)
+
+    def bytes(self) -> bytes:
+        return self._data
+
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        return verify(self._data, msg, sig)
+
+    @property
+    def type_name(self) -> str:
+        return KEY_TYPE
+
+    def __repr__(self):
+        return f"PubKeySr25519{{{self._data.hex().upper()}}}"
+
+
+class Sr25519PrivKey(PrivKey):
+    __slots__ = ("_mini",)
+
+    def __init__(self, mini: bytes):
+        if len(mini) != SEED_SIZE:
+            raise ValueError(f"sr25519 mini secret must be {SEED_SIZE} bytes")
+        self._mini = bytes(mini)
+
+    @classmethod
+    def generate(cls, secret: bytes | None = None) -> "Sr25519PrivKey":
+        if secret is not None:
+            return cls(gen_mini_from_secret(secret))
+        return cls(os.urandom(SEED_SIZE))
+
+    def bytes(self) -> bytes:
+        return self._mini
+
+    def sign(self, msg: bytes) -> bytes:
+        return sign(self._mini, msg)
+
+    def pub_key(self) -> Sr25519PubKey:
+        key, _ = _expand_ed25519(self._mini)
+        return Sr25519PubKey(ristretto_encode(_base_mult(key % L)))
+
+    @property
+    def type_name(self) -> str:
+        return KEY_TYPE
+
+
+class Sr25519BatchVerifier(BatchVerifier):
+    """Accumulate jobs, verify them in device launches (ref: batch.go:15-47):
+    Add validates and queues, Verify returns (all_ok, per-signature bools).
+    The routing, cutovers and settings are the ed25519 verifier's."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self._pks: list[bytes] = []
+        self._msgs: list[bytes] = []
+        self._sigs: list[bytes] = []
+
+    def __len__(self):
+        return len(self._sigs)
+
+    def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
+        if pub_key.type_name != KEY_TYPE:
+            raise ValueError("sr25519: pubkey is not sr25519")
+        if len(sig) != SIG_SIZE:
+            raise ValueError("sr25519: malformed signature")
+        self._pks.append(pub_key.bytes())
+        self._msgs.append(bytes(msg))
+        self._sigs.append(bytes(sig))
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        return self.verify_async()()
+
+    def verify_async(self):
+        """Launch now, return a completion callable: callers overlap the
+        kernels with host work. The host path completes eagerly."""
+        from ..ops import msm, verify_sr
+        from .ed25519 import dispatch_batch
+
+        return dispatch_batch(self._pks, self._msgs, self._sigs, self.device, verify_sr,
+                              msm.verify_batch_rlc_sr_async, verify)

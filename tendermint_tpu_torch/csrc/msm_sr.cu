@@ -1,0 +1,31 @@
+// Randomized-linear-combination check of a whole sr25519 batch:
+//   encode(sum z_i k_i (-A_i) + sum z_i (-R_i) + [sum z_i s_i]B) == 0^32
+// and every ristretto encoding decodes. Ristretto255 has prime order, so
+// there is no cofactor to clear, and the identity is decided by its
+// encoding.
+//
+// Replaces the JAX program `msm_verify_sr_kernel`
+// (tendermint_tpu/ops/msm.py:272, body msm_verify_sr_kernel_impl at :244,
+// accumulation _accumulate_windows at :86).
+//
+// Bound on this card: integer multiplies. Per row: two ristretto decodes
+// (256 squarings and 18 products each), two 16-multiples tables (14
+// additions each, 9M) and 96 window additions (9M): about 1,650 field
+// multiplications, each at least 64 32-bit multiplies (36 for a square),
+// the count the bound in chip_smoke.py uses; this design issues 100 wide
+// multiplies per product and per square. The tail (Horner over 64 windows
+// per stream, the stream tree, the fixed-base comb and one encode) is a
+// fixed cost of about 330,000 field multiplications for G = 128 streams.
+//
+// Design: msm.cuh's three launches (tables, window accumulation, tail),
+// shared with the ed25519 check, with ristretto decoding in the tables
+// step and the encoding test in the tail.
+#include "msm.cuh"
+
+extern "C" int tm_msm_verify_sr(const void *a_enc, const void *r_enc, const void *zk_bytes,
+                                const void *z_bytes, const void *zs_bytes, const void *fixed_table,
+                                void *tabs, void *oks, void *wsum, void *out, int n, int g,
+                                void *stream) {
+  return msm_launch<true>(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes, fixed_table, tabs, oks, wsum,
+                          out, n, g, stream);
+}

@@ -20,47 +20,19 @@
 // 256 canonicalizations; 32 bytes in and 16 KiB out.
 //
 // Design: one thread per key; each table entry is canonicalized and
-// written as it is produced, so nothing but the running point stays live.
+// written as it is produced, so nothing but the running point stays live
+// (write_power_tables in ladder.cuh, shared with the sr25519 fill).
 #include <cuda_runtime.h>
 
-#include "ge25519.cuh"
-
-__device__ __forceinline__ void write_entry(int16_t *dst, const ge &p) {
-  const fe *c[4] = {&p.X, &p.Y, &p.Z, &p.T};
-  uint8_t b[32];
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    fe_tobytes(b, *c[k]);
-#pragma unroll
-    for (int l = 0; l < 32; l++) dst[k * 32 + l] = b[l];
-  }
-}
+#include "ladder.cuh"
 
 __global__ void build_tables(const uint8_t *a_enc, int16_t *tables, uint8_t *oks, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  ge p, acc;
+  ge p;
   oks[i] = ge_decompress(p, a_enc + 32 * i) ? 1 : 0;
   ge_neg(p, p);
-#pragma unroll 1
-  for (int c = 0; c < 4; c++) {
-    if (c > 0) {
-#pragma unroll 1
-      for (int d = 0; d < 63; d++) ge_dbl(p, p, false);
-      ge_dbl(p, p, true);
-    }
-    int16_t *row = tables + ((size_t)i * 4 + c) * 16 * 128;
-    ge_identity(acc);
-    write_entry(row, acc);
-    write_entry(row + 128, p);
-    ge_add(acc, p, p, true);
-    write_entry(row + 2 * 128, acc);
-#pragma unroll 1
-    for (int j = 3; j < 16; j++) {
-      ge_add(acc, acc, p, true);
-      write_entry(row + j * 128, acc);
-    }
-  }
+  write_power_tables(tables + (size_t)i * 4 * 16 * 128, p);
 }
 
 extern "C" int tm_build_pk_tables(const void *a_enc, void *tables, void *oks, int n, void *stream) {

@@ -17,11 +17,12 @@
 // (fe25519.cuh). The 16-multiples table of -A lives in scratch that the
 // wrapper allocates (strided so a warp's loads coalesce); the table of B
 // is read from the constant table by direct index, since verification
-// handles only public data. Later work: warp-cooperative multiplication,
+// handles only public data (the ladder is ladder.cuh's, shared with the
+// sr25519 kernel). Later work: warp-cooperative multiplication,
 // shared-memory tables, occupancy.
 #include <cuda_runtime.h>
 
-#include "ge25519.cuh"
+#include "ladder.cuh"
 
 __global__ void verify_rows(const uint8_t *a_enc, const uint8_t *r_enc, const uint8_t *s_bytes,
                             const uint8_t *k_bytes, const int32_t *base_table, int32_t *scratch,
@@ -30,28 +31,13 @@ __global__ void verify_rows(const uint8_t *a_enc, const uint8_t *r_enc, const ui
   if (i >= n) return;
   const uint8_t *s = s_bytes + 32 * i;
   const uint8_t *k = k_bytes + 32 * i;
-  ge a, r, q, e;
+  ge a, r, q;
   const bool a_ok = ge_decompress(a, a_enc + 32 * i);
   const bool r_ok = ge_decompress(r, r_enc + 32 * i);
   ge_neg(a, a);
   int32_t *tab = scratch + i;
   ge_build_table(tab, n, a);
-
-  // Window 63 has no leading doublings.
-  ge_from_limbs8(q, base_table + 128 * nibble(s, 63));
-  ge_load(e, tab, nibble(k, 63), n);
-  ge_add(q, q, e, false);
-#pragma unroll 1
-  for (int w = 62; w >= 0; w--) {
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, true);
-    ge_from_limbs8(e, base_table + 128 * nibble(s, w));
-    ge_add(q, q, e, true);
-    ge_load(e, tab, nibble(k, w), n);
-    ge_add(q, q, e, false);
-  }
+  ge_straus_base(q, base_table, tab, n, s, k, false);
   out[i] = (a_ok && r_ok && ge_cofactored_equal(q, r)) ? 1 : 0;
 }
 

@@ -17,10 +17,11 @@
 // limbs (canonical from the port's fill kernel, or the reference's
 // signed limbs carried across by cache_from_reference) and are converted
 // to the ten-limb field as they are read; [s]B rides the rows of the
-// fixed-base comb at the chunk boundaries, read by direct index.
+// fixed-base comb at the chunk boundaries, read by direct index (the
+// ladder is ladder.cuh's, shared with the sr25519 kernel).
 #include <cuda_runtime.h>
 
-#include "ge25519.cuh"
+#include "ladder.cuh"
 
 __global__ void verify_cached_rows(const int16_t *tables, const uint8_t *oks, const int32_t *slots,
                                    const uint8_t *r_enc, const uint8_t *s_bytes,
@@ -33,24 +34,9 @@ __global__ void verify_cached_rows(const int16_t *tables, const uint8_t *oks, co
   // an out-of-range slot clamps, as the reference's XLA gather does
   const int slot = min(max(slots[i], 0), capacity - 1);
   const int16_t *a_tab = tables + (size_t)slot * 4 * 16 * 128;
-  ge r, q, e;
+  ge r, q;
   const bool r_ok = ge_decompress(r, r_enc + 32 * i);
-  ge_identity(q);
-#pragma unroll 1
-  for (int w = 15; w >= 0; w--) {
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, true);
-#pragma unroll 1
-    for (int c = 0; c < 4; c++) {
-      // fixed-base comb row 16c: j * 16^(16c) * B
-      ge_from_limbs8(e, fixed_table + ((size_t)(16 * c) * 16 + nibble(s, 16 * c + w)) * 128);
-      ge_add(q, q, e, true);
-      ge_from_limbs8(e, a_tab + ((size_t)c * 16 + nibble(k, 16 * c + w)) * 128);
-      ge_add(q, q, e, c < 3);
-    }
-  }
+  ge_straus_split(q, a_tab, fixed_table, s, k, false);
   out[i] = (oks[slot] && r_ok && ge_cofactored_equal(q, r)) ? 1 : 0;
 }
 

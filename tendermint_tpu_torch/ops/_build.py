@@ -37,6 +37,10 @@ KERNELS = {
     "pk_tables": {"tm_build_pk_tables": [_P, _P, _P, _I, _P]},
     "verify_cached": {"tm_verify_cached_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
     "msm": {"tm_msm_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "verify_sr": {"tm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _I, _P]},
+    "sr_tables": {"tm_build_sr_tables": [_P, _P, _P, _I, _P]},
+    "verify_sr_cached": {"tm_verify_sr_cached_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "msm_sr": {"tm_msm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -14,6 +14,12 @@ end-to-end acceptance equals the per-signature plane's.
 plain PyTorch version (the JAX package's window-parallel Straus
 formulation, tendermint_tpu/ops/msm.py) for CPU tensors; its launch count
 is `msm_verify_kernel.launches`.
+
+The sr25519 plane's equation is the same sum over ristretto255, which has
+prime order: sum z_i ([s_i]B - [k_i]A_i - R_i) must be the group identity,
+decided by its ristretto encoding being 32 zero bytes, with no cofactor
+doublings. `msm_verify_sr_kernel` (csrc/msm_sr.cu, sharing csrc/msm.cuh
+with the ed25519 kernel) decodes with the ristretto codec.
 """
 
 from __future__ import annotations
@@ -25,10 +31,12 @@ import torch
 
 from . import _build
 from . import curve as C
+from . import ristretto as R
 from .verify import (
     L, _check_rows, _limb_major, _route, _to_device, device_table, pad_pow2_rows,
     prepare_batch, resolve_device,
 )
+from .verify_sr import prepare_batch as prepare_batch_sr
 
 # Parallel point streams, rounded down to a power of two: padded batches
 # are powers of two, so a power-of-two G always divides them.
@@ -111,34 +119,73 @@ def msm_verify_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
     return all_ok & C.point_is_identity(total)[0]
 
 
+def _launch_msm(name: str, lib_name: str, entry: str, a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """Check the RLC inputs, allocate the scratch and launch one of the RLC
+    libraries (three kernels from one C entry point); returns the () bool
+    verdict on the device."""
+    n = a_enc.shape[0]
+    g = _streams(n)
+    _check_rows(name, n, 32, a_enc, r_enc, zk_bytes)
+    _check_rows(name, n, 16, z_bytes)
+    _check_rows(name, 1, 32, zs_bytes)
+    dev = a_enc.device
+    tabs = torch.empty((16 * 4 * 10, 2 * n), dtype=torch.int32, device=dev)
+    oks = torch.empty(2 * n, dtype=torch.uint8, device=dev)
+    wsum = torch.empty((4 * 10, 64 * g), dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    rc = getattr(_build.load(lib_name), entry)(
+        a_enc.data_ptr(), r_enc.data_ptr(), zk_bytes.data_ptr(), z_bytes.data_ptr(),
+        zs_bytes.data_ptr(), device_table("fixed", dev).data_ptr(), tabs.data_ptr(),
+        oks.data_ptr(), wsum.data_ptr(), out.data_ptr(), n, g, _build.stream_of(a_enc),
+    )
+    _build.check(rc, name)
+    return out
+
+
 def msm_verify_kernel(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
     """RLC check: csrc/msm.cu on CUDA tensors (three launches from one entry
     point, counted once), the plain version on CPU tensors."""
     args = (a_enc, r_enc, zk_bytes, z_bytes, zs_bytes)
     if not _route("msm_verify_kernel", *args):
         return msm_verify_kernel_plain(*args)
-    n = a_enc.shape[0]
-    g = _streams(n)
-    _check_rows("msm_verify_kernel", n, 32, a_enc, r_enc, zk_bytes)
-    _check_rows("msm_verify_kernel", n, 16, z_bytes)
-    _check_rows("msm_verify_kernel", 1, 32, zs_bytes)
-    dev = a_enc.device
-    tabs = torch.empty((16 * 4 * 10, 2 * n), dtype=torch.int32, device=dev)
-    oks = torch.empty(2 * n, dtype=torch.uint8, device=dev)
-    wsum = torch.empty((4 * 10, 64 * g), dtype=torch.int32, device=dev)
-    out = torch.empty((), dtype=torch.bool, device=dev)
-    lib = _build.load("msm")
-    rc = lib.tm_msm_verify(
-        a_enc.data_ptr(), r_enc.data_ptr(), zk_bytes.data_ptr(), z_bytes.data_ptr(),
-        zs_bytes.data_ptr(), device_table("fixed", dev).data_ptr(), tabs.data_ptr(),
-        oks.data_ptr(), wsum.data_ptr(), out.data_ptr(), n, g, _build.stream_of(a_enc),
-    )
-    _build.check(rc, "msm_verify_kernel")
+    out = _launch_msm("msm_verify_kernel", "msm", "tm_msm_verify", *args)
     msm_verify_kernel.launches += 1
     return out
 
 
 msm_verify_kernel.launches = 0
+
+
+def msm_verify_sr_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """Plain version of the sr25519 RLC check, inputs as
+    msm_verify_kernel_plain's with ristretto encodings; zero padding rows
+    are the ristretto identity and carry zero scalars. Returns a () bool:
+    every encoding decodes and the sum's ristretto encoding is zero."""
+    a, r = _limb_major(a_enc), _limb_major(r_enc)
+    n = a.shape[1]
+    pts, oks = R.decode(torch.cat([a, r], dim=1))
+    neg = C.point_neg(pts)
+    all_ok = torch.all(oks)
+    nibs_zk = C.scalar_to_nibbles(_limb_major(zk_bytes))  # (64, B)
+    nibs_z = C.scalar_to_nibbles(_limb_major(z_bytes))  # (32, B)
+    total = _accumulate_windows(neg, nibs_zk, nibs_z, n)
+    sb = C.fixed_base_mul(_limb_major(zs_bytes))
+    total = C.point_add(total, sb, out_t=True)  # the encoder reads T
+    return all_ok & torch.all(R.encode(total) == 0)
+
+
+def msm_verify_sr_kernel(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """sr25519 RLC check: csrc/msm_sr.cu on CUDA tensors (three launches
+    from one entry point, counted once), the plain version on CPU tensors."""
+    args = (a_enc, r_enc, zk_bytes, z_bytes, zs_bytes)
+    if not _route("msm_verify_sr_kernel", *args):
+        return msm_verify_sr_kernel_plain(*args)
+    out = _launch_msm("msm_verify_sr_kernel", "msm_sr", "tm_msm_verify_sr", *args)
+    msm_verify_sr_kernel.launches += 1
+    return out
+
+
+msm_verify_sr_kernel.launches = 0
 
 
 def _rlc_scalars_py(s_rows, k_rows, n, z_raw):
@@ -173,26 +220,33 @@ def _ensure_z_raw(n: int, z_raw: bytes | None) -> bytes:
     return z_raw
 
 
-def _dispatch_rlc(pubkeys, msgs, sigs, z_raw, device):
-    """Prep, precheck refusal (None: the caller goes straight to the bitmap
-    plane), randomizer math, padding, launch."""
+def _dispatch_rlc(prepare, kernel, pubkeys, msgs, sigs, z_raw, device):
+    """The RLC dispatch of either signature plane (its host prep, its
+    kernel): prep, precheck refusal (None: the caller goes straight to the
+    bitmap plane), randomizer math, padding with zero scalars, launch."""
     n = len(sigs)
     if n == 0:
         return None
     dev = resolve_device(device)
-    a_enc, r_enc, s_rows, k_rows, precheck = prepare_batch(pubkeys, msgs, sigs)
+    a_enc, r_enc, s_rows, k_rows, precheck = prepare(pubkeys, msgs, sigs)
     if not precheck.all():
         return None
     z_raw = _ensure_z_raw(n, z_raw)
     zk, z_out, zs_row = _rlc_scalars_py(s_rows, k_rows, n, z_raw)
     rows = pad_pow2_rows([a_enc, r_enc, zk, z_out], n)
-    return msm_verify_kernel(*_to_device(rows + [zs_row], dev))
+    return kernel(*_to_device(rows + [zs_row], dev))
 
 
 def verify_batch_rlc_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):
-    """Dispatch the RLC check without blocking. Returns a handle for
+    """Dispatch the ed25519 RLC check without blocking. Returns a handle for
     collect_rlc, or None on precheck refusal."""
-    return _dispatch_rlc(pubkeys, msgs, sigs, z_raw, device)
+    return _dispatch_rlc(prepare_batch, msm_verify_kernel, pubkeys, msgs, sigs, z_raw, device)
+
+
+def verify_batch_rlc_sr_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):
+    """Dispatch the sr25519 RLC check without blocking (same contract as
+    verify_batch_rlc_async; ops/verify_sr.py is the localizing plane)."""
+    return _dispatch_rlc(prepare_batch_sr, msm_verify_sr_kernel, pubkeys, msgs, sigs, z_raw, device)
 
 
 def collect_rlc(dispatched) -> bool:

@@ -9,7 +9,9 @@ validity bitmap directly, with exactly the acceptance of the JAX package
 (tendermint_tpu/ops/verify.py) and of its pure-Python oracle.
 
 Three kernels live here, each a hand-written CUDA kernel for Hopper
-(csrc/*.cu) beside its plain PyTorch version:
+(csrc/*.cu) beside its plain PyTorch version (the sr25519 plane's three
+are in ops/verify_sr.py and share the pubkey cache and the dispatch
+below):
 
   verify_kernel               csrc/verify.cu         uncached bitmap
   build_pk_tables_split       csrc/pk_tables.cu      pubkey-cache fill
@@ -95,6 +97,19 @@ def _check_rows(name: str, n: int, width: int, *tensors) -> None:
             raise ValueError(
                 f"{name}: expected contiguous uint8 ({n}, {width}), got {t.dtype} {tuple(t.shape)}"
             )
+
+
+def _check_cache_args(name: str, n: int, tables, oks, slots, r_enc, s_bytes, k_bytes) -> None:
+    """The cache-hit kernels' inputs: tables (C, 4, 16, 4, 32) int16, oks
+    (C,) bool, slots (n,) int32, and (n, 32) uint8 rows, all contiguous."""
+    _check_rows(name, n, 32, r_enc, s_bytes, k_bytes)
+    if (tables.dtype != torch.int16 or tuple(tables.shape[1:]) != CACHE_ENTRY_SHAPE
+            or not tables.is_contiguous()):
+        raise ValueError(f"{name}: bad tables {tables.dtype} {tuple(tables.shape)}")
+    if oks.dtype != torch.bool or oks.shape != (tables.shape[0],) or not oks.is_contiguous():
+        raise ValueError(f"{name}: bad oks {oks.dtype} {tuple(oks.shape)}")
+    if slots.dtype != torch.int32 or slots.shape != (n,) or not slots.is_contiguous():
+        raise ValueError(f"{name}: bad slots {slots.dtype} {tuple(slots.shape)}")
 
 
 def _limb_major(x: torch.Tensor) -> torch.Tensor:
@@ -207,14 +222,7 @@ def verify_kernel_cached_split(tables, oks, slots, r_enc, s_bytes, k_bytes):
     if not _route("verify_kernel_cached_split", *args):
         return verify_kernel_cached_split_plain(*args)
     n = r_enc.shape[0]
-    _check_rows("verify_kernel_cached_split", n, 32, r_enc, s_bytes, k_bytes)
-    if (tables.dtype != torch.int16 or tuple(tables.shape[1:]) != CACHE_ENTRY_SHAPE
-            or not tables.is_contiguous()):
-        raise ValueError(f"verify_kernel_cached_split: bad tables {tables.dtype} {tuple(tables.shape)}")
-    if oks.dtype != torch.bool or oks.shape != (tables.shape[0],) or not oks.is_contiguous():
-        raise ValueError(f"verify_kernel_cached_split: bad oks {oks.dtype} {tuple(oks.shape)}")
-    if slots.dtype != torch.int32 or slots.shape != (n,) or not slots.is_contiguous():
-        raise ValueError(f"verify_kernel_cached_split: bad slots {slots.dtype} {tuple(slots.shape)}")
+    _check_cache_args("verify_kernel_cached_split", n, *args)
     dev = r_enc.device
     out = torch.empty(n, dtype=torch.bool, device=dev)
     lib = _build.load("verify_cached")
@@ -245,12 +253,28 @@ def _split_setting() -> None:
 # -- the device-resident pubkey cache ---------------------------------------
 
 
+def _plane_build(plane: str):
+    """The cache-fill kernel of a signature plane."""
+    if plane == "ed25519":
+        return build_pk_tables_split
+    if plane == "sr25519":
+        from .verify_sr import build_sr_tables_split
+
+        return build_sr_tables_split
+    raise ValueError(f"no pubkey-cache plane {plane!r}")
+
+
 class PubkeyCache:
     """Device-resident decompressed-pubkey cache: each key's split power
     tables of -A, so cache hits skip decoding and the table build (the
     device analog of the reference node's 4096-entry expanded-key LRU).
     At the default capacity the tables take (4096, 4, 16, 4, 32) int16,
     64 MiB of device memory.
+
+    A cache belongs to one signature plane (`plane`, "ed25519" or
+    "sr25519"): the same 32 bytes decode to different points under ZIP-215
+    and under ristretto, so each plane has its own cache per device and
+    never shares slots with the other.
 
     Fills reserve slots under the lock, build the tables with the lock
     released, and publish under the lock (the JAX package's protocol).
@@ -262,10 +286,11 @@ class PubkeyCache:
     same stream. A fill thus costs one copy of the cache (two 64 MiB
     passes at the default capacity) besides the build."""
 
-    def __init__(self, capacity: int = 4096, device=None, build_fn=None):
+    def __init__(self, capacity: int = 4096, device=None, build_fn=None, plane: str = "ed25519"):
         self.capacity = capacity
         self.device = resolve_device(device)
-        self._build = build_fn or build_pk_tables_split
+        self.plane = plane
+        self._build = build_fn or _plane_build(plane)
         self._lock = threading.Lock()
         self._lru: "collections.OrderedDict[bytes, int]" = collections.OrderedDict()
         # keys reserved but not yet published (key -> Event set at publish)
@@ -363,38 +388,47 @@ class PubkeyCache:
                 self._pinned.pop(pk, None)
 
 
-def cache_from_reference(tables: np.ndarray, oks: np.ndarray, slots: dict, device=None) -> PubkeyCache:
-    """A port cache from a snapshot of the JAX package's split-plane
-    PubkeyCache: its tables (C, 4, 16, 4, 32) int16 and oks (C,) bool as
+def cache_from_reference(tables: np.ndarray, oks: np.ndarray, slots: dict, device=None,
+                         plane: str = "ed25519") -> PubkeyCache:
+    """A port cache from a snapshot of one of the JAX package's split-plane
+    PubkeyCaches: its tables (C, 4, 16, 4, 32) int16 and oks (C,) bool as
     numpy arrays, and its key -> slot map (least recent first, as the
-    reference's LRU iterates). The reference's signed limbs are taken as
-    they are; both cache-hit paths read them modulo p."""
+    reference's LRU iterates). `plane` names the cache it came from:
+    "ed25519" (ops/verify.py pubkey_cache) or "sr25519"
+    (ops/verify_sr.py sr_pubkey_cache); later misses are filled by that
+    plane's kernel. The reference's signed limbs are taken as they are;
+    the cache-hit paths read them modulo p."""
     tables = np.asarray(tables)
     if tables.shape[1:] != CACHE_ENTRY_SHAPE:
         raise NotImplementedError(
             f"cache tables of entry shape {tables.shape[1:]}: only the split-4 plane "
             f"{CACHE_ENTRY_SHAPE} is ported; the single-table plane is a later slice"
         )
-    cache = PubkeyCache(capacity=tables.shape[0], device=device)
+    cache = PubkeyCache(capacity=tables.shape[0], device=device, plane=plane)
     cache.tables = torch.as_tensor(tables.astype(np.int16)).to(cache.device)
     cache.oks = torch.from_numpy(np.array(oks, dtype=bool)).to(cache.device)
     cache._lru.update((bytes(pk), int(slot)) for pk, slot in slots.items())
     return cache
 
 
-_PK_CACHES: dict[str, PubkeyCache] = {}
+_PK_CACHES: dict[tuple[str, str], PubkeyCache] = {}
 _PK_CACHES_LOCK = threading.Lock()
 
 
-def pubkey_cache(device=None) -> PubkeyCache:
-    """The process-wide pubkey cache of a device."""
+def plane_cache(plane: str, device=None) -> PubkeyCache:
+    """The process-wide pubkey cache of one plane on one device."""
     _split_setting()
     dev = resolve_device(device)
     with _PK_CACHES_LOCK:
-        cache = _PK_CACHES.get(str(dev))
+        cache = _PK_CACHES.get((plane, str(dev)))
         if cache is None:
-            cache = _PK_CACHES[str(dev)] = PubkeyCache(device=dev)
+            cache = _PK_CACHES[plane, str(dev)] = PubkeyCache(device=dev, plane=plane)
     return cache
+
+
+def pubkey_cache(device=None) -> PubkeyCache:
+    """The process-wide ed25519 pubkey cache of a device."""
+    return plane_cache("ed25519", device)
 
 
 # -- host shaping and dispatch ----------------------------------------------
@@ -474,28 +508,32 @@ def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
     return collect(verify_batch_async(pubkeys, msgs, sigs, device))
 
 
-def dispatch_cached(cache: PubkeyCache, pubkeys, msgs, sigs):
-    """Bitmap through a pubkey cache: slot lookup and fill (one consistent
-    snapshot), the uncached kernel when the batch has more distinct keys
-    than the cache holds, padding, launch. Malformed pubkeys are keyed as
-    zeros; they already fail the precheck, which masks them at collect."""
+def dispatch_cached(cache: PubkeyCache, prepare, cached_kernel, uncached_async, pubkeys, msgs, sigs):
+    """Bitmap through a pubkey cache, for either signature plane (its host
+    prep, its cache-hit kernel, its uncached dispatch): slot lookup and
+    fill (one consistent snapshot), the uncached dispatch when the batch
+    has more distinct keys than the cache holds, padding, launch.
+    Malformed pubkeys are keyed as zeros; they already fail the precheck,
+    which masks them at collect."""
     n = len(sigs)
     if n == 0:
         return None, np.zeros((0,), bool), 0
     keys = [pk if len(pk) == 32 else b"\x00" * 32 for pk in pubkeys]
     slots, tables, oks = cache.ensure_snapshot(keys)
     if slots is None:
-        return verify_batch_async(pubkeys, msgs, sigs, cache.device)
-    _, r_enc, s_bytes, k_bytes, precheck = prepare_batch(pubkeys, msgs, sigs)
+        return uncached_async(pubkeys, msgs, sigs, cache.device)
+    _, r_enc, s_bytes, k_bytes, precheck = prepare(pubkeys, msgs, sigs)
     r_enc, s_bytes, k_bytes = pad_pow2_rows([r_enc, s_bytes, k_bytes], n)
-    slots = np.pad(slots, (0, len(r_enc) - n))
+    # padded rows copy the edge slot: a valid key, never a stale one
+    slots = np.pad(slots, (0, len(r_enc) - n), mode="edge")
     slots_dev, r_dev, s_dev, k_dev = _to_device([slots, r_enc, s_bytes, k_bytes], cache.device)
-    ok_dev = verify_kernel_cached_split(tables, oks, slots_dev, r_dev, s_dev, k_dev)
+    ok_dev = cached_kernel(tables, oks, slots_dev, r_dev, s_dev, k_dev)
     return ok_dev, precheck, n
 
 
 def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
     """verify_batch_async through the device's pubkey cache: repeated
     validator sets skip decoding and the table build."""
-    return dispatch_cached(pubkey_cache(device), pubkeys, msgs, sigs)
+    return dispatch_cached(pubkey_cache(device), prepare_batch, verify_kernel_cached_split,
+                           verify_batch_async, pubkeys, msgs, sigs)
 

@@ -1,0 +1,230 @@
+"""Batched sr25519 (schnorrkel) verification: the per-signature bitmap plane.
+
+Every signature's equation
+
+    R == encode([s]B - [k]A),  k = Merlin challenge of (pk, msg, R) mod L
+
+is evaluated data-parallel across the batch with exactly the acceptance of
+the JAX package (tendermint_tpu/ops/verify_sr.py) and of the host verifier
+(crypto/sr25519.py). Ristretto255 has prime order: there is no cofactor,
+and equality is equality of encodings, so R is never decoded: the ladder's
+result is encoded and compared byte for byte with the wire R.
+
+Three kernels live here, each a hand-written CUDA kernel for Hopper
+(csrc/*.cu) beside its plain PyTorch version:
+
+  verify_sr_kernel               csrc/verify_sr.cu         uncached bitmap
+  build_sr_tables_split          csrc/sr_tables.cu         sr pubkey-cache fill
+  verify_sr_kernel_cached_split  csrc/verify_sr_cached.cu  cache-hit bitmap
+
+Wrappers route as the ed25519 plane's do (ops/verify.py): the kernel for
+CUDA tensors, the plain version for CPU tensors, a raise otherwise, and a
+`.launches` count of kernel launches.
+
+Split of labor: the host checks the marker bit, clears it, checks s < L,
+and computes the Merlin challenges (crypto/sr25519.challenges_batch); the
+device decodes A, runs the ladder, encodes and compares.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..crypto.sr25519 import SIG_SIZE, challenges_batch
+from . import _build
+from . import curve as C
+from . import ristretto as R
+from .verify import (  # collect: the bitmap planes share it
+    CACHE_ENTRY_SHAPE, L, PK_SPLITS, _check_cache_args, _check_rows, _limb_major, _route,
+    _to_device, collect, device_table, dispatch_cached, pad_pow2_rows, plane_cache,
+    resolve_device,
+)
+
+
+def _encoding_equal(q, r_enc_limbs):
+    """(B,) bool: the ristretto encoding of q equals the wire bytes."""
+    return torch.all(R.encode(q) == r_enc_limbs, dim=0)
+
+
+# -- kernel 9: uncached bitmap ----------------------------------------------
+
+
+def verify_sr_kernel_plain(a_enc, r_enc, s_bytes, k_bytes):
+    """Plain version: (B, 32) uint8 rows -> (B,) bool. a_enc/r_enc are
+    ristretto encodings; s has the marker bit cleared and is prechecked
+    < L on the host; k is the Merlin challenge mod L."""
+    a, r = _limb_major(a_enc), _limb_major(r_enc)
+    s, k = _limb_major(s_bytes), _limb_major(k_bytes)
+    a_pt, a_ok = R.decode(a)
+    q = C.double_scalar_mul_base(s, k, C.point_neg(a_pt))  # [s]B - [k]A, with T
+    return a_ok & _encoding_equal(q, r)
+
+
+def verify_sr_kernel(a_enc, r_enc, s_bytes, k_bytes):
+    """Uncached sr25519 bitmap: csrc/verify_sr.cu on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not _route("verify_sr_kernel", a_enc, r_enc, s_bytes, k_bytes):
+        return verify_sr_kernel_plain(a_enc, r_enc, s_bytes, k_bytes)
+    n = a_enc.shape[0]
+    _check_rows("verify_sr_kernel", n, 32, a_enc, r_enc, s_bytes, k_bytes)
+    dev = a_enc.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    scratch = torch.empty((16 * 4 * 10, n), dtype=torch.int32, device=dev)
+    lib = _build.load("verify_sr")
+    rc = lib.tm_verify_sr(
+        a_enc.data_ptr(), r_enc.data_ptr(), s_bytes.data_ptr(), k_bytes.data_ptr(),
+        device_table("base", dev).data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
+        _build.stream_of(a_enc),
+    )
+    _build.check(rc, "verify_sr_kernel")
+    verify_sr_kernel.launches += 1
+    return out
+
+
+verify_sr_kernel.launches = 0
+
+
+# -- kernel 12: sr pubkey-cache fill ----------------------------------------
+
+
+def build_sr_tables_split_plain(a_enc):
+    """Plain version: (B, 32) uint8 ristretto pubkeys -> ((B, 4, 16, 4, 32)
+    int16 power tables of -A, (B,) bool decode bits). Limbs are fe_mul
+    outputs (|limb| < 2^9), exactly the JAX program's."""
+    a_pt, ok = R.decode(_limb_major(a_enc))
+    tabs = C.build_power_tables(C.point_neg(a_pt), splits=PK_SPLITS)
+    return tabs.permute(4, 0, 1, 2, 3).to(torch.int16).contiguous(), ok
+
+
+def build_sr_tables_split(a_enc):
+    """sr25519 cache fill: csrc/sr_tables.cu on CUDA tensors (coordinates
+    written canonical), the plain version on CPU tensors."""
+    if not _route("build_sr_tables_split", a_enc):
+        return build_sr_tables_split_plain(a_enc)
+    n = a_enc.shape[0]
+    _check_rows("build_sr_tables_split", n, 32, a_enc)
+    dev = a_enc.device
+    tables = torch.empty((n,) + CACHE_ENTRY_SHAPE, dtype=torch.int16, device=dev)
+    oks = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _build.load("sr_tables")
+    rc = lib.tm_build_sr_tables(
+        a_enc.data_ptr(), tables.data_ptr(), oks.data_ptr(), n, _build.stream_of(a_enc)
+    )
+    _build.check(rc, "build_sr_tables_split")
+    build_sr_tables_split.launches += 1
+    return tables, oks
+
+
+build_sr_tables_split.launches = 0
+
+
+# -- kernel 13: cache-hit bitmap --------------------------------------------
+
+
+def verify_sr_kernel_cached_split_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
+    """Plain version: sr cache tables (C, 4, 16, 4, 32) int16, oks (C,)
+    bool, slots (B,) int32, rows (B, 32) uint8 -> (B,) bool. The split
+    ladder's result carries no T, and the encoder reads it: adding the
+    identity regenerates a consistent T in one addition, as the JAX
+    program does."""
+    r = _limb_major(r_enc)
+    s, k = _limb_major(s_bytes), _limb_major(k_bytes)
+    sl = slots.long()
+    a_tables = tables[sl].to(torch.int32).permute(1, 2, 3, 4, 0)
+    q = C.double_scalar_mul_split(s, k, a_tables, splits=PK_SPLITS)
+    q = C.point_add(q, C.identity_point(q.shape[2:], q.device), out_t=True)
+    return oks[sl] & _encoding_equal(q, r)
+
+
+def verify_sr_kernel_cached_split(tables, oks, slots, r_enc, s_bytes, k_bytes):
+    """sr25519 cache-hit bitmap: csrc/verify_sr_cached.cu on CUDA tensors,
+    the plain version on CPU tensors."""
+    args = (tables, oks, slots, r_enc, s_bytes, k_bytes)
+    if not _route("verify_sr_kernel_cached_split", *args):
+        return verify_sr_kernel_cached_split_plain(*args)
+    n = r_enc.shape[0]
+    _check_cache_args("verify_sr_kernel_cached_split", n, *args)
+    dev = r_enc.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _build.load("verify_sr_cached")
+    rc = lib.tm_verify_sr_cached_split(
+        tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r_enc.data_ptr(),
+        s_bytes.data_ptr(), k_bytes.data_ptr(), device_table("fixed", dev).data_ptr(),
+        out.data_ptr(), n, tables.shape[0], _build.stream_of(r_enc),
+    )
+    _build.check(rc, "verify_sr_kernel_cached_split")
+    verify_sr_kernel_cached_split.launches += 1
+    return out
+
+
+verify_sr_kernel_cached_split.launches = 0
+
+
+# -- host shaping and dispatch ----------------------------------------------
+
+
+def sr_pubkey_cache(device=None):
+    """The process-wide sr25519 pubkey cache of a device: its own cache,
+    apart from the ed25519 plane's (the reference's plane "sr25519_pk")."""
+    return plane_cache("sr25519", device)
+
+
+def prepare_batch(pubkeys, msgs, sigs):
+    """Host prep: (a_enc, r_enc, s_bytes, k_bytes, precheck) as numpy uint8
+    (B, 32) rows and a (B,) bool precheck. A row fails the precheck (its
+    rows stay zero) for a malformed length, a missing marker bit, or s >= L
+    once the marker bit is cleared. Challenges of the rows that pass run
+    through the vectorized Merlin transcript."""
+    n = len(sigs)
+    raw = np.zeros((4, n, 32), np.uint8)
+    precheck = np.zeros((n,), bool)
+    for i in range(n):
+        pk, sig = pubkeys[i], sigs[i]
+        if len(pk) != 32 or len(sig) != SIG_SIZE or not sig[63] & 0x80:
+            continue
+        s_buf = bytearray(sig[32:64])
+        s_buf[31] &= 0x7F
+        if int.from_bytes(bytes(s_buf), "little") >= L:
+            continue
+        raw[0, i] = np.frombuffer(pk, np.uint8)
+        raw[1, i] = np.frombuffer(sig, np.uint8, count=32)
+        raw[2, i] = np.frombuffer(bytes(s_buf), np.uint8)
+        precheck[i] = True
+    valid = np.flatnonzero(precheck)
+    if len(valid):
+        ks = challenges_batch(
+            [pubkeys[i] for i in valid],
+            [msgs[i] for i in valid],
+            [sigs[i][:32] for i in valid],
+        )
+        for i, k in zip(valid, ks):
+            raw[3, i] = np.frombuffer(k.to_bytes(32, "little"), np.uint8)
+    return raw[0], raw[1], raw[2], raw[3], precheck
+
+
+def verify_batch_async(pubkeys, msgs, sigs, device=None):
+    """Dispatch one batch without blocking: host prep, copy to the device,
+    kernel launch. Returns (device_bitmap, precheck, n) for `collect`.
+    Padding rows are zero encodings, the ristretto identity: they decode
+    and are trimmed by `collect`."""
+    n = len(sigs)
+    if n == 0:
+        return None, np.zeros((0,), bool), 0
+    dev = resolve_device(device)
+    a_enc, r_enc, s_bytes, k_bytes, precheck = prepare_batch(pubkeys, msgs, sigs)
+    rows = pad_pow2_rows([a_enc, r_enc, s_bytes, k_bytes], n)
+    ok_dev = verify_sr_kernel(*_to_device(rows, dev))
+    return ok_dev, precheck, n
+
+
+def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
+    """verify_batch_async through the device's sr25519 pubkey cache; more
+    distinct keys than the cache holds take the uncached kernel."""
+    return dispatch_cached(sr_pubkey_cache(device), prepare_batch, verify_sr_kernel_cached_split,
+                           verify_batch_async, pubkeys, msgs, sigs)
+
+
+def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
+    """End-to-end batched sr25519 verification -> (n,) bool numpy bitmap."""
+    return collect(verify_batch_async(pubkeys, msgs, sigs, device))

@@ -11,10 +11,12 @@ funnel here. Semantics preserved exactly from the reference:
   - by-address lookup + double-vote detection for the trusting path
     (:190-210)
 
-The batch verifier is the port's device plane (crypto/ed25519.py ->
-ops/msm.py, ops/verify.py): device launches evaluate every signature's
-cofactored ZIP-215 equation data-parallel, so unlike the reference no
-serial re-verification pass is needed to locate a bad signature.
+The batch verifier is the port's device plane (crypto/ed25519.py or
+crypto/sr25519.py -> ops/msm.py, ops/verify.py or ops/verify_sr.py):
+device launches evaluate every signature's equation data-parallel
+(cofactored ZIP-215 for ed25519, ristretto encodings for sr25519), so
+unlike the reference no serial re-verification pass is needed to locate a
+bad signature.
 
 Every entry point takes `device`: where the batch verifier runs, the card
 by default, "cpu" for the plain PyTorch versions.

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise:
-importing every module of tendermint_tpu_torch loads no JAX and nothing of
-tendermint_tpu, a default-device verifier raises without CUDA instead of
-running on the host, and the cases this slice does not cover raise."""
+importing every module of tendermint_tpu_torch (the sr25519 plane's
+included) loads no JAX and nothing of tendermint_tpu, a default-device
+verifier raises without CUDA instead of running on the host, and the
+cases the port does not cover yet raise."""
 
 import os
 import subprocess
@@ -13,6 +14,7 @@ import torch
 from tendermint_tpu_torch.crypto import batch as B
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
+from tendermint_tpu_torch.crypto import sr25519 as sr
 from tendermint_tpu_torch.ops import _build
 
 # The plain versions run many small ops: one intra-op thread per test
@@ -25,6 +27,9 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import tendermint_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "ops.ristretto",
+             "ops.verify_sr"):
+    assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -77,14 +82,34 @@ def test_uncovered_settings_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="later slice"):
         bv.verify()
 
-    class Sr25519Key(ed.Ed25519PubKey):
-        type_name = "sr25519"
-
-    assert B.supports_batch_verifier(Sr25519Key(b"\x01" * 32))
-    with pytest.raises(NotImplementedError, match="sr25519 slice"):
-        B.create_batch_verifier(Sr25519Key(b"\x01" * 32))
+    sr_key = sr.Sr25519PubKey(b"\x01" * 32)
+    assert B.supports_batch_verifier(sr_key)
+    bv = B.create_batch_verifier(sr_key, device="cpu")
+    assert isinstance(bv, sr.Sr25519BatchVerifier) and bv.device == "cpu"
     with pytest.raises(ValueError, match="pubkey is not ed25519"):
-        B.create_batch_verifier(ed.Ed25519PubKey(b"\x01" * 32)).add(Sr25519Key(b"\x01" * 32), b"", b"\x00" * 64)
+        B.create_batch_verifier(ed.Ed25519PubKey(b"\x01" * 32)).add(sr_key, b"", b"\x00" * 64)
+
+
+@pytest.mark.parametrize("setting", ["on", "auto", "off", None])
+def test_engine_setting(monkeypatch, setting):
+    """TM_TPU_ENGINE: the coalescing engine is a later slice, so an explicit
+    on raises in both batch verifiers; auto, off or unset is direct
+    dispatch."""
+    if setting is None:
+        monkeypatch.delenv("TM_TPU_ENGINE", raising=False)
+    else:
+        monkeypatch.setenv("TM_TPU_ENGINE", setting)
+    monkeypatch.setenv("TM_TPU_CRYPTO", "off")
+    msg = b"engine"
+    priv = sr.Sr25519PrivKey(b"\x02" * 32)
+    sr_bv = sr.Sr25519BatchVerifier(device="cpu")
+    sr_bv.add(priv.pub_key(), msg, priv.sign(msg))
+    for bv in (_jobs(2), sr_bv):
+        if setting == "on":
+            with pytest.raises(NotImplementedError, match="engine slice"):
+                bv.verify()
+        else:
+            assert bv.verify()[0]
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
@@ -93,6 +118,7 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", os.path.join(ROOT, "no-such-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
-    assert set(_build.KERNELS) == {"verify", "pk_tables", "verify_cached", "msm"}
+    assert set(_build.KERNELS) == {"verify", "pk_tables", "verify_cached", "msm", "verify_sr",
+                                   "sr_tables", "verify_sr_cached", "msm_sr"}
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()

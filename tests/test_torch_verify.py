@@ -119,7 +119,8 @@ def test_cache_from_reference_gives_reference_bitmaps(batch, jax_cache):
     assert port.tables.dtype == torch.int16 and port.capacity == cache.capacity
     keys = [pk if len(pk) == 32 else b"\x00" * 32 for pk in pks]
     np.testing.assert_array_equal(port.ensure(keys), slots)  # all hits, same slots
-    got = V.collect(V.dispatch_cached(port, pks, msgs, sigs))
+    got = V.collect(V.dispatch_cached(port, V.prepare_batch, V.verify_kernel_cached_split,
+                                      V.verify_batch_async, pks, msgs, sigs))
     np.testing.assert_array_equal(got, want)
     assert got.tolist() == oracle
 
@@ -160,7 +161,8 @@ def test_cache_overflow_takes_uncached_kernel():
     uncached kernel and still localizes the bad row."""
     cache = V.PubkeyCache(capacity=4, device="cpu", build_fn=_stub_build)
     pks, msgs, sigs = seeded_jobs(35, 5, tamper={3})
-    got = V.collect(V.dispatch_cached(cache, pks, msgs, sigs))
+    got = V.collect(V.dispatch_cached(cache, V.prepare_batch, V.verify_kernel_cached_split,
+                                      V.verify_batch_async, pks, msgs, sigs))
     assert got.tolist() == [True, True, True, False, True]
     assert not cache._lru
 
