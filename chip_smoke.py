@@ -10,7 +10,9 @@ Both signature planes run the same phases, each fatal on failure:
      edge batch (exact equality: the arithmetic is integer): tampered
      rows, the ZIP-215 edge encodings for ed25519, the RFC 9496 bad
      encodings, a missing marker bit, s >= L and a zero row for sr25519;
-     and the bitmap against the plane's pure-Python oracle;
+     and the bitmap against the plane's pure-Python oracle; the cache fill
+     and hit at every pubkey-cache split (TM_TPU_PK_SPLIT 4, 1, 2, 8), and
+     the cached RLC at S = 2, 4, 8;
   3. the main path: verify_commit on ed25519 and on sr25519 validator sets
      of 150, 1,000 and 10,000 validators (valid, and with one tampered
      signature that must be reported at its index), every kernel's launch
@@ -23,7 +25,23 @@ Both signature planes run the same phases, each fatal on failure:
      tampered row alone invalid; the same calls timed with CUDA events
      beside the plain version, the bound and the launches, the host prep
      of the 10,000-validator commits, and the end-to-end verify_commit
-     wall times.
+     wall times;
+  5. the other cache geometries, S = 1, 2 and 8, each through a new cache
+     of that split: verify_commit on the 150-validator commit and on the
+     tampered 1,000-validator one, exact launches (the single-table
+     kernels at S = 1), and the split's fill and hit against their plain
+     versions on the rows that commit gives them, timed;
+  6. the cached RLC (TM_TPU_MSM_CACHE=on, ed25519) at S = 2, 4 and 8: the
+     valid 1,000-validator commit with the knob off, then on (fill and
+     cached RLC, then the cached RLC alone), the tampered one (cached RLC,
+     then the cache hit), the 10,000-validator one (its keys overflow the
+     cache: the uncached RLC), exact launches; at S = 1 the knob takes the
+     uncached RLC; the cached RLC against its plain version at 1024 rows
+     in both verdicts with one z_raw, timed.
+
+Phases 3, 5 and 6 are each a main path: every call in them runs with the
+launch counters set to 0 just before it and read just after, and each
+phase fails if one of its kernels never launched.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -81,19 +99,38 @@ def ops_verify_sr(n: int) -> int:
                     RDECODE[1] + 14 * 9 + 8 + 63 * (13 + 9 + 8) + 1 + RENCODE[1])
 
 
-def ops_pk_tables(n: int, decode=DECODE) -> int:
-    # decode, 3 power chains of 64 doublings, 4 tables of 14 additions
-    return n * _ops(decode[0] + 3 * 64 * 4, decode[1] + 3 * (64 * 3 + 1) + 4 * 14 * 9)
+def ops_pk_tables(n: int, decode=DECODE, splits: int = 4) -> int:
+    # decode, S - 1 power chains of 256/S doublings (the last with T), S
+    # tables of 14 additions; S = 1 is the single table
+    chain = 256 // splits
+    return n * _ops(decode[0] + (splits - 1) * chain * 4,
+                    decode[1] + (splits - 1) * (chain * 3 + 1) + splits * 14 * 9)
 
 
-def ops_verify_cached(n: int) -> int:
-    # decode R, 16 steps of 4 doublings and 8 additions (7 with T), tail
-    return n * _ops(DECODE[0] + 16 * 16 + 24, DECODE[1] + 16 * (13 + 8 * 8 + 7) + 22)
+def _split_ladder(splits: int) -> int:
+    # 64/S steps of 4 doublings (the last with T) and 2 S additions: S comb
+    # rows with T, S - 1 cache rows with T and the last without
+    return (64 // splits) * (13 + splits * 9 + (splits - 1) * 9 + 8)
 
 
-def ops_verify_sr_cached(n: int) -> int:
-    # 16 steps of 4 doublings and 8 additions (7 with T, and the last), encode
-    return n * _ops(16 * 16 + RENCODE[0], 16 * (13 + 8 * 8 + 7) + 1 + RENCODE[1])
+def ops_verify_cached(n: int, splits: int = 4) -> int:
+    # decode R, the split ladder, the cofactored tail
+    return n * _ops(DECODE[0] + (64 // splits) * 16 + 24, DECODE[1] + _split_ladder(splits) + 22)
+
+
+def ops_verify_sr_cached(n: int, splits: int = 4) -> int:
+    # the split ladder (its last addition with T), encode
+    return n * _ops((64 // splits) * 16 + RENCODE[0], _split_ladder(splits) + 1 + RENCODE[1])
+
+
+def ops_verify_cached_single(n: int) -> int:
+    # decode R, top window add, 63 windows (4 doublings + 2 additions), tail
+    return n * _ops(DECODE[0] + 63 * 16 + 24, DECODE[1] + 8 + 63 * (13 + 9 + 8) + 22)
+
+
+def ops_verify_sr_cached_single(n: int) -> int:
+    # top window add, 63 windows (the last addition with T), encode
+    return n * _ops(63 * 16 + RENCODE[0], 8 + 63 * (13 + 9 + 8) + 1 + RENCODE[1])
 
 
 def ops_msm(n: int, g: int, sr: bool = False) -> int:
@@ -104,6 +141,27 @@ def ops_msm(n: int, g: int, sr: bool = False) -> int:
     # (sr25519), or added without T and 3 doublings (ed25519)
     decide = _ops(RENCODE[0], 9 + RENCODE[1]) if sr else _ops(12, 8 + 9)
     return n * per_row + g * horner + _ops(0, (g - 1) * 9 + 64 * 9) + decide
+
+
+def ops_msm_cached(n: int, g: int, splits: int) -> int:
+    # per row: decode R, R's table and 96 window additions (32 of R's, 64 of
+    # A's from the cache); the tail over max(32, 64/S) windows
+    wn = max(32, 64 // splits)
+    per_row = _ops(DECODE[0], DECODE[1] + 14 * 9 + 96 * 9)
+    horner = _ops((wn - 1) * 16, (wn - 1) * (13 + 9))
+    return n * per_row + g * horner + _ops(0, (g - 1) * 9 + 64 * 9) + _ops(12, 8 + 9)
+
+
+def cache_read_bytes(scalar_rows, splits: int) -> int:
+    """Bytes of cache entries the ladder of each row reads, once each: the
+    distinct (power table, nibble) entries its scalar's 64 nibbles select,
+    256 bytes an entry."""
+    import numpy as np
+
+    b = np.asarray(scalar_rows, np.uint8)
+    nibs = np.stack([b & 15, b >> 4], axis=2).reshape(len(b), 64).astype(np.int64)
+    ids = (np.arange(64) // (64 // splits)) * 16 + nibs if splits > 1 else nibs
+    return 256 * sum(len(np.unique(row)) for row in ids)
 
 
 def nvidia_smi(query: str) -> str:
@@ -137,8 +195,11 @@ def plane(kind: str) -> SimpleNamespace:
             bitmap=V.verify_kernel, bitmap_plain=V.verify_kernel_plain,
             fill=V.build_pk_tables_split, fill_plain=V.build_pk_tables_split_plain,
             hit=V.verify_kernel_cached_split, hit_plain=V.verify_kernel_cached_split_plain,
+            fill1=V.build_pk_tables, fill1_plain=V.build_pk_tables_plain,
+            hit1=V.verify_kernel_cached, hit1_plain=V.verify_kernel_cached_plain,
             rlc=M.msm_verify_kernel, rlc_plain=M.msm_verify_kernel_plain,
-            ops_bitmap=ops_verify, ops_fill=ops_pk_tables, ops_hit=ops_verify_cached,
+            ops_bitmap=ops_verify, ops_fill=lambda n, s: ops_pk_tables(n, DECODE, s),
+            ops_hit=lambda n, s: ops_verify_cached_single(n) if s == 1 else ops_verify_cached(n, s),
             ops_rlc=lambda n, g: ops_msm(n, g),
         )
     return SimpleNamespace(
@@ -147,10 +208,22 @@ def plane(kind: str) -> SimpleNamespace:
         bitmap=VS.verify_sr_kernel, bitmap_plain=VS.verify_sr_kernel_plain,
         fill=VS.build_sr_tables_split, fill_plain=VS.build_sr_tables_split_plain,
         hit=VS.verify_sr_kernel_cached_split, hit_plain=VS.verify_sr_kernel_cached_split_plain,
+        fill1=VS.build_sr_tables, fill1_plain=VS.build_sr_tables_plain,
+        hit1=VS.verify_sr_kernel_cached, hit1_plain=VS.verify_sr_kernel_cached_plain,
         rlc=M.msm_verify_sr_kernel, rlc_plain=M.msm_verify_sr_kernel_plain,
-        ops_bitmap=ops_verify_sr, ops_fill=lambda n: ops_pk_tables(n, RDECODE),
-        ops_hit=ops_verify_sr_cached, ops_rlc=lambda n, g: ops_msm(n, g, sr=True),
+        ops_bitmap=ops_verify_sr, ops_fill=lambda n, s: ops_pk_tables(n, RDECODE, s),
+        ops_hit=lambda n, s: ops_verify_sr_cached_single(n) if s == 1 else ops_verify_sr_cached(n, s),
+        ops_rlc=lambda n, g: ops_msm(n, g, sr=True),
     )
+
+
+def cache_pair(P, splits: int):
+    """(fill, fill_plain, hit, hit_plain) of a plane at a split, each taking
+    what the main path hands it: the single-table kernels at S = 1, the
+    split ones (the fill told S, the hit reading it from the tables) above."""
+    if splits == 1:
+        return P.fill1, P.fill1_plain, P.hit1, P.hit1_plain
+    return (lambda a: P.fill(a, splits)), (lambda a: P.fill_plain(a, splits)), P.hit, P.hit_plain
 
 
 # kernel -> (its source, the JAX program it replaces)
@@ -163,7 +236,16 @@ KERNEL_SOURCES = {
     "build_sr_tables_split": ("csrc/sr_tables.cu", "tendermint_tpu/ops/verify_sr.py:89"),
     "verify_sr_kernel_cached_split": ("csrc/verify_sr_cached.cu", "tendermint_tpu/ops/verify_sr.py:112"),
     "msm_verify_sr_kernel": ("csrc/msm_sr.cu", "tendermint_tpu/ops/msm.py:272"),
+    "build_pk_tables": ("csrc/pk_tables_single.cu", "tendermint_tpu/ops/verify.py:95"),
+    "verify_kernel_cached": ("csrc/verify_cached_single.cu", "tendermint_tpu/ops/verify.py:113"),
+    "msm_verify_kernel_cached": ("csrc/msm_cached.cu", "tendermint_tpu/ops/msm.py:241"),
+    "build_sr_tables": ("csrc/sr_tables_single.cu", "tendermint_tpu/ops/verify_sr.py:59"),
+    "verify_sr_kernel_cached": ("csrc/verify_sr_cached_single.cu", "tendermint_tpu/ops/verify_sr.py:75"),
 }
+# The pubkey-cache geometries (TM_TPU_PK_SPLIT): the default and the others.
+DEFAULT_SPLITS = 4
+OTHER_SPLITS = (1, 2, 8)
+RLC_CACHE_SPLITS = (2, 4, 8)
 
 
 # -- keys and signatures (set-up, not timed) ---------------------------------
@@ -325,7 +407,28 @@ def canonical_tables(t):
 
     from tendermint_tpu_torch.ops import field as F
 
-    return F.fe_canonical(t.to(torch.int32).permute(4, 0, 1, 2, 3)).permute(1, 2, 3, 4, 0)
+    return F.fe_canonical(t.to(torch.int32).movedim(-1, 0)).movedim(0, -1)
+
+
+def kernel_label(fn, splits: int) -> str:
+    """A kernel's name in the record: the wrapper's, with the split for a
+    wrapper that serves several (S = 2 and 8; S = 4 is the default)."""
+    return fn.__name__ if splits in (None, 1, DEFAULT_SPLITS) else f"{fn.__name__}[S={splits}]"
+
+
+def check_fill(name, tabs, oks, ptabs, poks, all_decode: bool = False) -> int:
+    """A fill against its plain version: equal tables after fe_canonical,
+    equal decode bits, and canonical coordinates from the kernel; returns
+    the max |error|."""
+    import torch
+
+    err = int((canonical_tables(tabs) - canonical_tables(ptabs)).abs().max())
+    if err or not torch.equal(oks, poks) or (all_decode and not bool(oks.all())):
+        raise AssertionError(f"{name}: max |kernel - plain| after fe_canonical = {err}, "
+                             f"{int((oks != poks).sum())} decode bits differ")
+    if tabs.is_cuda and not torch.equal(tabs.to(torch.int32), canonical_tables(tabs)):
+        raise AssertionError(f"{name}: the kernel wrote non-canonical coordinates")
+    return err
 
 
 def check_kernels(rng, dev, P):
@@ -358,35 +461,34 @@ def check_kernels(rng, dev, P):
     errs[name] = 0
     log(f"phase 2: {name} == plain == oracle on {n} rows ({int(oracle.sum())} valid)")
 
-    name = P.fill.__name__
-    tabs, oks = P.fill(a_d)
-    ptabs, poks = P.fill_plain(a_d)
-    torch.cuda.synchronize()
-    err = int((canonical_tables(tabs) - canonical_tables(ptabs)).abs().max())
-    if err or not torch.equal(oks, poks):
-        raise AssertionError(f"{name}: max |kernel - plain| after fe_canonical = {err}")
-    if tabs.is_cuda and not torch.equal(tabs.to(torch.int32), canonical_tables(tabs)):
-        raise AssertionError(f"{name}: the kernel wrote non-canonical coordinates")
-    errs[name] = err
-    log(f"phase 2: {name} == canonical(plain) on {n} keys, {tabs.numel() // 32} coordinates "
-        f"({int(oks.sum())} decode)")
+    caches = {}
+    for splits in (DEFAULT_SPLITS,) + OTHER_SPLITS:
+        fill, fill_plain, hit, hit_plain = cache_pair(P, splits)
+        name = kernel_label(P.fill1 if splits == 1 else P.fill, splits)
+        tabs, oks = fill(a_d)
+        ptabs, poks = fill_plain(a_d)
+        torch.cuda.synchronize()
+        errs[name] = check_fill(name, tabs, oks, ptabs, poks)
+        log(f"phase 2: {name} == canonical(plain) on {n} keys, {tabs.numel() // 32} coordinates "
+            f"({int(oks.sum())} decode)")
 
-    name = P.hit.__name__
-    perm = torch.from_numpy(rng.permutation(n).astype(np.int64)).to(dev)
-    cache_t = torch.empty_like(tabs).index_copy_(0, perm, tabs)
-    cache_o = torch.empty_like(oks).index_copy_(0, perm, oks)
-    slots = perm.to(torch.int32)
-    got = P.hit(cache_t, cache_o, slots, r_d, s_d, k_d)
-    want = P.hit_plain(cache_t, cache_o, slots, r_d, s_d, k_d)
-    # the plain fill's signed limbs through the kernel (the carried-across cache)
-    plain_cache = torch.empty_like(ptabs).index_copy_(0, perm, ptabs)
-    got_signed = P.hit(plain_cache, cache_o, slots, r_d, s_d, k_d)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got, got_signed)) or not (
-            (got.cpu().numpy() & pre) == oracle).all():
-        raise AssertionError(f"{name}: kernel {got.tolist()} plain {want.tolist()}")
-    errs[name] = 0
-    log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms)")
+        name = kernel_label(P.hit1 if splits == 1 else P.hit, splits)
+        perm = torch.from_numpy(rng.permutation(n).astype(np.int64)).to(dev)
+        cache_t = torch.empty_like(tabs).index_copy_(0, perm, tabs)
+        cache_o = torch.empty_like(oks).index_copy_(0, perm, oks)
+        slots = perm.to(torch.int32)
+        got = hit(cache_t, cache_o, slots, r_d, s_d, k_d)
+        want = hit_plain(cache_t, cache_o, slots, r_d, s_d, k_d)
+        # the plain fill's signed limbs through the kernel (the carried-across cache)
+        plain_cache = torch.empty_like(ptabs).index_copy_(0, perm, ptabs)
+        got_signed = hit(plain_cache, cache_o, slots, r_d, s_d, k_d)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, got_signed)) or not (
+                (got.cpu().numpy() & pre) == oracle).all():
+            raise AssertionError(f"{name}: kernel {got.tolist()} plain {want.tolist()}")
+        errs[name] = 0
+        log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms)")
+        caches[splits] = cache_t, cache_o, slots
 
     name = P.rlc.__name__
     keep = [i for i in range(n) if oracle[i]]
@@ -405,7 +507,42 @@ def check_kernels(rng, dev, P):
             raise AssertionError(f"{name} ({label}): kernel {bool(got)} plain {bool(want)}")
         log(f"phase 2: {name} == plain == {expect} on a {label} batch of {len(idx)} rows")
     errs[name] = 0
+    if P.kind == "ed25519":
+        check_rlc_cached(rng, dev, P, caches, pks, msgs, sigs, oracle, pre, errs)
     return errs
+
+
+def check_rlc_cached(rng, dev, P, caches, pks, msgs, sigs, oracle, pre, errs):
+    """The cached RLC (kernel 7) against its plain version on the edge
+    batch's valid rows and on them with one tampered row, through the edge
+    caches of every split it takes."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+
+    n = len(sigs)
+    keep = [i for i in range(n) if oracle[i]]
+    bad = next(i for i in range(n) if pre[i] and not oracle[i])
+    for splits in RLC_CACHE_SPLITS:
+        cache_t, cache_o, slots = caches[splits]
+        name = kernel_label(M.msm_verify_kernel_cached, splits)
+        for verdict, idx in (("valid", keep), ("tampered", keep[:-1] + [bad])):
+            _, r2, s2, k2, _ = P.prepare([pks[i] for i in idx], [msgs[i] for i in idx],
+                                         [sigs[i] for i in idx])
+            zk, z, zs = M._rlc_scalars_py(s2, k2, len(idx), rng.bytes(16 * len(idx)))
+            r2, zk, z = V.pad_pow2_rows([r2, zk, z], len(idx))
+            sl = slots[torch.tensor(idx + [idx[-1]] * (len(r2) - len(idx)), device=dev)]
+            rows = V._to_device([r2, zk, z, zs], dev)
+            got = M.msm_verify_kernel_cached(cache_t, cache_o, sl, *rows)
+            want = M.msm_verify_kernel_cached_plain(cache_t, cache_o, sl, *rows)
+            torch.cuda.synchronize()
+            if bool(got) != bool(want) or bool(got) != (verdict == "valid"):
+                raise AssertionError(f"{name} ({verdict}): kernel {bool(got)} plain {bool(want)}")
+            log(f"phase 2: {name} == plain == {verdict == 'valid'} on a {verdict} batch of "
+                f"{len(idx)} rows")
+        errs[name] = 0
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -418,7 +555,9 @@ def kernel_wrappers():
 
     return (V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
             M.msm_verify_kernel, VS.verify_sr_kernel, VS.build_sr_tables_split,
-            VS.verify_sr_kernel_cached_split, M.msm_verify_sr_kernel)
+            VS.verify_sr_kernel_cached_split, M.msm_verify_sr_kernel, V.build_pk_tables,
+            V.verify_kernel_cached, M.msm_verify_kernel_cached, VS.build_sr_tables,
+            VS.verify_sr_kernel_cached)
 
 
 def reset_counts():
@@ -448,6 +587,28 @@ def expect_wrong_signature(fn, idx):
             raise AssertionError(f"tampered commit raised the wrong error: {e}") from e
         return str(e)
     raise AssertionError(f"tampered signature #{idx} was accepted")
+
+
+def drive(what, fn, want, totals):
+    """One main-path call with every launch counter set to 0 just before it
+    and read just after; fails unless it made exactly the launches `want`
+    names. Adds them to `totals`; returns (output, wall seconds)."""
+    reset_counts()
+    out, t = timed(fn)
+    got = {name: c for name, c in read_counts().items() if c}
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+    for name, c in got.items():
+        totals[name] = totals.get(name, 0) + c
+    return out, t
+
+
+def check_path(what, totals, expected):
+    """Fail if a kernel of a path's expected launches never ran in it."""
+    idle = sorted({name for want in expected for name in want} - set(totals))
+    if idle:
+        raise AssertionError(f"{what} never launched {idle}")
+    log(f"{what}: launches {json.dumps(totals)}")
 
 
 def _expected(bitmap, fill, hit, rlc):
@@ -495,46 +656,47 @@ def main_path(pool, rng, keys, chain_id):
                          for n in SIZES}
         log(f"phase 3: {kind} commits signed in {time.perf_counter() - t0:.1f} s")
     bad_index = {n: (n * 5) // 12 for n in SIZES}
-    totals = dict.fromkeys(read_counts(), 0)
+    totals = {}
     runs = []
 
-    def drive(kind, n, run, fn):
-        reset_counts()
-        out, t = timed(fn)
-        got = read_counts()
-        want = {name: EXPECTED_LAUNCHES[kind][n, run].get(name, 0) for name in got}
-        if got != want:
-            raise AssertionError(f"{kind} {run} call on {n} validators launched {got}, expected {want}")
-        for name, c in got.items():
-            totals[name] += c
-        return out, t
+    def run(kind, n, label, fn):
+        return drive(f"{kind} {label} call on {n} validators", fn,
+                     EXPECTED_LAUNCHES[kind][n, label], totals)
 
     for kind in PLANES:
         for n, (vals, bid, commit) in commits[kind].items():
-            _, t = drive(kind, n, "valid", lambda: verify_commit(chain_id, vals, bid, commit.height, commit))
+            _, t = run(kind, n, "valid", lambda: verify_commit(chain_id, vals, bid, commit.height, commit))
             runs.append({"plane": kind, "commit": n, "run": "verify_commit valid", "s": t,
                          "sigs_per_s": n / t})
             if n == SIZES[0]:
-                _, t = drive(kind, n, "trusting", lambda: verify_commit_light_trusting(
+                _, t = run(kind, n, "trusting", lambda: verify_commit_light_trusting(
                     chain_id, vals, commit, Fraction(1, 3)))
                 runs.append({"plane": kind, "commit": n, "run": "verify_commit_light_trusting 1/3",
                              "s": t})
                 continue
-            bad = bad_index[n]
-            good = commit.signatures[bad].signature
-            commit.signatures[bad].signature = tamper(good)
-            msg, t = drive(kind, n, "tampered", lambda: expect_wrong_signature(
-                lambda: verify_commit(chain_id, vals, bid, commit.height, commit), bad))
-            commit.signatures[bad].signature = good
-            runs.append({"plane": kind, "commit": n, "run": f"verify_commit tampered #{bad}", "s": t,
-                         "sigs_per_s": n / t, "error": msg[:40]})
+            msg, t = verify_tampered(chain_id, commits[kind][n], bad_index[n], lambda fn: run(
+                kind, n, "tampered", fn))
+            runs.append({"plane": kind, "commit": n, "run": f"verify_commit tampered #{bad_index[n]}",
+                         "s": t, "sigs_per_s": n / t, "error": msg[:40]})
     for r in runs:
         log("phase 3: " + json.dumps(r))
-    log(f"phase 3: launches {json.dumps(totals)}")
-    idle = [k for k, v in totals.items() if v == 0]
-    if idle:
-        raise AssertionError(f"main path never launched {idle}")
+    check_path("phase 3", totals, [w for kind in PLANES for w in EXPECTED_LAUNCHES[kind].values()])
     return commits, bad_index, totals, runs
+
+
+def verify_tampered(chain_id, commit_entry, bad, run):
+    """verify_commit on the commit with signature #bad tampered, through
+    run(fn), which must report it at its index; the commit is restored."""
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    vals, bid, commit = commit_entry
+    good = commit.signatures[bad].signature
+    commit.signatures[bad].signature = tamper(good)
+    try:
+        return run(lambda: expect_wrong_signature(
+            lambda: verify_commit(chain_id, vals, bid, commit.height, commit), bad))
+    finally:
+        commit.signatures[bad].signature = good
 
 
 # -- phase 4: kernels at the main path's shapes, and times --------------------
@@ -614,11 +776,76 @@ def host_prep(P, jobs, n, z_raw):
     return (a, r, zk, z, zs, pre), split
 
 
+def make_record(fn, splits, n, ms, p_ms, err, ops, nbytes, launches, int32_rate):
+    """One kernel's entry in the kernels record, its bound from this run's
+    counts; logged as it is made."""
+    name = kernel_label(fn, splits)
+    b_ms, b_by = bound_ms(ops, nbytes, int32_rate)
+    log(f"kernel {name} rows={n} == plain; kernel {ms:.3f} ms, plain {p_ms:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {launches} launches on the main path")
+    src, replaces = KERNEL_SOURCES[fn.__name__]
+    rec = {"name": name, "route": "cuda", "source": f"tendermint_tpu_torch/{src}",
+           "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows": n}
+    if splits is not None:
+        rec["splits"] = splits
+    return rec
+
+
+def expect_bitmap(name, out, pre, n, bad):
+    ok = out[:n].cpu().numpy() & pre
+    if ok[bad] or int(ok.sum()) != n - 1:
+        raise AssertionError(f"{name}: bitmap on the tampered {n}-validator commit has "
+                             f"{n - int(ok.sum())} invalid rows, #{bad} valid={bool(ok[bad])}")
+
+
+def cache_kernels_at_main_path(P, dev, splits, jobs, bad, counts, errs, int32_rate):
+    """A plane's cache fill and cache hit at one split, on the rows the
+    tampered 1,000-validator commit gives them (1024): the fill against its
+    plain version, and the hit through the main path's own cache of that
+    split, which the path just filled (its slots and tables as
+    dispatch_cached hands them to the kernel); both timed."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.ops import verify as V
+
+    fill, fill_plain, hit, hit_plain = cache_pair(P, splits)
+    fill_fn, hit_fn = (P.fill1, P.hit1) if splits == 1 else (P.fill, P.hit)
+    n = len(jobs[0])
+    a, r, s, k, pre = P.prepare(*jobs)
+    k_rows = V.pad_pow2_rows([k], n)[0]
+    a, r, s, k = V._to_device(V.pad_pow2_rows([a, r, s, k], n), dev)
+    m = len(a)
+    (tabs, oks), ms = event_ms(lambda: fill(a), 10)
+    (ptabs, poks), p_ms = plain_ms(lambda: fill_plain(a))
+    err = check_fill(kernel_label(fill_fn, splits), tabs, oks, ptabs, poks, all_decode=True)
+    entry = 4096 * splits
+    records = [make_record(fill_fn, splits, m, ms, p_ms, max(err, errs[kernel_label(fill_fn, splits)]),
+                           P.ops_fill(m, splits), m * (32 + entry + 1),
+                           counts.get(fill_fn.__name__, 0), int32_rate)]
+    slots, cache_t, cache_o = P.cache(dev).ensure_snapshot(jobs[0])
+    if cache_t.shape[1:] != tabs.shape[1:]:
+        raise AssertionError(f"the main path's cache has entries {tuple(cache_t.shape[1:])}, "
+                             f"not the split-{splits} entries {tuple(tabs.shape[1:])}")
+    (slots,) = V._to_device([np.pad(slots, (0, m - n), mode="edge")], dev)
+    args = (cache_t, cache_o, slots, r, s, k)
+    got, ms = event_ms(lambda: hit(*args), 10)
+    want, p_ms = plain_ms(lambda: hit_plain(*args))
+    name = kernel_label(hit_fn, splits)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} rows differ from plain")
+    expect_bitmap(name, got, pre, n, bad)
+    records.append(make_record(hit_fn, splits, m, ms, p_ms, errs[name], P.ops_hit(m, splits),
+                               m * (4 + 96 + 1 + 1) + cache_read_bytes(k_rows, splits),
+                               counts.get(hit_fn.__name__, 0), int32_rate))
+    return records
+
+
 def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs, int32_rate, runs):
     """Hold one plane's kernels against their plain versions on the rows
     phase 3's commits give them (exact equality), check the verdicts, and
     time those same calls."""
-    import numpy as np
     import torch
 
     from tendermint_tpu_torch.ops import msm as M
@@ -627,25 +854,7 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
     def cuda(arrays):
         return V._to_device(arrays, dev)
 
-    def expect_bitmap(name, out, pre, n, bad):
-        ok = out[:n].cpu().numpy() & pre
-        if ok[bad] or int(ok.sum()) != n - 1:
-            raise AssertionError(f"{name}: bitmap on the tampered {n}-validator commit has "
-                                 f"{n - int(ok.sum())} invalid rows, #{bad} valid={bool(ok[bad])}")
-
-    records = {}
-
-    def record(fn, n, ms, p_ms, err, ops, nbytes):
-        name = fn.__name__
-        b_ms, b_by = bound_ms(ops, nbytes, int32_rate)
-        log(f"phase 4: {name} rows={n} == plain; kernel {ms:.3f} ms, plain {p_ms:.1f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {counts[name]} launches on the main path")
-        src, replaces = KERNEL_SOURCES[name]
-        records[name] = {  # the largest main-path shape is kept
-            "name": name, "route": "cuda", "source": f"tendermint_tpu_torch/{src}",
-            "replaces": replaces, "launches": counts[name], "max_abs_err": max(errs[name], err),
-            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "rows": n}
+    records = []
 
     # the uncached bitmap: the tampered 10,000-validator commit (16384 rows)
     n = SIZES[2]
@@ -657,50 +866,28 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
     if not torch.equal(got, want):
         raise AssertionError(f"{P.bitmap.__name__}: {int((got != want).sum())} rows differ from plain")
     expect_bitmap(P.bitmap.__name__, got, pre, n, bad)
-    record(P.bitmap, len(rows[0]), ms, p_ms, 0, P.ops_bitmap(len(rows[0])), 129 * len(rows[0]))
+    m = len(rows[0])
+    records.append(make_record(P.bitmap, None, m, ms, p_ms, errs[P.bitmap.__name__], P.ops_bitmap(m),
+                               129 * m, counts[P.bitmap.__name__], int32_rate))
 
-    # the cache fill and the cache hit: the tampered 1,000-validator commit
-    # (1024 rows)
+    # the cache fill and the cache hit at the default split: the tampered
+    # 1,000-validator commit (1024 rows)
     n = SIZES[1]
-    bad = bad_index[n]
-    jobs = commit_jobs(commits[n], chain_id, bad)
-    a, r, s, k, pre = P.prepare(*jobs)
-    a, r, s, k = cuda(V.pad_pow2_rows([a, r, s, k], n))
-    m = len(a)
-    (tabs, oks), ms = event_ms(lambda: P.fill(a), 10)
-    (ptabs, poks), p_ms = plain_ms(lambda: P.fill_plain(a))
-    err = int((canonical_tables(tabs) - canonical_tables(ptabs)).abs().max())
-    if err or not torch.equal(oks, poks) or not bool(oks.all()):
-        raise AssertionError(f"{P.fill.__name__}: max |kernel - plain| after fe_canonical = {err}, "
-                             f"{int((oks != poks).sum())} decode bits differ")
-    if tabs.is_cuda and not torch.equal(tabs.to(torch.int32), canonical_tables(tabs)):
-        raise AssertionError(f"{P.fill.__name__}: the kernel wrote non-canonical coordinates")
-    record(P.fill, m, ms, p_ms, err, P.ops_fill(m), m * (32 + 4 * 16 * 4 * 32 * 2 + 1))
-
-    # the main path's own cache, which phase 3 filled with these keys: its
-    # slots and tables as dispatch_cached hands them to the kernel
-    slots, cache_t, cache_o = P.cache(dev).ensure_snapshot(jobs[0])
-    (slots,) = cuda([np.pad(slots, (0, m - n), mode="edge")])
-    args = (cache_t, cache_o, slots, r, s, k)
-    got, ms = event_ms(lambda: P.hit(*args), 10)
-    want, p_ms = plain_ms(lambda: P.hit_plain(*args))
-    if not torch.equal(got, want):
-        raise AssertionError(f"{P.hit.__name__}: {int((got != want).sum())} rows differ from plain")
-    expect_bitmap(P.hit.__name__, got, pre, n, bad)
-    record(P.hit, m, ms, p_ms, 0, P.ops_hit(m), m * (4 + 96 + 1 + 1 + 4 * 16 * 4 * 32 * 2))
+    records += cache_kernels_at_main_path(P, dev, DEFAULT_SPLITS, commit_jobs(commits[n], chain_id, bad_index[n]),
+                                          bad_index[n], counts, errs, int32_rate)
 
     # the RLC: the 1,000- and 10,000-validator commits, valid and tampered,
-    # with one z_raw for both verdicts
+    # with one z_raw for both verdicts; the largest shape is recorded
     for n in SIZES[1:]:
         z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
         verdicts = {}
-        for label, bad in (("valid", None), ("tampered", bad_index[n])):
+        for verdict, bad in (("valid", None), ("tampered", bad_index[n])):
             (a, r, zk, z, zs, pre), split = host_prep(P, commit_jobs(commits[n], chain_id, bad), n, z_raw)
             if n == SIZES[-1] and bad is None:
                 runs.append({"plane": P.kind, "commit": n, "run": "host prep of the RLC",
                              "s": split["prepare_batch_s"] + split["rlc_scalars_s"], **split})
             if not pre.all():
-                raise AssertionError(f"{P.rlc.__name__}: the {label} {n}-validator commit fails the precheck")
+                raise AssertionError(f"{P.rlc.__name__}: the {verdict} {n}-validator commit fails the precheck")
             rows = cuda(V.pad_pow2_rows([a, r, zk, z], n) + [zs])
             if bad is None:  # time the valid polarity; it warms the plain version's shapes
                 got, ms = event_ms(lambda: P.rlc(*rows), 5)
@@ -709,13 +896,138 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
                 got = P.rlc(*rows)
                 want, p_ms = plain_ms(lambda: P.rlc_plain(*rows), warm=False)
             if bool(got) != bool(want) or bool(got) != (bad is None):
-                raise AssertionError(f"{P.rlc.__name__} ({label}, {n} validators): "
+                raise AssertionError(f"{P.rlc.__name__} ({verdict}, {n} validators): "
                                      f"kernel {bool(got)} plain {bool(want)}")
-            verdicts[label] = bool(got)
+            verdicts[verdict] = bool(got)
         m = len(rows[0])
         log(f"phase 4: {P.rlc.__name__} verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
-        record(P.rlc, m, ms, p_ms, 0, P.ops_rlc(m, M._streams(m)), m * (32 + 32 + 32 + 16) + 32 + 1)
-    return list(records.values())
+        rec = make_record(P.rlc, None, m, ms, p_ms, errs[P.rlc.__name__], P.ops_rlc(m, M._streams(m)),
+                          m * (32 + 32 + 32 + 16) + 32 + 1, counts[P.rlc.__name__], int32_rate)
+    return records + [rec]
+
+
+# -- phase 5: the other cache geometries --------------------------------------
+
+
+def geometry_path(planes, dev, chain_id, commits, bad_index, errs, int32_rate, runs):
+    """For S = 1, 2 and 8 (TM_TPU_PK_SPLIT), on each plane: verify_commit on
+    the 150-validator commit (fill, then hit, through a new cache of that
+    split) and on the tampered 1,000-validator commit (the RLC, then fill
+    and hit), exact launches each; then the split's fill and hit against
+    their plain versions on the rows that commit gives them, timed."""
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    small, mid, _ = SIZES
+    records = []
+    for splits in OTHER_SPLITS:
+        os.environ["TM_TPU_PK_SPLIT"] = str(splits)
+        for kind, P in planes.items():
+            fill, hit = (P.fill1, P.hit1) if splits == 1 else (P.fill, P.hit)
+            totals = {}
+            want = [{fill.__name__: 1, hit.__name__: 1},
+                    {P.rlc.__name__: 1, fill.__name__: 1, hit.__name__: 1}]
+            what = f"phase 5: {kind} S={splits}"
+            vals, bid, commit = commits[kind][small]
+            _, t = drive(f"{what} valid call on {small} validators",
+                         lambda: verify_commit(chain_id, vals, bid, commit.height, commit), want[0], totals)
+            runs.append({"plane": kind, "commit": small, "splits": splits, "run": "verify_commit valid",
+                         "s": t})
+            msg, t = verify_tampered(chain_id, commits[kind][mid], bad_index[mid], lambda fn: drive(
+                f"{what} tampered call on {mid} validators", fn, want[1], totals))
+            runs.append({"plane": kind, "commit": mid, "splits": splits,
+                         "run": f"verify_commit tampered #{bad_index[mid]}", "s": t})
+            check_path(what, totals, want)
+            records += cache_kernels_at_main_path(
+                P, dev, splits, commit_jobs(commits[kind][mid], chain_id, bad_index[mid]),
+                bad_index[mid], totals, errs, int32_rate)
+    os.environ["TM_TPU_PK_SPLIT"] = str(DEFAULT_SPLITS)
+    return records
+
+
+# -- phase 6: the cached RLC --------------------------------------------------
+
+
+def rlc_cache_path(P, dev, rng, chain_id, commits, bad_index, errs, int32_rate, runs):
+    """TM_TPU_MSM_CACHE=on on the ed25519 plane. For S = 2, 4 and 8, each
+    through a new cache: the valid 1,000-validator commit with the knob off
+    (the uncached RLC), then on (the fill and the cached RLC), then on
+    again (the cached RLC alone); the tampered one (the cached RLC, then
+    the cache hit); the 10,000-validator commit, whose keys overflow the
+    cache (the uncached RLC). At S = 1 the knob takes the uncached RLC.
+    Then the cached RLC against its plain version on the 1,000-validator
+    commit's rows in both verdicts with one z_raw, timed."""
+    import numpy as np
+
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    small, mid, large = SIZES
+    rlc, cached = P.rlc.__name__, M.msm_verify_kernel_cached.__name__
+    records = []
+
+    def valid(n):
+        vals, bid, commit = commits[n]
+        return lambda: verify_commit(chain_id, vals, bid, commit.height, commit)
+
+    for splits in RLC_CACHE_SPLITS + (1,):
+        os.environ["TM_TPU_PK_SPLIT"] = str(splits)
+        V._PK_CACHES.clear()  # a new cache of this split
+        what = f"phase 6: S={splits}"
+        totals = {}
+        if splits == 1:
+            os.environ["TM_TPU_MSM_CACHE"] = "on"
+            drive(f"{what} valid call on {mid} validators", valid(mid), {rlc: 1}, totals)
+            check_path(what, totals, [{rlc: 1}])
+            continue
+        fill, hit = P.fill.__name__, P.hit.__name__
+        want = [{rlc: 1}, {fill: 1, cached: 1}, {cached: 1}, {cached: 1, hit: 1}, {rlc: 1}]
+        os.environ["TM_TPU_MSM_CACHE"] = "off"
+        _, t_off = drive(f"{what} MSM_CACHE=off valid call on {mid} validators", valid(mid), want[0], totals)
+        os.environ["TM_TPU_MSM_CACHE"] = "on"
+        _, t_fill = drive(f"{what} first valid call on {mid} validators", valid(mid), want[1], totals)
+        _, t_on = drive(f"{what} second valid call on {mid} validators", valid(mid), want[2], totals)
+        runs.append({"plane": P.kind, "commit": mid, "splits": splits,
+                     "run": "verify_commit valid: RLC uncached / cached with fill / cached",
+                     "s": t_on, "uncached_s": t_off, "fill_s": t_fill})
+        verify_tampered(chain_id, commits[mid], bad_index[mid], lambda fn: drive(
+            f"{what} tampered call on {mid} validators", fn, want[3], totals))
+        drive(f"{what} valid call on {large} validators", valid(large), want[4], totals)
+        check_path(what, totals, want)
+
+        # kernel 7 on the 1,000-validator commit's rows, valid and tampered
+        jobs = commit_jobs(commits[mid], chain_id)
+        slots, cache_t, cache_o = P.cache(dev).ensure_snapshot(jobs[0])
+        z_raw = M._ensure_z_raw(mid, rng.bytes(16 * mid))
+        verdicts = {}
+        for verdict, bad in (("valid", None), ("tampered", bad_index[mid])):
+            _, r, s_rows, k_rows, pre = P.prepare(*commit_jobs(commits[mid], chain_id, bad))
+            zk, z, zs = M._rlc_scalars_py(s_rows, k_rows, mid, z_raw)
+            r, zk, z = V.pad_pow2_rows([r, zk, z], mid)
+            m = len(r)
+            args = V._to_device([np.pad(slots, (0, m - mid), mode="edge"), r, zk, z, zs], dev)
+            if bad is None:
+                got, ms = event_ms(lambda: M.msm_verify_kernel_cached(cache_t, cache_o, *args), 5)
+                want_v, p_ms = plain_ms(lambda: M.msm_verify_kernel_cached_plain(cache_t, cache_o, *args))
+                zk_rows = zk
+            else:
+                got = M.msm_verify_kernel_cached(cache_t, cache_o, *args)
+                want_v = M.msm_verify_kernel_cached_plain(cache_t, cache_o, *args)
+            if bool(got) != bool(want_v) or bool(got) != (bad is None):
+                raise AssertionError(f"{kernel_label(M.msm_verify_kernel_cached, splits)} ({verdict}): "
+                                     f"kernel {bool(got)} plain {bool(want_v)}")
+            verdicts[verdict] = bool(got)
+        log(f"{what}: {cached} verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
+        name = kernel_label(M.msm_verify_kernel_cached, splits)
+        records.append(make_record(
+            M.msm_verify_kernel_cached, splits, m, ms, p_ms, errs[name],
+            ops_msm_cached(m, M._streams(m), splits),
+            m * (4 + 32 + 32 + 16 + 1) + 32 + 1 + cache_read_bytes(zk_rows, splits),
+            totals[cached], int32_rate))
+    os.environ.pop("TM_TPU_MSM_CACHE", None)
+    os.environ["TM_TPU_PK_SPLIT"] = str(DEFAULT_SPLITS)
+    V._PK_CACHES.clear()
+    return records
 
 
 def main() -> int:
@@ -784,12 +1096,24 @@ def main() -> int:
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
                                         int32_rate, runs)
+    t0 = time.perf_counter()
+    kernels += geometry_path(planes, dev, chain_id, commits, bad_index, errs, int32_rate, runs)
+    log(f"phase 5: the cache geometries in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += rlc_cache_path(planes["ed25519"], dev, rng, chain_id, commits["ed25519"], bad_index,
+                              errs, int32_rate, runs)
+    log(f"phase 6: the cached RLC in {time.perf_counter() - t0:.1f} s")
     for r in runs:
-        extra = {k: round(r[k], 4) for k in ("challenges_s", "prepare_batch_s", "rlc_scalars_s") if k in r}
-        log(f"phase 4: {r['plane']} {r['run']} on {r['commit']} validators: {r['s'] * 1e3:.1f} ms"
+        extra = {k: round(r[k], 4) for k in ("challenges_s", "prepare_batch_s", "rlc_scalars_s",
+                                               "uncached_s", "fill_s") if k in r}
+        log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"
+            + (f" at S={r['splits']}" if "splits" in r else "") + f": {r['s'] * 1e3:.1f} ms"
             + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else "")
             + (f" {json.dumps(extra)}" if extra else ""))
-    log(f"phase 4: card {card_line}; total {time.perf_counter() - t_start:.1f} s")
+    names = {k["name"].split("[")[0] for k in kernels}
+    if names != set(KERNEL_SOURCES):
+        raise AssertionError(f"kernels without a main-path record: {sorted(set(KERNEL_SOURCES) - names)}")
+    log(f"card {card_line}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ identical acceptance.
 Routing of a batch of n signatures (direct dispatch):
   - n < DEVICE_BATCH_CUTOVER, or TM_TPU_CRYPTO=off: serial host checks;
   - n >= MSM_BATCH_CUTOVER (with TM_TPU_MSM on): the RLC all-valid check
-    first, and the bitmap plane only when it fails;
+    first, and the bitmap plane only when it fails; with TM_TPU_MSM_CACHE=on
+    (default off) and the pubkey cache on, the RLC reads A from the cache;
   - otherwise the bitmap plane, through the device pubkey cache
     (TM_TPU_PK_CACHE, default on), which falls back to the uncached kernel
     when a batch has more distinct keys than the cache holds.
@@ -127,14 +128,11 @@ def _msm_enabled() -> bool:
     return _flag("TM_TPU_MSM", "on", True)
 
 
-def _msm_cache_setting() -> None:
-    """TM_TPU_MSM_CACHE=on routes the reference's RLC through the pubkey
-    cache (its kernel 7); this slice does not cover that plane."""
-    if _flag("TM_TPU_MSM_CACHE", "off", False):
-        raise NotImplementedError(
-            "TM_TPU_MSM_CACHE=on: the cached RLC kernel (msm_verify_kernel_cached) "
-            "comes with a later slice of the port"
-        )
+def _msm_cache_enabled() -> bool:
+    """TM_TPU_MSM_CACHE routes the ed25519 RLC through the pubkey cache.
+    Default off, as the reference's; it takes effect only with the pubkey
+    cache on."""
+    return _flag("TM_TPU_MSM_CACHE", "off", False)
 
 
 def _engine_setting() -> None:
@@ -209,7 +207,8 @@ class Ed25519BatchVerifier(BatchVerifier):
         from ..ops import msm, verify
 
         def rlc_async(pks, msgs, sigs, device):
-            _msm_cache_setting()
+            if _pk_cache_enabled() and _msm_cache_enabled():
+                return msm.verify_batch_rlc_cached_async(pks, msgs, sigs, device=device)
             return msm.verify_batch_rlc_async(pks, msgs, sigs, device=device)
 
         return dispatch_batch(self._pks, self._msgs, self._sigs, self.device, verify, rlc_async,

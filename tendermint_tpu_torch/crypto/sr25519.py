@@ -24,7 +24,8 @@ verifier; the reference's tendermint_tpu/crypto/sr25519.py:362-432):
   - n < DEVICE_BATCH_CUTOVER, or TM_TPU_CRYPTO=off: serial host checks;
   - n >= MSM_BATCH_CUTOVER (with TM_TPU_MSM on): the sr25519 RLC check
     first (ops/msm.py), and the bitmap plane only when it fails or the
-    host precheck refuses the batch;
+    host precheck refuses the batch; the RLC stays uncached whatever
+    TM_TPU_MSM_CACHE says, as the reference's;
   - otherwise the bitmap plane (ops/verify_sr.py), through the device's
     sr25519 pubkey cache (TM_TPU_PK_CACHE, default on), which takes the
     uncached kernel when a batch has more distinct keys than it holds.

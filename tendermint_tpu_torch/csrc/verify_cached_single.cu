@@ -1,0 +1,52 @@
+// Cache-hit bitmap on the single-table plane (TM_TPU_PK_SPLIT=1):
+// [8]([s]B - [k]A) == [8]R with -A's 16 multiples read from the
+// device-resident pubkey cache by slot.
+//
+// Replaces the JAX program `verify_kernel_cached`
+// (tendermint_tpu/ops/verify.py:113, body verify_kernel_cached_impl at
+// :98).
+//
+// Bound on this card: integer multiplies. A row decodes R (about 265 field
+// multiplications), runs the 252-doubling Straus ladder (63 windows of 4
+// doublings and 2 additions, and the top window's addition) and the 6
+// cofactor doublings: about 3,300 field multiplications, each at least 64
+// 32-bit multiplies (36 for a square), the count the bound in
+// chip_smoke.py uses; this design issues 100 wide multiplies per product
+// and per square. It reads 96 bytes of input and at most the 4 KiB cache
+// entry.
+//
+// Design: verify.cu's, one thread per signature, with A's table read from
+// the int16 cache entry (ge_straus_base_cached in ladder.cuh, limbs read
+// modulo p, so the JAX cache's signed limbs work as the port's canonical
+// ones) instead of decoded and built into scratch.
+#include <cuda_runtime.h>
+
+#include "ladder.cuh"
+
+__global__ void verify_cached_single_rows(const int16_t *tables, const uint8_t *oks,
+                                          const int32_t *slots, const uint8_t *r_enc,
+                                          const uint8_t *s_bytes, const uint8_t *k_bytes,
+                                          const int32_t *base_table, uint8_t *out, int n,
+                                          int capacity) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // an out-of-range slot clamps, as the reference's XLA gather does
+  const int slot = min(max(slots[i], 0), capacity - 1);
+  ge r, q;
+  const bool r_ok = ge_decompress(r, r_enc + 32 * i);
+  ge_straus_base_cached(q, base_table, tables + (size_t)slot * 16 * 128, s_bytes + 32 * i,
+                        k_bytes + 32 * i, false);
+  out[i] = (oks[slot] && r_ok && ge_cofactored_equal(q, r)) ? 1 : 0;
+}
+
+extern "C" int tm_verify_cached(const void *tables, const void *oks, const void *slots,
+                                const void *r_enc, const void *s_bytes, const void *k_bytes,
+                                const void *base_table, void *out, int n, int capacity,
+                                void *stream) {
+  const int threads = 128;
+  verify_cached_single_rows<<<grid_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
+      (const int16_t *)tables, (const uint8_t *)oks, (const int32_t *)slots,
+      (const uint8_t *)r_enc, (const uint8_t *)s_bytes, (const uint8_t *)k_bytes,
+      (const int32_t *)base_table, (uint8_t *)out, n, capacity);
+  return (int)cudaGetLastError();
+}

@@ -32,15 +32,21 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points of each library, with their argument types.
+_CACHE_HIT = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]  # ... n, capacity, stream
 KERNELS = {
     "verify": {"tm_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _P]},
-    "pk_tables": {"tm_build_pk_tables": [_P, _P, _P, _I, _P]},
-    "verify_cached": {"tm_verify_cached_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "pk_tables": {"tm_build_pk_tables": [_P, _P, _P, _I, _I, _P]},
+    "verify_cached": {"tm_verify_cached_split": _CACHE_HIT[:-1] + [_I, _P]},
     "msm": {"tm_msm_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "pk_tables_single": {"tm_build_pk_tables_single": [_P, _P, _P, _I, _P]},
+    "verify_cached_single": {"tm_verify_cached": _CACHE_HIT},
+    "msm_cached": {"tm_msm_verify_cached": [_P] * 12 + [_I, _I, _I, _I, _P]},
     "verify_sr": {"tm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _I, _P]},
-    "sr_tables": {"tm_build_sr_tables": [_P, _P, _P, _I, _P]},
-    "verify_sr_cached": {"tm_verify_sr_cached_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "sr_tables": {"tm_build_sr_tables": [_P, _P, _P, _I, _I, _P]},
+    "verify_sr_cached": {"tm_verify_sr_cached_split": _CACHE_HIT[:-1] + [_I, _P]},
     "msm_sr": {"tm_msm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "sr_tables_single": {"tm_build_sr_tables_single": [_P, _P, _P, _I, _P]},
+    "verify_sr_cached_single": {"tm_verify_sr_cached": _CACHE_HIT},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

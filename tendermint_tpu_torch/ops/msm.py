@@ -20,6 +20,12 @@ prime order: sum z_i ([s_i]B - [k_i]A_i - R_i) must be the group identity,
 decided by its ristretto encoding being 32 zero bytes, with no cofactor
 doublings. `msm_verify_sr_kernel` (csrc/msm_sr.cu, sharing csrc/msm.cuh
 with the ed25519 kernel) decodes with the ristretto codec.
+
+`msm_verify_kernel_cached` (csrc/msm_cached.cu) is the ed25519 check with
+A read from the split pubkey cache (TM_TPU_MSM_CACHE=on, the reference's
+default off): no A decode and no A table, and A's 64 nibbles ride the S
+power tables of its cache entry in 64/S windows, so the Horner tail runs
+over max(32, 64/S) windows instead of 64.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ from . import _build
 from . import curve as C
 from . import ristretto as R
 from .verify import (
-    L, _check_rows, _limb_major, _route, _to_device, device_table, pad_pow2_rows,
-    prepare_batch, resolve_device,
+    L, SPLITS, _check_cache_args, _check_rows, _limb_major, _route, _to_device, device_table,
+    pad_pow2_rows, prepare_batch, pubkey_cache, resolve_device,
 )
 from .verify_sr import prepare_batch as prepare_batch_sr
 
@@ -89,13 +95,29 @@ def _accumulate_windows(neg, nibs_zk, nibs_z, n):
         w_acc = C.point_add(w_acc, entry_a, out_t=True)
         lo = C.point_add(w_acc[:, :, :32], entry_r, out_t=True)
         w_acc = torch.cat([lo, w_acc[:, :, 32:]], dim=2)
-    acc = w_acc[:, :, 63]
-    for w in range(62, -1, -1):
+    return _horner_reduce(w_acc)
+
+
+def _horner_reduce(w_acc):
+    """Horner over the windows of the (4, 32, W, G) window sums (4
+    doublings and one addition a window, from the top) and the stream
+    reduction: the (4, 32, 1) total with a valid T."""
+    wn = w_acc.shape[2]
+    acc = w_acc[:, :, wn - 1]
+    for w in range(wn - 2, -1, -1):
         for _ in range(3):
             acc = C.point_double(acc, out_t=False)
         acc = C.point_double(acc, out_t=True)
         acc = C.point_add(acc, w_acc[:, :, w], out_t=True)
     return _tree_reduce_points(acc)
+
+
+def _cofactored_identity(total, sb):
+    """[8](total + sb) is the identity: the ed25519 RLC's decision."""
+    total = C.point_add(total, sb, out_t=False)
+    for _ in range(3):
+        total = C.point_double(total, out_t=False)
+    return C.point_is_identity(total)[0]
 
 
 def msm_verify_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
@@ -113,10 +135,7 @@ def msm_verify_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
     nibs_z = C.scalar_to_nibbles(_limb_major(z_bytes))  # (32, B)
     total = _accumulate_windows(neg, nibs_zk, nibs_z, n)
     sb = C.fixed_base_mul(_limb_major(zs_bytes))  # (4, 32, 1)
-    total = C.point_add(total, sb, out_t=False)
-    for _ in range(3):
-        total = C.point_double(total, out_t=False)
-    return all_ok & C.point_is_identity(total)[0]
+    return all_ok & _cofactored_identity(total, sb)
 
 
 def _launch_msm(name: str, lib_name: str, entry: str, a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
@@ -154,6 +173,80 @@ def msm_verify_kernel(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
 
 
 msm_verify_kernel.launches = 0
+
+
+def msm_verify_kernel_cached_plain(tables, oks, slots, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """Plain version of the cached RLC check: split cache tables
+    (C, S, 16, 4, 32) int16 (S = 2, 4 or 8), oks (C,) bool, slots (B,)
+    int32 of the rows' keys; r_enc, zk_bytes, z_bytes, zs_bytes as
+    msm_verify_kernel_plain's (padding rows carry zero scalars and a valid
+    slot). Returns a () bool: every R decodes, every key's entry decoded,
+    and the combined equation holds. The JAX program's rounds: each adds
+    R's entry for nibble w of z to window w < 32, and cache row c's entry
+    for nibble c * 64/S + w of zk to window w < 64/S."""
+    r = _limb_major(r_enc)
+    n = r.shape[1]
+    r_pt, r_oks = C.decompress(r)
+    neg_r = C.point_neg(r_pt)
+    sl = slots.long()
+    all_ok = torch.all(oks[sl]) & torch.all(r_oks)
+    splits = tables.shape[1]
+    per = 64 // splits  # zk nibbles per cache row
+    nibs_zk = C.scalar_to_nibbles(_limb_major(zk_bytes))  # (64, B)
+    nibs_z = C.scalar_to_nibbles(_limb_major(z_bytes))  # (32, B)
+    g = _streams(n)
+    wn = max(32, per)
+    w_acc = C.identity_point((wn, g), r.device)
+    tabs_a = tables[sl].to(torch.int32).permute(1, 2, 3, 4, 0)  # (S, 16, 4, 32, B)
+    for t in range(n // g):
+        cols = slice(t * g, (t + 1) * g)
+        entry_r = _select_windows(C._build_var_table(neg_r[:, :, cols]), nibs_z[:, cols])
+        if wn > 32:
+            ident = C.identity_point((wn - 32, g), r.device)
+            entry_r = torch.cat([entry_r, ident], dim=2)
+        w_acc = C.point_add(w_acc, entry_r, out_t=True)
+        lo = w_acc[:, :, :per]
+        for c in range(splits):
+            entry_c = _select_windows(tabs_a[c][..., cols], nibs_zk[c * per:(c + 1) * per, cols])
+            lo = C.point_add(lo, entry_c, out_t=True)
+        w_acc = torch.cat([lo, w_acc[:, :, per:]], dim=2)
+    total = _horner_reduce(w_acc)
+    sb = C.fixed_base_mul(_limb_major(zs_bytes))
+    return all_ok & _cofactored_identity(total, sb)
+
+
+def msm_verify_kernel_cached(tables, oks, slots, r_enc, zk_bytes, z_bytes, zs_bytes):
+    """Cached RLC check: csrc/msm_cached.cu on CUDA tensors (three launches
+    from one entry point, counted once), the plain version on CPU tensors."""
+    args = (tables, oks, slots, r_enc, zk_bytes, z_bytes, zs_bytes)
+    if not _route("msm_verify_kernel_cached", *args):
+        return msm_verify_kernel_cached_plain(*args)
+    name = "msm_verify_kernel_cached"
+    n = r_enc.shape[0]
+    g = _streams(n)
+    _check_rows(name, n, 32, r_enc, zk_bytes)
+    _check_rows(name, n, 16, z_bytes)
+    _check_rows(name, 1, 32, zs_bytes)
+    _check_cache_args(name, n, SPLITS[1:], tables, oks, slots)
+    splits = tables.shape[1]
+    wn = max(32, 64 // splits)
+    dev = r_enc.device
+    tabs = torch.empty((16 * 4 * 10, n), dtype=torch.int32, device=dev)
+    row_oks = torch.empty(n, dtype=torch.uint8, device=dev)
+    wsum = torch.empty((4 * 10, wn * g), dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    rc = _build.load("msm_cached").tm_msm_verify_cached(
+        tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r_enc.data_ptr(),
+        zk_bytes.data_ptr(), z_bytes.data_ptr(), zs_bytes.data_ptr(),
+        device_table("fixed", dev).data_ptr(), tabs.data_ptr(), row_oks.data_ptr(),
+        wsum.data_ptr(), out.data_ptr(), n, g, tables.shape[0], splits, _build.stream_of(r_enc),
+    )
+    _build.check(rc, name)
+    msm_verify_kernel_cached.launches += 1
+    return out
+
+
+msm_verify_kernel_cached.launches = 0
 
 
 def msm_verify_sr_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
@@ -232,7 +325,11 @@ def _dispatch_rlc(prepare, kernel, pubkeys, msgs, sigs, z_raw, device):
     if not precheck.all():
         return None
     z_raw = _ensure_z_raw(n, z_raw)
-    zk, z_out, zs_row = _rlc_scalars_py(s_rows, k_rows, n, z_raw)
+    return _launch_rlc(kernel, a_enc, r_enc, *_rlc_scalars_py(s_rows, k_rows, n, z_raw), n, dev)
+
+
+def _launch_rlc(kernel, a_enc, r_enc, zk, z_out, zs_row, n, dev):
+    """Pad the RLC rows with zero scalars, copy them to the device, launch."""
     rows = pad_pow2_rows([a_enc, r_enc, zk, z_out], n)
     return kernel(*_to_device(rows + [zs_row], dev))
 
@@ -241,6 +338,37 @@ def verify_batch_rlc_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, devi
     """Dispatch the ed25519 RLC check without blocking. Returns a handle for
     collect_rlc, or None on precheck refusal."""
     return _dispatch_rlc(prepare_batch, msm_verify_kernel, pubkeys, msgs, sigs, z_raw, device)
+
+
+def verify_batch_rlc_cached_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):
+    """The ed25519 RLC check through the device's pubkey cache (same
+    contract as verify_batch_rlc_async): cache hits skip A's decode and
+    table, and A rides the split power tables. Three refusals, as the
+    reference's: a batch that fails the precheck returns None before the
+    cache is touched (its keys are never inserted); a batch with more
+    distinct keys than the cache holds takes the uncached kernel, reusing
+    the prep and scalars already made; a single-table cache (S = 1) takes
+    verify_batch_rlc_async."""
+    n = len(sigs)
+    if n == 0:
+        return None
+    cache = pubkey_cache(device)
+    if cache.tables.ndim != 5:
+        return verify_batch_rlc_async(pubkeys, msgs, sigs, z_raw, device)
+    a_enc, r_enc, s_rows, k_rows, precheck = prepare_batch(pubkeys, msgs, sigs)
+    if not precheck.all():
+        return None
+    slots, tables, oks = cache.ensure_snapshot(pubkeys)  # all 32 bytes: the precheck passed
+    z_raw = _ensure_z_raw(n, z_raw)
+    zk, z_out, zs_row = _rlc_scalars_py(s_rows, k_rows, n, z_raw)
+    if slots is None:
+        return _launch_rlc(msm_verify_kernel, a_enc, r_enc, zk, z_out, zs_row, n, cache.device)
+    r_enc, zk, z_out = pad_pow2_rows([r_enc, zk, z_out], n)
+    # padded rows carry zero scalars; their slot copies the edge slot, a
+    # key of this batch, so a stale entry never sinks the decode test
+    slots = np.pad(slots, (0, len(r_enc) - n), mode="edge")
+    dev_rows = _to_device([slots, r_enc, zk, z_out, zs_row], cache.device)
+    return msm_verify_kernel_cached(tables, oks, *dev_rows)
 
 
 def verify_batch_rlc_sr_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):

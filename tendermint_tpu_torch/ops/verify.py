@@ -8,14 +8,22 @@ is evaluated data-parallel across the batch and yields the per-signature
 validity bitmap directly, with exactly the acceptance of the JAX package
 (tendermint_tpu/ops/verify.py) and of its pure-Python oracle.
 
-Three kernels live here, each a hand-written CUDA kernel for Hopper
-(csrc/*.cu) beside its plain PyTorch version (the sr25519 plane's three
+Five kernels live here, each a hand-written CUDA kernel for Hopper
+(csrc/*.cu) beside its plain PyTorch version (the sr25519 plane's five
 are in ops/verify_sr.py and share the pubkey cache and the dispatch
 below):
 
-  verify_kernel               csrc/verify.cu         uncached bitmap
-  build_pk_tables_split       csrc/pk_tables.cu      pubkey-cache fill
-  verify_kernel_cached_split  csrc/verify_cached.cu  cache-hit bitmap
+  verify_kernel               csrc/verify.cu                uncached bitmap
+  build_pk_tables_split       csrc/pk_tables.cu             split cache fill
+  verify_kernel_cached_split  csrc/verify_cached.cu         split cache hit
+  build_pk_tables             csrc/pk_tables_single.cu      single-table fill
+  verify_kernel_cached        csrc/verify_cached_single.cu  single-table hit
+
+The pubkey cache has the reference's geometries (TM_TPU_PK_SPLIT): at
+S = 2, 4 (the default) or 8 an entry holds S power tables, (S, 16, 4, 32),
+and the cache hit runs the split ladder; at S = 1 it holds one table,
+(16, 4, 32), and the hit runs the 252-doubling ladder. The cache-hit
+kernel is picked from a cache's entry shape, never from the setting.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 only for tensors on the CPU; anything else raises. Each wrapper counts its
@@ -44,9 +52,25 @@ from . import curve as C
 
 L = 2**252 + 27742317777372353535851937790883648493
 
-# The split of the cache's power tables; only the default is ported.
+# The split of the cache's power tables (TM_TPU_PK_SPLIT): the default, and
+# the splits the reference accepts.
 PK_SPLITS = 4
-CACHE_ENTRY_SHAPE = (PK_SPLITS, 16, 4, 32)
+SPLITS = (1, 2, 4, 8)
+
+
+def pk_splits() -> int:
+    """TM_TPU_PK_SPLIT, read as the reference reads it (at each cache
+    lookup here, at import there)."""
+    splits = int(os.environ.get("TM_TPU_PK_SPLIT", str(PK_SPLITS)))
+    if splits not in SPLITS:
+        raise ValueError(f"TM_TPU_PK_SPLIT must be 1, 2, 4 or 8, got {splits}")
+    return splits
+
+
+def cache_entry_shape(splits: int) -> tuple:
+    """One cache entry: a single table (16, 4, 32) at S = 1, S power tables
+    (S, 16, 4, 32) above."""
+    return (16, 4, 32) if splits == 1 else (splits, 16, 4, 32)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -99,13 +123,25 @@ def _check_rows(name: str, n: int, width: int, *tensors) -> None:
             )
 
 
-def _check_cache_args(name: str, n: int, tables, oks, slots, r_enc, s_bytes, k_bytes) -> None:
-    """The cache-hit kernels' inputs: tables (C, 4, 16, 4, 32) int16, oks
-    (C,) bool, slots (n,) int32, and (n, 32) uint8 rows, all contiguous."""
-    _check_rows(name, n, 32, r_enc, s_bytes, k_bytes)
-    if (tables.dtype != torch.int16 or tuple(tables.shape[1:]) != CACHE_ENTRY_SHAPE
-            or not tables.is_contiguous()):
+def table_splits(tables) -> int:
+    """The split S of a cache's tables, from their entry shape (0 for no
+    cache shape)."""
+    return 1 if tables.ndim == 4 else (tables.shape[1] if tables.ndim == 5 else 0)
+
+
+def _check_tables(name: str, tables, splits) -> None:
+    """tables (C, *entry) int16, contiguous, of an entry shape `splits`
+    allows."""
+    s = table_splits(tables)
+    if (tables.dtype != torch.int16 or s not in splits
+            or tuple(tables.shape[1:]) != cache_entry_shape(s) or not tables.is_contiguous()):
         raise ValueError(f"{name}: bad tables {tables.dtype} {tuple(tables.shape)}")
+
+
+def _check_cache_args(name: str, n: int, splits, tables, oks, slots) -> None:
+    """A cache kernel's view of the cache: tables (C, *entry) int16 of a
+    split in `splits`, oks (C,) bool and slots (n,) int32, all contiguous."""
+    _check_tables(name, tables, splits)
     if oks.dtype != torch.bool or oks.shape != (tables.shape[0],) or not oks.is_contiguous():
         raise ValueError(f"{name}: bad oks {oks.dtype} {tuple(oks.shape)}")
     if slots.dtype != torch.int32 or slots.shape != (n,) or not slots.is_contiguous():
@@ -168,32 +204,54 @@ verify_kernel.launches = 0
 # -- kernel 2: pubkey-cache fill --------------------------------------------
 
 
-def build_pk_tables_split_plain(a_enc):
-    """Plain version: (B, 32) uint8 pubkeys -> ((B, 4, 16, 4, 32) int16
-    power tables of -A, (B,) bool decode bits). Limbs are fe_mul outputs
-    (|limb| < 2^9), exactly the JAX program's."""
-    a_pt, ok = C.decompress(_limb_major(a_enc))
-    tabs = C.build_power_tables(C.point_neg(a_pt), splits=PK_SPLITS)
-    return tabs.permute(4, 0, 1, 2, 3).to(torch.int16).contiguous(), ok
+def _power_tables_plain(a_pt, splits):
+    """(B, *cache_entry_shape(splits)) int16 power tables of the point a_pt
+    (4, 32, B), the fills' shared tail: limbs are fe_mul outputs
+    (|limb| < 2^9), exactly the JAX programs'."""
+    tabs = C.build_power_tables(a_pt, splits=splits).permute(4, 0, 1, 2, 3)
+    if splits == 1:
+        tabs = tabs[:, 0]
+    return tabs.to(torch.int16).contiguous()
 
 
-def build_pk_tables_split(a_enc):
-    """Cache fill: csrc/pk_tables.cu on CUDA tensors (coordinates written
-    canonical), the plain version on CPU tensors."""
-    if not _route("build_pk_tables_split", a_enc):
-        return build_pk_tables_split_plain(a_enc)
+def _check_splits(name: str, splits: int, allowed=SPLITS[1:]) -> None:
+    if splits not in allowed:
+        raise ValueError(f"{name}: splits must be one of {allowed}, got {splits}")
+
+
+def _launch_fill(name: str, lib_name: str, entry: str, a_enc, splits=None):
+    """Allocate a fill's outputs and launch it; splits=None is the
+    single-table entry point (no splits argument)."""
     n = a_enc.shape[0]
-    _check_rows("build_pk_tables_split", n, 32, a_enc)
+    _check_rows(name, n, 32, a_enc)
     dev = a_enc.device
-    tables = torch.empty((n,) + CACHE_ENTRY_SHAPE, dtype=torch.int16, device=dev)
+    tables = torch.empty((n,) + cache_entry_shape(splits or 1), dtype=torch.int16, device=dev)
     oks = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _build.load("pk_tables")
-    rc = lib.tm_build_pk_tables(
-        a_enc.data_ptr(), tables.data_ptr(), oks.data_ptr(), n, _build.stream_of(a_enc)
-    )
-    _build.check(rc, "build_pk_tables_split")
-    build_pk_tables_split.launches += 1
+    args = (a_enc.data_ptr(), tables.data_ptr(), oks.data_ptr(), n)
+    if splits is not None:
+        args += (splits,)
+    rc = getattr(_build.load(lib_name), entry)(*args, _build.stream_of(a_enc))
+    _build.check(rc, name)
     return tables, oks
+
+
+def build_pk_tables_split_plain(a_enc, splits: int = PK_SPLITS):
+    """Plain version: (B, 32) uint8 pubkeys -> ((B, S, 16, 4, 32) int16
+    power tables of -A, (B,) bool decode bits)."""
+    a_pt, ok = C.decompress(_limb_major(a_enc))
+    return _power_tables_plain(C.point_neg(a_pt), splits), ok
+
+
+def build_pk_tables_split(a_enc, splits: int = PK_SPLITS):
+    """Split cache fill at S = splits (2, 4 or 8): csrc/pk_tables.cu on CUDA
+    tensors (coordinates written canonical), the plain version on CPU
+    tensors."""
+    _check_splits("build_pk_tables_split", splits)
+    if not _route("build_pk_tables_split", a_enc):
+        return build_pk_tables_split_plain(a_enc, splits)
+    out = _launch_fill("build_pk_tables_split", "pk_tables", "tm_build_pk_tables", a_enc, splits)
+    build_pk_tables_split.launches += 1
+    return out
 
 
 build_pk_tables_split.launches = 0
@@ -202,36 +260,50 @@ build_pk_tables_split.launches = 0
 # -- kernel 3: cache-hit bitmap ---------------------------------------------
 
 
+def _cached_a_tables(tables, slots):
+    """The slots' cache entries as int32 limbs, batch last: (S, 16, 4, 32,
+    B) for a split cache, (16, 4, 32, B) for a single-table one."""
+    a = tables[slots.long()].to(torch.int32)
+    return a.permute(*range(1, a.ndim), 0)
+
+
 def verify_kernel_cached_split_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
-    """Plain version: cache tables (C, 4, 16, 4, 32) int16, oks (C,) bool,
-    slots (B,) int32, rows (B, 32) uint8 -> (B,) bool."""
+    """Plain version: cache tables (C, S, 16, 4, 32) int16, oks (C,) bool,
+    slots (B,) int32, rows (B, 32) uint8 -> (B,) bool; S is the tables'."""
     r = _limb_major(r_enc)
     s, k = _limb_major(s_bytes), _limb_major(k_bytes)
-    n = r.shape[1]
-    sl = slots.long()
-    a_tables = tables[sl].to(torch.int32).permute(1, 2, 3, 4, 0)
     r_pt, r_ok = C.decompress(r)
-    q = C.double_scalar_mul_split(s, k, a_tables, splits=PK_SPLITS)
-    return _cofactored_accept(q, r_pt, oks[sl], r_ok, n)
+    q = C.double_scalar_mul_split(s, k, _cached_a_tables(tables, slots), splits=tables.shape[1])
+    return _cofactored_accept(q, r_pt, oks[slots.long()], r_ok, r.shape[1])
+
+
+def _launch_hit(name: str, lib_name: str, entry: str, table: str, splits, args):
+    """Check a cache-hit kernel's inputs and launch it: `splits` are the
+    entry geometries it takes, `table` the base-point table it reads."""
+    tables, oks, slots, r_enc, s_bytes, k_bytes = args
+    n = r_enc.shape[0]
+    _check_rows(name, n, 32, r_enc, s_bytes, k_bytes)
+    _check_cache_args(name, n, splits, tables, oks, slots)
+    dev = r_enc.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    extra = (tables.shape[1],) if splits != (1,) else ()
+    rc = getattr(_build.load(lib_name), entry)(
+        tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r_enc.data_ptr(),
+        s_bytes.data_ptr(), k_bytes.data_ptr(), device_table(table, dev).data_ptr(),
+        out.data_ptr(), n, tables.shape[0], *extra, _build.stream_of(r_enc),
+    )
+    _build.check(rc, name)
+    return out
 
 
 def verify_kernel_cached_split(tables, oks, slots, r_enc, s_bytes, k_bytes):
-    """Cache-hit bitmap: csrc/verify_cached.cu on CUDA tensors, the plain
-    version on CPU tensors."""
+    """Split cache-hit bitmap: csrc/verify_cached.cu on CUDA tensors, the
+    plain version on CPU tensors."""
     args = (tables, oks, slots, r_enc, s_bytes, k_bytes)
     if not _route("verify_kernel_cached_split", *args):
         return verify_kernel_cached_split_plain(*args)
-    n = r_enc.shape[0]
-    _check_cache_args("verify_kernel_cached_split", n, *args)
-    dev = r_enc.device
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _build.load("verify_cached")
-    rc = lib.tm_verify_cached_split(
-        tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r_enc.data_ptr(),
-        s_bytes.data_ptr(), k_bytes.data_ptr(), device_table("fixed", dev).data_ptr(),
-        out.data_ptr(), n, tables.shape[0], _build.stream_of(r_enc),
-    )
-    _build.check(rc, "verify_kernel_cached_split")
+    out = _launch_hit("verify_kernel_cached_split", "verify_cached", "tm_verify_cached_split",
+                      "fixed", SPLITS[1:], args)
     verify_kernel_cached_split.launches += 1
     return out
 
@@ -239,37 +311,85 @@ def verify_kernel_cached_split(tables, oks, slots, r_enc, s_bytes, k_bytes):
 verify_kernel_cached_split.launches = 0
 
 
-def _split_setting() -> None:
-    """TM_TPU_PK_SPLIT: this slice ports the default split of 4 only."""
-    raw = os.environ.get("TM_TPU_PK_SPLIT", "4").strip()
-    if raw != str(PK_SPLITS):
-        raise NotImplementedError(
-            f"TM_TPU_PK_SPLIT={raw}: the port covers the default split of 4; the "
-            "single-table cache plane (build_pk_tables, verify_kernel_cached) and the "
-            "other splits come with a later slice of the port"
-        )
+# -- kernel 5: single-table pubkey-cache fill -------------------------------
+
+
+def build_pk_tables_plain(a_enc):
+    """Plain version: (B, 32) uint8 pubkeys -> ((B, 16, 4, 32) int16 table
+    of -A, (B,) bool decode bits); the JAX program's _build_var_table, which
+    is build_power_tables at one split."""
+    a_pt, ok = C.decompress(_limb_major(a_enc))
+    return _power_tables_plain(C.point_neg(a_pt), 1), ok
+
+
+def build_pk_tables(a_enc):
+    """Single-table cache fill: csrc/pk_tables_single.cu on CUDA tensors
+    (coordinates written canonical), the plain version on CPU tensors."""
+    if not _route("build_pk_tables", a_enc):
+        return build_pk_tables_plain(a_enc)
+    out = _launch_fill("build_pk_tables", "pk_tables_single", "tm_build_pk_tables_single", a_enc)
+    build_pk_tables.launches += 1
+    return out
+
+
+build_pk_tables.launches = 0
+
+
+# -- kernel 6: single-table cache-hit bitmap --------------------------------
+
+
+def verify_kernel_cached_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
+    """Plain version: cache tables (C, 16, 4, 32) int16, oks (C,) bool,
+    slots (B,) int32, rows (B, 32) uint8 -> (B,) bool, by the 252-doubling
+    ladder on the cached table (double_scalar_mul_base(..., a_table=))."""
+    r = _limb_major(r_enc)
+    s, k = _limb_major(s_bytes), _limb_major(k_bytes)
+    r_pt, r_ok = C.decompress(r)
+    q = C.double_scalar_mul_base(s, k, final_t=False, a_table=_cached_a_tables(tables, slots))
+    return _cofactored_accept(q, r_pt, oks[slots.long()], r_ok, r.shape[1])
+
+
+def verify_kernel_cached(tables, oks, slots, r_enc, s_bytes, k_bytes):
+    """Single-table cache-hit bitmap: csrc/verify_cached_single.cu on CUDA
+    tensors, the plain version on CPU tensors."""
+    args = (tables, oks, slots, r_enc, s_bytes, k_bytes)
+    if not _route("verify_kernel_cached", *args):
+        return verify_kernel_cached_plain(*args)
+    out = _launch_hit("verify_kernel_cached", "verify_cached_single", "tm_verify_cached",
+                      "base", (1,), args)
+    verify_kernel_cached.launches += 1
+    return out
+
+
+verify_kernel_cached.launches = 0
 
 
 # -- the device-resident pubkey cache ---------------------------------------
 
 
-def _plane_build(plane: str):
-    """The cache-fill kernel of a signature plane."""
+def _plane_build(plane: str, splits: int):
+    """The cache-fill kernel of a signature plane at a split."""
     if plane == "ed25519":
-        return build_pk_tables_split
-    if plane == "sr25519":
-        from .verify_sr import build_sr_tables_split
+        single, split = build_pk_tables, build_pk_tables_split
+    elif plane == "sr25519":
+        from .verify_sr import build_sr_tables, build_sr_tables_split
 
-        return build_sr_tables_split
-    raise ValueError(f"no pubkey-cache plane {plane!r}")
+        single, split = build_sr_tables, build_sr_tables_split
+    else:
+        raise ValueError(f"no pubkey-cache plane {plane!r}")
+    if splits == 1:
+        return single
+    return lambda a_enc: split(a_enc, splits)
 
 
 class PubkeyCache:
-    """Device-resident decompressed-pubkey cache: each key's split power
-    tables of -A, so cache hits skip decoding and the table build (the
-    device analog of the reference node's 4096-entry expanded-key LRU).
-    At the default capacity the tables take (4096, 4, 16, 4, 32) int16,
-    64 MiB of device memory.
+    """Device-resident decompressed-pubkey cache: each key's power tables
+    of -A, so cache hits skip decoding and the table build (the device
+    analog of the reference node's 4096-entry expanded-key LRU). `splits`
+    is the geometry: S power tables an entry at S = 2, 4 or 8, one table
+    at S = 1 (cache_entry_shape). At the default capacity and S = 4 the
+    tables take (4096, 4, 16, 4, 32) int16, 64 MiB of device memory (16 MiB
+    a split).
 
     A cache belongs to one signature plane (`plane`, "ed25519" or
     "sr25519"): the same 32 bytes decode to different points under ZIP-215
@@ -286,18 +406,21 @@ class PubkeyCache:
     same stream. A fill thus costs one copy of the cache (two 64 MiB
     passes at the default capacity) besides the build."""
 
-    def __init__(self, capacity: int = 4096, device=None, build_fn=None, plane: str = "ed25519"):
+    def __init__(self, capacity: int = 4096, device=None, build_fn=None, plane: str = "ed25519",
+                 splits: int = PK_SPLITS):
+        _check_splits("PubkeyCache", splits, SPLITS)
         self.capacity = capacity
         self.device = resolve_device(device)
         self.plane = plane
-        self._build = build_fn or _plane_build(plane)
+        self._build = build_fn or _plane_build(plane, splits)
         self._lock = threading.Lock()
         self._lru: "collections.OrderedDict[bytes, int]" = collections.OrderedDict()
         # keys reserved but not yet published (key -> Event set at publish)
         self._pending: "dict[bytes, threading.Event]" = {}
         # eviction pin counts for every key an in-flight fill depends on
         self._pinned: "dict[bytes, int]" = {}
-        self.tables = torch.zeros((capacity,) + CACHE_ENTRY_SHAPE, dtype=torch.int16, device=self.device)
+        self.tables = torch.zeros((capacity,) + cache_entry_shape(splits), dtype=torch.int16,
+                                  device=self.device)
         self.oks = torch.zeros((capacity,), dtype=torch.bool, device=self.device)
 
     def ensure(self, pubkeys):
@@ -390,39 +513,42 @@ class PubkeyCache:
 
 def cache_from_reference(tables: np.ndarray, oks: np.ndarray, slots: dict, device=None,
                          plane: str = "ed25519") -> PubkeyCache:
-    """A port cache from a snapshot of one of the JAX package's split-plane
-    PubkeyCaches: its tables (C, 4, 16, 4, 32) int16 and oks (C,) bool as
-    numpy arrays, and its key -> slot map (least recent first, as the
-    reference's LRU iterates). `plane` names the cache it came from:
-    "ed25519" (ops/verify.py pubkey_cache) or "sr25519"
+    """A port cache from a snapshot of one of the JAX package's
+    PubkeyCaches, of any geometry it builds: its tables, (C, 16, 4, 32)
+    (TM_TPU_PK_SPLIT=1) or (C, S, 16, 4, 32) int16 for S = 2, 4 or 8, and
+    oks (C,) bool as numpy arrays, and its key -> slot map (least recent
+    first, as the reference's LRU iterates). `plane` names the cache it
+    came from: "ed25519" (ops/verify.py pubkey_cache) or "sr25519"
     (ops/verify_sr.py sr_pubkey_cache); later misses are filled by that
-    plane's kernel. The reference's signed limbs are taken as they are;
-    the cache-hit paths read them modulo p."""
+    plane's kernel at the same split. The reference's signed limbs are
+    taken as they are; the cache-hit paths read them modulo p."""
     tables = np.asarray(tables)
-    if tables.shape[1:] != CACHE_ENTRY_SHAPE:
-        raise NotImplementedError(
-            f"cache tables of entry shape {tables.shape[1:]}: only the split-4 plane "
-            f"{CACHE_ENTRY_SHAPE} is ported; the single-table plane is a later slice"
-        )
-    cache = PubkeyCache(capacity=tables.shape[0], device=device, plane=plane)
+    splits = table_splits(tables)
+    if splits not in SPLITS or tables.shape[1:] != cache_entry_shape(splits):
+        raise ValueError(f"cache tables of entry shape {tables.shape[1:]}: the reference's "
+                         "caches hold (16, 4, 32) or (S, 16, 4, 32) entries, S in 2, 4, 8")
+    cache = PubkeyCache(capacity=tables.shape[0], device=device, plane=plane, splits=splits)
     cache.tables = torch.as_tensor(tables.astype(np.int16)).to(cache.device)
     cache.oks = torch.from_numpy(np.array(oks, dtype=bool)).to(cache.device)
     cache._lru.update((bytes(pk), int(slot)) for pk, slot in slots.items())
     return cache
 
 
-_PK_CACHES: dict[tuple[str, str], PubkeyCache] = {}
+_PK_CACHES: dict[tuple[str, int, str], PubkeyCache] = {}
 _PK_CACHES_LOCK = threading.Lock()
 
 
 def plane_cache(plane: str, device=None) -> PubkeyCache:
-    """The process-wide pubkey cache of one plane on one device."""
-    _split_setting()
+    """The process-wide pubkey cache of one plane, at the split
+    TM_TPU_PK_SPLIT names, on one device: a cache of one geometry never
+    reaches a kernel of another."""
+    splits = pk_splits()
     dev = resolve_device(device)
+    key = (plane, splits, str(dev))
     with _PK_CACHES_LOCK:
-        cache = _PK_CACHES.get((plane, str(dev)))
+        cache = _PK_CACHES.get(key)
         if cache is None:
-            cache = _PK_CACHES[plane, str(dev)] = PubkeyCache(device=dev, plane=plane)
+            cache = _PK_CACHES[key] = PubkeyCache(device=dev, plane=plane, splits=splits)
     return cache
 
 
@@ -533,7 +659,9 @@ def dispatch_cached(cache: PubkeyCache, prepare, cached_kernel, uncached_async, 
 
 def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
     """verify_batch_async through the device's pubkey cache: repeated
-    validator sets skip decoding and the table build."""
-    return dispatch_cached(pubkey_cache(device), prepare_batch, verify_kernel_cached_split,
-                           verify_batch_async, pubkeys, msgs, sigs)
+    validator sets skip decoding and the table build. The kernel is picked
+    from the cache's entry shape."""
+    cache = pubkey_cache(device)
+    kern = verify_kernel_cached_split if cache.tables.ndim == 5 else verify_kernel_cached
+    return dispatch_cached(cache, prepare_batch, kern, verify_batch_async, pubkeys, msgs, sigs)
 

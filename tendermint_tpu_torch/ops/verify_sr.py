@@ -10,12 +10,17 @@ the JAX package (tendermint_tpu/ops/verify_sr.py) and of the host verifier
 and equality is equality of encodings, so R is never decoded: the ladder's
 result is encoded and compared byte for byte with the wire R.
 
-Three kernels live here, each a hand-written CUDA kernel for Hopper
+Five kernels live here, each a hand-written CUDA kernel for Hopper
 (csrc/*.cu) beside its plain PyTorch version:
 
-  verify_sr_kernel               csrc/verify_sr.cu         uncached bitmap
-  build_sr_tables_split          csrc/sr_tables.cu         sr pubkey-cache fill
-  verify_sr_kernel_cached_split  csrc/verify_sr_cached.cu  cache-hit bitmap
+  verify_sr_kernel               csrc/verify_sr.cu                uncached bitmap
+  build_sr_tables_split          csrc/sr_tables.cu                split cache fill
+  verify_sr_kernel_cached_split  csrc/verify_sr_cached.cu         split cache hit
+  build_sr_tables                csrc/sr_tables_single.cu         single-table fill
+  verify_sr_kernel_cached        csrc/verify_sr_cached_single.cu  single-table hit
+
+The sr25519 pubkey cache has the ed25519 cache's geometries
+(TM_TPU_PK_SPLIT, ops/verify.py), in a cache of its own.
 
 Wrappers route as the ed25519 plane's do (ops/verify.py): the kernel for
 CUDA tensors, the plain version for CPU tensors, a raise otherwise, and a
@@ -36,9 +41,9 @@ from . import _build
 from . import curve as C
 from . import ristretto as R
 from .verify import (  # collect: the bitmap planes share it
-    CACHE_ENTRY_SHAPE, L, PK_SPLITS, _check_cache_args, _check_rows, _limb_major, _route,
-    _to_device, collect, device_table, dispatch_cached, pad_pow2_rows, plane_cache,
-    resolve_device,
+    L, PK_SPLITS, SPLITS, _cached_a_tables, _check_rows, _check_splits, _launch_fill, _launch_hit,
+    _limb_major, _power_tables_plain, _route, _to_device, collect, device_table, dispatch_cached,
+    pad_pow2_rows, plane_cache, resolve_device,
 )
 
 
@@ -88,32 +93,24 @@ verify_sr_kernel.launches = 0
 # -- kernel 12: sr pubkey-cache fill ----------------------------------------
 
 
-def build_sr_tables_split_plain(a_enc):
-    """Plain version: (B, 32) uint8 ristretto pubkeys -> ((B, 4, 16, 4, 32)
+def build_sr_tables_split_plain(a_enc, splits: int = PK_SPLITS):
+    """Plain version: (B, 32) uint8 ristretto pubkeys -> ((B, S, 16, 4, 32)
     int16 power tables of -A, (B,) bool decode bits). Limbs are fe_mul
     outputs (|limb| < 2^9), exactly the JAX program's."""
     a_pt, ok = R.decode(_limb_major(a_enc))
-    tabs = C.build_power_tables(C.point_neg(a_pt), splits=PK_SPLITS)
-    return tabs.permute(4, 0, 1, 2, 3).to(torch.int16).contiguous(), ok
+    return _power_tables_plain(C.point_neg(a_pt), splits), ok
 
 
-def build_sr_tables_split(a_enc):
-    """sr25519 cache fill: csrc/sr_tables.cu on CUDA tensors (coordinates
-    written canonical), the plain version on CPU tensors."""
+def build_sr_tables_split(a_enc, splits: int = PK_SPLITS):
+    """sr25519 split cache fill at S = splits (2, 4 or 8): csrc/sr_tables.cu
+    on CUDA tensors (coordinates written canonical), the plain version on
+    CPU tensors."""
+    _check_splits("build_sr_tables_split", splits)
     if not _route("build_sr_tables_split", a_enc):
-        return build_sr_tables_split_plain(a_enc)
-    n = a_enc.shape[0]
-    _check_rows("build_sr_tables_split", n, 32, a_enc)
-    dev = a_enc.device
-    tables = torch.empty((n,) + CACHE_ENTRY_SHAPE, dtype=torch.int16, device=dev)
-    oks = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _build.load("sr_tables")
-    rc = lib.tm_build_sr_tables(
-        a_enc.data_ptr(), tables.data_ptr(), oks.data_ptr(), n, _build.stream_of(a_enc)
-    )
-    _build.check(rc, "build_sr_tables_split")
+        return build_sr_tables_split_plain(a_enc, splits)
+    out = _launch_fill("build_sr_tables_split", "sr_tables", "tm_build_sr_tables", a_enc, splits)
     build_sr_tables_split.launches += 1
-    return tables, oks
+    return out
 
 
 build_sr_tables_split.launches = 0
@@ -123,42 +120,83 @@ build_sr_tables_split.launches = 0
 
 
 def verify_sr_kernel_cached_split_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
-    """Plain version: sr cache tables (C, 4, 16, 4, 32) int16, oks (C,)
-    bool, slots (B,) int32, rows (B, 32) uint8 -> (B,) bool. The split
-    ladder's result carries no T, and the encoder reads it: adding the
-    identity regenerates a consistent T in one addition, as the JAX
-    program does."""
+    """Plain version: sr cache tables (C, S, 16, 4, 32) int16, oks (C,)
+    bool, slots (B,) int32, rows (B, 32) uint8 -> (B,) bool; S is the
+    tables'. The split ladder's result carries no T, and the encoder reads
+    it: adding the identity regenerates a consistent T in one addition, as
+    the JAX program does."""
     r = _limb_major(r_enc)
     s, k = _limb_major(s_bytes), _limb_major(k_bytes)
-    sl = slots.long()
-    a_tables = tables[sl].to(torch.int32).permute(1, 2, 3, 4, 0)
-    q = C.double_scalar_mul_split(s, k, a_tables, splits=PK_SPLITS)
+    q = C.double_scalar_mul_split(s, k, _cached_a_tables(tables, slots), splits=tables.shape[1])
     q = C.point_add(q, C.identity_point(q.shape[2:], q.device), out_t=True)
-    return oks[sl] & _encoding_equal(q, r)
+    return oks[slots.long()] & _encoding_equal(q, r)
 
 
 def verify_sr_kernel_cached_split(tables, oks, slots, r_enc, s_bytes, k_bytes):
-    """sr25519 cache-hit bitmap: csrc/verify_sr_cached.cu on CUDA tensors,
-    the plain version on CPU tensors."""
+    """sr25519 split cache-hit bitmap: csrc/verify_sr_cached.cu on CUDA
+    tensors, the plain version on CPU tensors."""
     args = (tables, oks, slots, r_enc, s_bytes, k_bytes)
     if not _route("verify_sr_kernel_cached_split", *args):
         return verify_sr_kernel_cached_split_plain(*args)
-    n = r_enc.shape[0]
-    _check_cache_args("verify_sr_kernel_cached_split", n, *args)
-    dev = r_enc.device
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _build.load("verify_sr_cached")
-    rc = lib.tm_verify_sr_cached_split(
-        tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r_enc.data_ptr(),
-        s_bytes.data_ptr(), k_bytes.data_ptr(), device_table("fixed", dev).data_ptr(),
-        out.data_ptr(), n, tables.shape[0], _build.stream_of(r_enc),
-    )
-    _build.check(rc, "verify_sr_kernel_cached_split")
+    out = _launch_hit("verify_sr_kernel_cached_split", "verify_sr_cached",
+                      "tm_verify_sr_cached_split", "fixed", SPLITS[1:], args)
     verify_sr_kernel_cached_split.launches += 1
     return out
 
 
 verify_sr_kernel_cached_split.launches = 0
+
+
+# -- kernel 10: single-table sr pubkey-cache fill ---------------------------
+
+
+def build_sr_tables_plain(a_enc):
+    """Plain version: (B, 32) uint8 ristretto pubkeys -> ((B, 16, 4, 32)
+    int16 table of -A, (B,) bool decode bits)."""
+    a_pt, ok = R.decode(_limb_major(a_enc))
+    return _power_tables_plain(C.point_neg(a_pt), 1), ok
+
+
+def build_sr_tables(a_enc):
+    """sr25519 single-table cache fill: csrc/sr_tables_single.cu on CUDA
+    tensors (coordinates written canonical), the plain version on CPU
+    tensors."""
+    if not _route("build_sr_tables", a_enc):
+        return build_sr_tables_plain(a_enc)
+    out = _launch_fill("build_sr_tables", "sr_tables_single", "tm_build_sr_tables_single", a_enc)
+    build_sr_tables.launches += 1
+    return out
+
+
+build_sr_tables.launches = 0
+
+
+# -- kernel 11: single-table cache-hit bitmap -------------------------------
+
+
+def verify_sr_kernel_cached_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
+    """Plain version: sr cache tables (C, 16, 4, 32) int16, oks (C,) bool,
+    slots (B,) int32, rows (B, 32) uint8 -> (B,) bool: the 252-doubling
+    ladder on the cached table, its last addition with T for the encoder."""
+    r = _limb_major(r_enc)
+    s, k = _limb_major(s_bytes), _limb_major(k_bytes)
+    q = C.double_scalar_mul_base(s, k, a_table=_cached_a_tables(tables, slots))
+    return oks[slots.long()] & _encoding_equal(q, r)
+
+
+def verify_sr_kernel_cached(tables, oks, slots, r_enc, s_bytes, k_bytes):
+    """sr25519 single-table cache-hit bitmap: csrc/verify_sr_cached_single.cu
+    on CUDA tensors, the plain version on CPU tensors."""
+    args = (tables, oks, slots, r_enc, s_bytes, k_bytes)
+    if not _route("verify_sr_kernel_cached", *args):
+        return verify_sr_kernel_cached_plain(*args)
+    out = _launch_hit("verify_sr_kernel_cached", "verify_sr_cached_single", "tm_verify_sr_cached",
+                      "base", (1,), args)
+    verify_sr_kernel_cached.launches += 1
+    return out
+
+
+verify_sr_kernel_cached.launches = 0
 
 
 # -- host shaping and dispatch ----------------------------------------------
@@ -219,10 +257,12 @@ def verify_batch_async(pubkeys, msgs, sigs, device=None):
 
 
 def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
-    """verify_batch_async through the device's sr25519 pubkey cache; more
-    distinct keys than the cache holds take the uncached kernel."""
-    return dispatch_cached(sr_pubkey_cache(device), prepare_batch, verify_sr_kernel_cached_split,
-                           verify_batch_async, pubkeys, msgs, sigs)
+    """verify_batch_async through the device's sr25519 pubkey cache, the
+    kernel picked from the cache's entry shape; more distinct keys than the
+    cache holds take the uncached kernel."""
+    cache = sr_pubkey_cache(device)
+    kern = verify_sr_kernel_cached_split if cache.tables.ndim == 5 else verify_sr_kernel_cached
+    return dispatch_cached(cache, prepare_batch, kern, verify_batch_async, pubkeys, msgs, sigs)
 
 
 def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:

@@ -16,6 +16,8 @@ from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.crypto import sr25519 as sr
 from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.ops import msm as M
+from tendermint_tpu_torch.ops import verify as V
 
 # The plain versions run many small ops: one intra-op thread per test
 # worker keeps parallel workers from oversubscribing the cores.
@@ -32,6 +34,12 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "ops.rist
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
+from tendermint_tpu_torch.ops import msm, verify, verify_sr
+for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
+                 (verify_sr, ("build_sr_tables", "verify_sr_kernel_cached")),
+                 (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async"))):
+    for fn in fns:
+        assert callable(getattr(mod, fn)), fn
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tendermint_tpu" or m.startswith("tendermint_tpu."))
@@ -73,14 +81,27 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_uncovered_settings_raise(monkeypatch):
+    """TM_TPU_MSM_CACHE=on verifies (here through the plain versions): the
+    RLC reads the pubkey cache, and with TM_TPU_PK_CACHE=off it takes the
+    uncached RLC, as the reference's routing does."""
     monkeypatch.setenv("TM_TPU_CRYPTO", "on")
     monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
     monkeypatch.setattr(ed, "MSM_BATCH_CUTOVER", 2)
     monkeypatch.setenv("TM_TPU_MSM_CACHE", "on")
-    bv = _jobs(2)
-    bv.device = "cpu"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        bv.verify()
+    monkeypatch.setattr(V, "_PK_CACHES", {})
+    calls = []
+    for name in ("verify_batch_rlc_cached_async", "verify_batch_rlc_async"):
+        fn = getattr(M, name)
+        monkeypatch.setattr(M, name, lambda *a, _fn=fn, _name=name, **k: calls.append(_name)
+                            or _fn(*a, **k))
+    for pk_cache, want in (("on", "verify_batch_rlc_cached_async"), ("off", "verify_batch_rlc_async")):
+        monkeypatch.setenv("TM_TPU_PK_CACHE", pk_cache)
+        calls.clear()
+        bv = _jobs(2)
+        bv.device = "cpu"
+        assert bv.verify() == (True, [True, True])
+        assert calls == [want]
+        assert len(V.pubkey_cache("cpu")._lru) == 2  # filled by the cached RLC, kept
 
     sr_key = sr.Sr25519PubKey(b"\x01" * 32)
     assert B.supports_batch_verifier(sr_key)
@@ -119,6 +140,8 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     assert set(_build.KERNELS) == {"verify", "pk_tables", "verify_cached", "msm", "verify_sr",
-                                   "sr_tables", "verify_sr_cached", "msm_sr"}
+                                   "sr_tables", "verify_sr_cached", "msm_sr", "pk_tables_single",
+                                   "verify_cached_single", "msm_cached", "sr_tables_single",
+                                   "verify_sr_cached_single"}
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()

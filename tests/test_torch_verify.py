@@ -134,7 +134,8 @@ def test_verify_batch_matches_reference(batch):
 
 def _stub_build(enc):
     n = enc.shape[0]
-    return torch.zeros((n,) + V.CACHE_ENTRY_SHAPE, dtype=torch.int16), torch.ones(n, dtype=torch.bool)
+    shape = V.cache_entry_shape(V.PK_SPLITS)
+    return torch.zeros((n,) + shape, dtype=torch.int16), torch.ones(n, dtype=torch.bool)
 
 
 def test_pubkey_cache_eviction_and_overflow():
@@ -168,8 +169,12 @@ def test_cache_overflow_takes_uncached_kernel():
 
 
 def test_split_setting_and_devices(monkeypatch):
+    monkeypatch.setattr(V, "_PK_CACHES", {})
     monkeypatch.setenv("TM_TPU_PK_SPLIT", "1")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    cache = V.pubkey_cache("cpu")
+    assert tuple(cache.tables.shape) == (4096, 16, 4, 32) and cache.tables.dtype == torch.int16
+    monkeypatch.setenv("TM_TPU_PK_SPLIT", "3")
+    with pytest.raises(ValueError, match="TM_TPU_PK_SPLIT must be 1, 2, 4 or 8, got 3"):
         V.pubkey_cache("cpu")
     meta = torch.zeros((8, 32), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
