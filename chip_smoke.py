@@ -12,7 +12,8 @@ Both signature planes run the same phases, each fatal on failure:
      encodings, a missing marker bit, s >= L and a zero row for sr25519;
      and the bitmap against the plane's pure-Python oracle; the cache fill
      and hit at every pubkey-cache split (TM_TPU_PK_SPLIT 4, 1, 2, 8), and
-     the cached RLC at S = 2, 4, 8;
+     the cached RLC at S = 2, 4, 8; fail_count (the sharded path's fail
+     count) on edge bitmaps of 1 to 10,240 rows, verdicts and 1-8 counts;
   3. the main path: verify_commit on ed25519 and on sr25519 validator sets
      of 150, 1,000 and 10,000 validators (valid, and with one tampered
      signature that must be reported at its index), every kernel's launch
@@ -37,10 +38,25 @@ Both signature planes run the same phases, each fatal on failure:
      then the cache hit), the 10,000-validator one (its keys overflow the
      cache: the uncached RLC), exact launches; at S = 1 the knob takes the
      uncached RLC; the cached RLC against its plain version at 1024 rows
-     in both verdicts with one z_raw, timed.
+     in both verdicts with one z_raw, timed;
+  7. the sharded path (parallel/) on two meshes, make_mesh() (the card) and
+     make_mesh(4, device="cuda:0") (four shards on it): verify_batch_sharded
+     on the 10,000-validator commits of both planes (the bitmap equal to the
+     single-card one, the tampered row alone false, the verdict flipped);
+     verify_batch_sharded_cached on the 1,000-validator commits at S = 4 and
+     S = 1 (the fill once, on the first call, then a hit a shard) and on the
+     10,000-validator one, whose keys overflow the cache (the uncached path);
+     verify_batch_sharded_rlc on the ed25519 1,000- and 10,000-validator
+     commits and on 10 signatures over four shards, two of padding only;
+     verify_batch_sharded_local in subprocesses, one rank on NCCL and four
+     ranks on gloo with their kernels on the card, each rank holding a
+     quarter of the tampered 10,000-validator commit; then each kernel of the
+     path against its plain version at the sharded shapes, 10,240 rows and a
+     shard of 2,560, exact and timed, fail_count beside torch.sum, and
+     verify_batch_sharded against the single-card verify_batch end to end.
 
-Phases 3, 5 and 6 are each a main path: every call in them runs with the
-launch counters set to 0 just before it and read just after, and each
+Phases 3, 5, 6 and 7 are each a main path: every call in them runs with
+the launch counters set to 0 just before it and read just after, and each
 phase fails if one of its kernels never launched.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -191,7 +207,7 @@ def plane(kind: str) -> SimpleNamespace:
     if kind == "ed25519":
         return SimpleNamespace(
             kind=kind, prepare=V.prepare_batch, oracle=ref.verify, cache=V.pubkey_cache,
-            edges=edge_batch,
+            edges=edge_batch, batch=V.verify_batch,
             bitmap=V.verify_kernel, bitmap_plain=V.verify_kernel_plain,
             fill=V.build_pk_tables_split, fill_plain=V.build_pk_tables_split_plain,
             hit=V.verify_kernel_cached_split, hit_plain=V.verify_kernel_cached_split_plain,
@@ -204,7 +220,7 @@ def plane(kind: str) -> SimpleNamespace:
         )
     return SimpleNamespace(
         kind=kind, prepare=VS.prepare_batch, oracle=sr.verify, cache=VS.sr_pubkey_cache,
-        edges=sr_edge_batch,
+        edges=sr_edge_batch, batch=VS.verify_batch,
         bitmap=VS.verify_sr_kernel, bitmap_plain=VS.verify_sr_kernel_plain,
         fill=VS.build_sr_tables_split, fill_plain=VS.build_sr_tables_split_plain,
         hit=VS.verify_sr_kernel_cached_split, hit_plain=VS.verify_sr_kernel_cached_split_plain,
@@ -241,6 +257,7 @@ KERNEL_SOURCES = {
     "msm_verify_kernel_cached": ("csrc/msm_cached.cu", "tendermint_tpu/ops/msm.py:241"),
     "build_sr_tables": ("csrc/sr_tables_single.cu", "tendermint_tpu/ops/verify_sr.py:59"),
     "verify_sr_kernel_cached": ("csrc/verify_sr_cached_single.cu", "tendermint_tpu/ops/verify_sr.py:75"),
+    "fail_count": ("csrc/fail_count.cu", "tendermint_tpu/parallel/sharded_verify.py:46"),
 }
 # The pubkey-cache geometries (TM_TPU_PK_SPLIT): the default and the others.
 DEFAULT_SPLITS = 4
@@ -552,16 +569,25 @@ def kernel_wrappers():
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
     from tendermint_tpu_torch.ops import verify_sr as VS
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
 
     return (V.verify_kernel, V.build_pk_tables_split, V.verify_kernel_cached_split,
             M.msm_verify_kernel, VS.verify_sr_kernel, VS.build_sr_tables_split,
             VS.verify_sr_kernel_cached_split, M.msm_verify_sr_kernel, V.build_pk_tables,
             V.verify_kernel_cached, M.msm_verify_kernel_cached, VS.build_sr_tables,
-            VS.verify_sr_kernel_cached)
+            VS.verify_sr_kernel_cached, SV.fail_count)
+
+
+def sharded_entries():
+    """The sharded entry points, by the reference's sharded_launches label."""
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    return {"bitmap": SV.verify_batch_sharded, "cached": SV.verify_batch_sharded_cached,
+            "rlc": SV.verify_batch_sharded_rlc}
 
 
 def reset_counts():
-    for fn in kernel_wrappers():
+    for fn in kernel_wrappers() + tuple(sharded_entries().values()):
         fn.launches = 0
 
 
@@ -589,15 +615,19 @@ def expect_wrong_signature(fn, idx):
     raise AssertionError(f"tampered signature #{idx} was accepted")
 
 
-def drive(what, fn, want, totals):
+def drive(what, fn, want, totals, entries=None):
     """One main-path call with every launch counter set to 0 just before it
     and read just after; fails unless it made exactly the launches `want`
-    names. Adds them to `totals`; returns (output, wall seconds)."""
+    names (and, where `entries` is given, took exactly those sharded entry
+    points). Adds them to `totals`; returns (output, wall seconds)."""
     reset_counts()
     out, t = timed(fn)
     got = {name: c for name, c in read_counts().items() if c}
     if got != want:
         raise AssertionError(f"{what} launched {got}, expected {want}")
+    took = {label: entry.launches for label, entry in sharded_entries().items() if entry.launches}
+    if entries is not None and took != entries:
+        raise AssertionError(f"{what} took the sharded entries {took}, expected {entries}")
     for name, c in got.items():
         totals[name] = totals.get(name, 0) + c
     return out, t
@@ -776,17 +806,18 @@ def host_prep(P, jobs, n, z_raw):
     return (a, r, zk, z, zs, pre), split
 
 
-def make_record(fn, splits, n, ms, p_ms, err, ops, nbytes, launches, int32_rate):
+def make_record(fn, splits, n, ms, p_ms, err, ops, nbytes, launches, int32_rate, name=None,
+                library_ms=None):
     """One kernel's entry in the kernels record, its bound from this run's
     counts; logged as it is made."""
-    name = kernel_label(fn, splits)
+    name = name or kernel_label(fn, splits)
     b_ms, b_by = bound_ms(ops, nbytes, int32_rate)
     log(f"kernel {name} rows={n} == plain; kernel {ms:.3f} ms, plain {p_ms:.1f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), {launches} launches on the main path")
     src, replaces = KERNEL_SOURCES[fn.__name__]
     rec = {"name": name, "route": "cuda", "source": f"tendermint_tpu_torch/{src}",
            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-           "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows": n}
+           "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "rows": n}
     if splits is not None:
         rec["splits"] = splits
     return rec
@@ -1030,6 +1061,403 @@ def rlc_cache_path(P, dev, rng, chain_id, commits, bad_index, errs, int32_rate, 
     return records
 
 
+# -- phase 2 (continued): fail_count ---------------------------------------------
+
+
+def check_fail_count(rng, dev):
+    """fail_count against its plain version on edge inputs: bitmaps of B in
+    1, 8, 255, 256 and 10,240 rows (bool and uint8) all true, all false,
+    false at row 0 alone, at row B - 1 alone, and random; a () verdict of
+    each value; int32 vectors of 1 to 8 counts."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    cases = []
+    for b in (1, 8, 255, 256, 10240):
+        for pattern in ("all true", "all false", "false at 0", "false at B-1", "random"):
+            ok = np.ones(b, bool)
+            if pattern == "all false":
+                ok[:] = False
+            elif pattern == "false at 0":
+                ok[0] = False
+            elif pattern == "false at B-1":
+                ok[-1] = False
+            elif pattern == "random":
+                ok = rng.random(b) < 0.9
+            cases += [(f"{pattern}, B={b}", torch.from_numpy(ok).to(dev)),
+                      (f"{pattern}, B={b}, uint8", torch.from_numpy(ok.astype(np.uint8)).to(dev))]
+    cases += [(f"verdict {v}", torch.tensor(v, device=dev)) for v in (True, False)]
+    cases += [(f"{k} counts", torch.from_numpy(rng.integers(0, 10241, k).astype(np.int32)).to(dev))
+              for k in range(1, 9)]
+    for what, x in cases:
+        got, want = SV.fail_count(x), SV.fail_count_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fail_count on {what}: kernel {got.tolist()} plain {want.tolist()}")
+    log(f"phase 2: fail_count == plain on {len(cases)} edge inputs (bitmaps of 1-10,240 rows, "
+        f"verdicts, 1-8 counts)")
+    return {"fail_count": 0}
+
+
+# -- phase 7: the sharded path ---------------------------------------------------
+
+# One rank of verify_batch_sharded_local: joins the group (gloo when the
+# backend device is "cpu", NCCL otherwise), verifies its quarter of the jobs
+# in the .npz on the card and writes its bitmap, verdict, backend and launches.
+RANK_SCRIPT = r'''
+import sys
+
+import numpy as np
+import torch
+
+
+def unpack(flat, lengths):
+    ends = np.cumsum(lengths)
+    return [flat[e - n:e].tobytes() for e, n in zip(ends, lengths)]
+
+
+def rank_main(rank, world, init, backend_device, mesh_device, path, out_dir):
+    import torch.distributed as dist
+
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.parallel import multihost as mh
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    mh.initialize(init, world, rank, device=backend_device)
+    mesh = mh.global_mesh(device=mesh_device)
+    data = np.load(path)
+    cols = [unpack(data[c], data[c + "_len"]) for c in ("pk", "msg", "sig")]
+    per = len(cols[0]) // world
+    V.verify_kernel.launches = SV.fail_count.launches = 0
+    bitmap, ok = mh.verify_batch_sharded_local(mesh, *(c[rank * per:(rank + 1) * per] for c in cols))
+    torch.cuda.synchronize()
+    np.savez(f"{out_dir}/rank{rank}.npz", bitmap=bitmap, ok=np.array(ok),
+             backend=np.array(dist.get_backend()),
+             launches=np.array([V.verify_kernel.launches, SV.fail_count.launches]))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+
+    world = int(sys.argv[1])
+    mp.spawn(rank_main, args=(world, *sys.argv[2:]), nprocs=world, join=True)
+'''
+RANK_TIMEOUT_S = 300
+
+
+def _pack(items):
+    import numpy as np
+
+    return np.frombuffer(b"".join(items), np.uint8), np.array([len(x) for x in items], np.int64)
+
+
+def run_ranks(tmp, world, backend_device, mesh_device, jobs):
+    """verify_batch_sharded_local in `world` rank processes, each holding its
+    share of `jobs`; fatal on failure or past RANK_TIMEOUT_S (the launcher's
+    whole process group is killed). Returns each rank's saved outputs."""
+    import signal
+
+    import numpy as np
+
+    run = os.path.join(tmp, f"{backend_device}-{world}")
+    os.makedirs(run)
+    arrays = {}
+    for col, items in zip(("pk", "msg", "sig"), jobs):
+        arrays[col], arrays[col + "_len"] = _pack(items)
+    np.savez(os.path.join(run, "jobs.npz"), **arrays)
+    script = os.path.join(run, "ranks.py")
+    with open(script, "w") as f:
+        f.write(RANK_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, script, str(world), f"file://{run}/rendezvous", backend_device, mesh_device,
+           os.path.join(run, "jobs.npz"), run]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{world} ranks ({backend_device}) hung past {RANK_TIMEOUT_S} s:\n"
+                             f"{out[-3000:]}") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{world} ranks ({backend_device}) failed (rc {proc.returncode}):\n"
+                             f"{out[-3000:]}")
+    return [np.load(os.path.join(run, f"rank{r}.npz")) for r in range(world)]
+
+
+def expect_sharded(what, bitmap, ok, n, bad):
+    """A sharded call's (bitmap, verdict): every row valid and True, or row
+    #bad alone invalid and False."""
+    invalid = [i for i in range(n) if not bitmap[i]]
+    if len(bitmap) != n or invalid != ([] if bad is None else [bad]) or ok is not (bad is None):
+        raise AssertionError(f"{what}: {len(bitmap)} rows, invalid {invalid[:8]}, verdict {ok}; "
+                             f"expected {n} rows, invalid {[] if bad is None else [bad]}")
+
+
+def sharded_path(planes, meshes, dev, rng, chain_id, commits, bad_index, runs, tmp):
+    """Phase 7's calls, each with every launch counter set to 0 just before
+    it and read just after and held to its exact launches and sharded entry
+    point; returns the summed launches."""
+    import numpy as np
+
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    small, mid, large = SIZES
+    fc = SV.fail_count.__name__
+    totals, expected = {}, []
+
+    def run(what, fn, want, entries):
+        expected.append(want)
+        return drive(f"phase 7: {what}", fn, want, totals, entries)
+
+    # row 14: the bitmap plane on the 10,000-validator commits; the bitmap
+    # equals the single-card one
+    whole = {}
+    for kind, P in planes.items():
+        for verdict, bad in (("valid", None), ("tampered", bad_index[large])):
+            jobs = commit_jobs(commits[kind][large], chain_id, bad)
+            single = P.batch(*jobs, device=dev)
+            for label, mesh in meshes.items():
+                what = f"{kind} verify_batch_sharded on the {verdict} {large}-validator commit, mesh of {label}"
+                (bitmap, ok), t = run(what, lambda: SV.verify_batch_sharded(mesh, *jobs, key_type=kind),
+                                      {P.bitmap.__name__: mesh.size, fc: mesh.size + 1}, {"bitmap": 1})
+                expect_sharded(what, bitmap, ok, large, bad)
+                if not np.array_equal(bitmap, single):
+                    raise AssertionError(f"{what}: the bitmap differs from the single-card verify_batch")
+                runs.append({"plane": kind, "commit": large, "mesh": label, "s": t,
+                             "run": f"verify_batch_sharded {verdict}"})
+            whole[kind, verdict] = jobs, single
+
+    # row 15: the cached plane on the 1,000-validator commits at S = 4 and
+    # S = 1, each through new caches: the fill on the first call, then a
+    # hit a shard; at S = 4 the 10,000 keys overflow to the uncached path
+    for splits in (DEFAULT_SPLITS, 1):
+        os.environ["TM_TPU_PK_SPLIT"] = str(splits)
+        V._PK_CACHES.clear()
+        for kind, P in planes.items():
+            fill, hit = ((P.fill1, P.hit1) if splits == 1 else (P.fill, P.hit))
+            first = True
+            for label, mesh in reversed(meshes.items()):
+                for verdict, bad in (("valid", None), ("tampered", bad_index[mid])):
+                    jobs = commit_jobs(commits[kind][mid], chain_id, bad)
+                    want = {hit.__name__: mesh.size, fc: mesh.size + 1}
+                    if first:
+                        want[fill.__name__] = 1
+                        first = False
+                    what = (f"{kind} verify_batch_sharded_cached at S={splits} on the {verdict} "
+                            f"{mid}-validator commit, mesh of {label}")
+                    (bitmap, ok), t = run(what, lambda: SV.verify_batch_sharded_cached(
+                        mesh, *jobs, key_type=kind), want, {"cached": 1})
+                    expect_sharded(what, bitmap, ok, mid, bad)
+                    runs.append({"plane": kind, "commit": mid, "mesh": label, "splits": splits, "s": t,
+                                 "run": f"verify_batch_sharded_cached {verdict}"})
+            if splits == DEFAULT_SPLITS:
+                jobs, _ = whole[kind, "valid"]
+                mesh = meshes["4"]
+                what = f"{kind} verify_batch_sharded_cached on the valid {large}-validator commit (overflow)"
+                (bitmap, ok), _ = run(what, lambda: SV.verify_batch_sharded_cached(mesh, *jobs, key_type=kind),
+                                      {P.bitmap.__name__: mesh.size, fc: mesh.size + 1}, {"bitmap": 1})
+                expect_sharded(what, bitmap, ok, large, None)
+    os.environ["TM_TPU_PK_SPLIT"] = str(DEFAULT_SPLITS)
+    V._PK_CACHES.clear()
+
+    # row 16: the sharded RLC (ed25519) on the 1,000- and 10,000-validator
+    # commits, one z_raw for both verdicts; then 10 signatures on the mesh
+    # of 4, whose shards 2 and 3 hold padding only
+    P = planes["ed25519"]
+    for n in (mid, large):
+        z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
+        for verdict, bad in (("valid", None), ("tampered", bad_index[n])):
+            jobs = commit_jobs(commits["ed25519"][n], chain_id, bad)
+            for label, mesh in meshes.items():
+                what = f"verify_batch_sharded_rlc on the {verdict} {n}-validator commit, mesh of {label}"
+                ok, t = run(what, lambda: SV.verify_batch_sharded_rlc(mesh, *jobs, z_raw=z_raw),
+                            {P.rlc.__name__: mesh.size, fc: mesh.size + 1}, {"rlc": 1})
+                if ok is not (bad is None):
+                    raise AssertionError(f"{what}: verdict {ok}")
+                runs.append({"plane": "ed25519", "commit": n, "mesh": label, "s": t,
+                             "run": f"verify_batch_sharded_rlc {verdict}"})
+    ten = [x[:10] for x in commit_jobs(commits["ed25519"][mid], chain_id)]
+    mesh = meshes["4"]
+    for verdict, sigs in (("valid", ten[2]), ("tampered", ten[2][:9] + [tamper(ten[2][9])])):
+        what = f"verify_batch_sharded_rlc on {verdict} 10 signatures, mesh of 4 (shards 2, 3 of padding)"
+        ok, _ = run(what, lambda: SV.verify_batch_sharded_rlc(mesh, ten[0], ten[1], sigs),
+                    {P.rlc.__name__: 4, fc: 5}, {"rlc": 1})
+        if ok is not (verdict == "valid"):
+            raise AssertionError(f"{what}: verdict {ok}")
+    check_path("phase 7", totals, expected)
+
+    # verify_batch_sharded_local across processes: one rank on NCCL, and four
+    # ranks on gloo with their kernels on the card (NCCL refuses two ranks on
+    # one GPU), each a quarter of the tampered 10,000-validator commit
+    jobs, single = whole["ed25519", "tampered"]
+    for world, backend_device in ((1, dev.type), (4, "cpu")):
+        t0 = time.perf_counter()
+        ranks = run_ranks(tmp, world, backend_device, str(dev), jobs)
+        bitmap = np.concatenate([r["bitmap"] for r in ranks])
+        oks = {bool(r["ok"]) for r in ranks}
+        backends = {str(r["backend"]) for r in ranks}
+        launches = {tuple(r["launches"].tolist()) for r in ranks}
+        per = SV.shard_rows(large // world, 1)
+        if not np.array_equal(bitmap, single) or oks != {False} or launches != {(1, 2)}:
+            raise AssertionError(f"{world} ranks ({backends}): {int((bitmap != single).sum())} rows differ "
+                                 f"from the whole bitmap, verdicts {oks}, launches {launches}")
+        log(f"phase 7: verify_batch_sharded_local on {world} rank(s), backend {sorted(backends)}, kernels "
+            f"and the reduced int32 on {dev}, {large // world} jobs ({per} rows) a rank: the concatenated "
+            f"bitmap equals the "
+            f"whole one, every rank False, launches (bitmap, fail_count) {sorted(launches)}, "
+            f"{time.perf_counter() - t0:.1f} s with process start")
+    return totals
+
+
+def kernels_at_sharded_shapes(planes, dev, rng, chain_id, commits, bad_index, counts, int32_rate):
+    """Each kernel of the sharded path against its plain version on the rows
+    the sharded calls give it at 10,000 validators: 10,240 rows on the mesh
+    of 1 and the shard of 2,560 that holds the tampered row on the mesh of
+    4, exact, timed with CUDA events; the cache kernels at S = 4 and S = 1
+    through tables that their fill built for the commit's 10,240 keys;
+    fail_count beside torch.sum on the 10,240-row bitmap."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    n = SIZES[-1]
+    bad = bad_index[n]
+    m, q = SV.shard_rows(n, 1), SV.shard_rows(n, 4)
+    d = bad // q
+    shapes = ((m, slice(0, m)), (q, slice(d * q, (d + 1) * q)))
+    records = []
+
+    def check_bitmap(name, got, want, sl):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: {int((got != want).sum())} rows differ from plain")
+        host = got.cpu().numpy()
+        invalid = [i + (sl.start or 0) for i in np.flatnonzero(~host)]
+        if invalid != [bad]:
+            raise AssertionError(f"{name}: invalid rows {invalid[:8]}, expected [{bad}]")
+
+    for kind, P in planes.items():
+        a, r, s, k, pre = P.prepare(*commit_jobs(commits[kind][n], chain_id, bad))
+        rows = SV._pad_rows([a, r, s, k], m)
+        for rows_n, sl in shapes:
+            args = V._to_device([x[sl] for x in rows], dev)
+            name = f"{P.bitmap.__name__}[rows={rows_n}]"
+            got, ms = event_ms(lambda: P.bitmap(*args), 5)
+            want, p_ms = plain_ms(lambda: P.bitmap_plain(*args), warm=False)
+            check_bitmap(name, got, want, sl)
+            records.append(make_record(P.bitmap, None, rows_n, ms, p_ms, 0, P.ops_bitmap(rows_n),
+                                       129 * rows_n, counts.get(P.bitmap.__name__, 0), int32_rate, name))
+            if kind == "ed25519" and rows_n == m:
+                records.append(fail_count_record(got, counts.get("fail_count", 0), int32_rate))
+        (a_d,) = V._to_device([rows[0]], dev)
+        for splits in (DEFAULT_SPLITS, 1):
+            fill, fill_plain, hit, hit_plain = cache_pair(P, splits)
+            fill_fn, hit_fn = (P.fill1, P.hit1) if splits == 1 else (P.fill, P.hit)
+            name = f"{kernel_label(fill_fn, splits)}[S={splits},rows={m}]"
+            (tabs, oks), ms = event_ms(lambda: fill(a_d), 5)
+            (ptabs, poks), p_ms = plain_ms(lambda: fill_plain(a_d), warm=False)
+            err = check_fill(name, tabs, oks, ptabs, poks, all_decode=True)
+            del ptabs, poks
+            records.append(make_record(fill_fn, splits, m, ms, p_ms, err, P.ops_fill(m, splits),
+                                       m * (32 + 4096 * splits + 1), counts.get(fill_fn.__name__, 0),
+                                       int32_rate, name))
+            slots = torch.arange(m, dtype=torch.int32, device=dev)
+            for rows_n, sl in shapes:
+                args = (tabs, oks, slots[sl].contiguous(), *V._to_device([x[sl] for x in rows[1:]], dev))
+                name = f"{kernel_label(hit_fn, splits)}[S={splits},rows={rows_n}]"
+                got, ms = event_ms(lambda: hit(*args), 5)
+                want, p_ms = plain_ms(lambda: hit_plain(*args), warm=False)
+                check_bitmap(name, got, want, sl)
+                records.append(make_record(hit_fn, splits, rows_n, ms, p_ms, 0, P.ops_hit(rows_n, splits),
+                                           rows_n * (4 + 96 + 1 + 1) + cache_read_bytes(rows[3][sl], splits),
+                                           counts.get(hit_fn.__name__, 0), int32_rate, name))
+            del tabs, oks
+
+    # the RLC (ed25519): the whole commit at 10,240 rows and the shard of
+    # 2,560 with its own scalars, both verdicts with one z_raw
+    P = planes["ed25519"]
+    z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
+    for rows_n, sl in shapes:
+        lo, hi = sl.start, min(sl.stop, n)
+        verdicts = {}
+        for verdict, b in (("valid", None), ("tampered", bad)):
+            a, r, s, k, _ = P.prepare(*commit_jobs(commits["ed25519"][n], chain_id, b))
+            zk, z, zs = M._rlc_scalars_py(s[lo:hi], k[lo:hi], hi - lo, z_raw[16 * lo:16 * hi])
+            args = V._to_device(SV._pad_rows([a[lo:hi], r[lo:hi], zk, z], rows_n) + [zs], dev)
+            if b is None:
+                got, ms = event_ms(lambda: P.rlc(*args), 5)
+                want = P.rlc_plain(*args)
+            else:
+                got = P.rlc(*args)
+                want, p_ms = plain_ms(lambda: P.rlc_plain(*args), warm=False)
+            if bool(got) != bool(want) or bool(got) != (b is None):
+                raise AssertionError(f"{P.rlc.__name__}[rows={rows_n}] ({verdict}): kernel {bool(got)} "
+                                     f"plain {bool(want)}")
+            verdicts[verdict] = bool(got)
+        log(f"phase 7: {P.rlc.__name__} verdicts at {rows_n} rows, same z_raw: {json.dumps(verdicts)}")
+        records.append(make_record(P.rlc, None, rows_n, ms, p_ms, 0, P.ops_rlc(rows_n, M._streams(rows_n)),
+                                   rows_n * (32 + 32 + 32 + 16) + 32 + 1, counts.get(P.rlc.__name__, 0),
+                                   int32_rate, f"{P.rlc.__name__}[rows={rows_n}]"))
+    return records
+
+
+def fail_count_record(bitmap, launches, int32_rate):
+    """fail_count on a bitmap the path made, timed beside its plain version
+    and one PyTorch call, (~ok).sum(); bound: the bitmap read once and one
+    int32 written, one compare and one add a row."""
+    import torch
+
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    n = bitmap.numel()
+    got, ms = event_ms(lambda: SV.fail_count(bitmap), 50)
+    want, p_ms = event_ms(lambda: SV.fail_count_plain(bitmap), 50)
+    lib, lib_ms = event_ms(lambda: (~bitmap).sum(), 50)
+    if not torch.equal(got, want) or int(got) != int(lib):
+        raise AssertionError(f"fail_count: kernel {int(got)} plain {int(want)} torch.sum {int(lib)}")
+    return make_record(SV.fail_count, None, n, ms, p_ms, 0, 2 * n, n + 4, launches, int32_rate,
+                       library_ms=lib_ms)
+
+
+E2E_ROUNDS = 5
+
+
+def sharded_end_to_end(planes, meshes, dev, chain_id, commits, runs):
+    """verify_batch_sharded on the mesh of 1 (10,240 rows) and on the mesh
+    of 4 against the single-card verify_batch (16,384 rows) on the valid
+    10,000-validator commit of each plane: E2E_ROUNDS rounds, the three in
+    a rotating order each round; the medians are recorded."""
+    import statistics
+
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
+
+    n = SIZES[-1]
+    for kind, P in planes.items():
+        jobs = commit_jobs(commits[kind][n], chain_id)
+        calls = {"sharded_1": lambda: SV.verify_batch_sharded(meshes["1"], *jobs, key_type=kind),
+                 "single": lambda: P.batch(*jobs, device=dev),
+                 "sharded_4": lambda: SV.verify_batch_sharded(meshes["4"], *jobs, key_type=kind)}
+        keys = list(calls)
+        t = {key: [] for key in keys}
+        for r in range(E2E_ROUNDS):
+            for key in keys[r % 3:] + keys[:r % 3]:
+                t[key].append(timed(calls[key])[1])
+        med = {key: statistics.median(v) for key, v in t.items()}
+        runs.append({"plane": kind, "commit": n, "run": f"end to end, median of {E2E_ROUNDS}: sharded "
+                     "mesh of 1 / single card / sharded mesh of 4", "s": med["sharded_1"],
+                     "single_s": med["single"], "mesh4_s": med["sharded_4"]})
+        log(f"phase 7: {kind} end to end on {n} validators, seconds a call: {json.dumps(t)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -1050,8 +1478,11 @@ def main() -> int:
         return 2
 
     import multiprocessing
+    import tempfile
 
     import numpy as np
+
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1077,6 +1508,7 @@ def main() -> int:
     errs = {}
     for P in planes.values():
         errs.update(check_kernels(rng, dev, P))
+    errs.update(check_fail_count(rng, dev))
     if args.kernels_only:
         log(f"kernels only: stopping after phase 2 on {card_line}")
         return 0
@@ -1103,11 +1535,19 @@ def main() -> int:
     kernels += rlc_cache_path(planes["ed25519"], dev, rng, chain_id, commits["ed25519"], bad_index,
                               errs, int32_rate, runs)
     log(f"phase 6: the cached RLC in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    meshes = {"1": SV.make_mesh(), "4": SV.make_mesh(4, device=dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = sharded_path(planes, meshes, dev, rng, chain_id, commits, bad_index, runs, tmp)
+    kernels += kernels_at_sharded_shapes(planes, dev, rng, chain_id, commits, bad_index, counts, int32_rate)
+    sharded_end_to_end(planes, meshes, dev, chain_id, commits, runs)
+    log(f"phase 7: the sharded path in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(r[k], 4) for k in ("challenges_s", "prepare_batch_s", "rlc_scalars_s",
-                                               "uncached_s", "fill_s") if k in r}
+                                               "uncached_s", "fill_s", "single_s", "mesh4_s") if k in r}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"
-            + (f" at S={r['splits']}" if "splits" in r else "") + f": {r['s'] * 1e3:.1f} ms"
+            + (f" at S={r['splits']}" if "splits" in r else "")
+            + (f", mesh of {r['mesh']}" if "mesh" in r else "") + f": {r['s'] * 1e3:.1f} ms"
             + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else "")
             + (f" {json.dumps(extra)}" if extra else ""))
     names = {k["name"].split("[")[0] for k in kernels}

@@ -3,9 +3,11 @@
 The second package of the repository. It computes what the JAX package
 computes, on an NVIDIA H100: commit verification (types/validation.py)
 through the ed25519 and sr25519 batch verifiers (crypto/ed25519.py,
-crypto/sr25519.py) to eight hand-written Hopper kernels (csrc/, built with
-nvcc at first use and bound with ctypes by ops/_build.py), each beside a
-plain PyTorch version (ops/verify.py, ops/verify_sr.py, ops/msm.py).
+crypto/sr25519.py), and batch verification sharded over a mesh of devices
+(parallel/), to hand-written Hopper kernels (csrc/, built with nvcc at
+first use and bound with ctypes by ops/_build.py), each beside a plain
+PyTorch version (ops/verify.py, ops/verify_sr.py, ops/msm.py,
+parallel/sharded_verify.py).
 
 The package imports torch, never jax, and nothing of tendermint_tpu. Its
 entry points run on the card unless the caller passes device="cpu", which

@@ -47,6 +47,7 @@ KERNELS = {
     "msm_sr": {"tm_msm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
     "sr_tables_single": {"tm_build_sr_tables_single": [_P, _P, _P, _I, _P]},
     "verify_sr_cached_single": {"tm_verify_sr_cached": _CACHE_HIT},
+    "fail_count": {"tm_fail_count": [_P, _I, _I, _P, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -30,7 +30,7 @@ import importlib, pkgutil, sys
 import tendermint_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "ops.ristretto",
-             "ops.verify_sr"):
+             "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -142,6 +142,6 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     assert set(_build.KERNELS) == {"verify", "pk_tables", "verify_cached", "msm", "verify_sr",
                                    "sr_tables", "verify_sr_cached", "msm_sr", "pk_tables_single",
                                    "verify_cached_single", "msm_cached", "sr_tables_single",
-                                   "verify_sr_cached_single"}
+                                   "verify_sr_cached_single", "fail_count"}
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()
