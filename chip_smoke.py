@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tendermint_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--kernels-only]
+    python3 chip_smoke.py [--seed N] [--kernels-only] [--ab-parent DIR]
 
 Both signature planes run the same phases, each fatal on failure:
-  1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-     and print the card's name and power limit;
+  1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+     print each kernel function's registers and spills as ptxas reports
+     them, and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card on an
      edge batch (exact equality: the arithmetic is integer): tampered
      rows, the ZIP-215 edge encodings for ed25519, the RFC 9496 bad
@@ -24,9 +25,13 @@ Both signature planes run the same phases, each fatal on failure:
      cache fill and the cache hit through the main path's own cache, both
      for the RLC, in both verdicts with one z_raw), exact equality and the
      tampered row alone invalid; the same calls timed with CUDA events
-     beside the plain version, the bound and the launches, the host prep
-     of the 10,000-validator commits, and the end-to-end verify_commit
-     wall times;
+     beside the plain version, the bound and the launches, the RLC's
+     device time by step (tables, windows, reduce, tail: torch.profiler
+     by kernel name), the host prep of the 10,000-validator commits, and
+     the end-to-end verify_commit wall times; with --ab-parent DIR (a
+     git archive of another commit, unpacked inside the repo), the RLC
+     kernels of that tree against this one's on the same rows, in turns
+     parent, new, new, parent, each a process of its own ("ab:" lines);
   5. the other cache geometries, S = 1, 2 and 8, each through a new cache
      of that split: verify_commit on the 150-validator commit and on the
      tampered 1,000-validator one, exact launches (the single-table
@@ -69,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -186,6 +192,35 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_functions(report: str):
+    """(kernel, registers, spill line) for each entry function in an
+    `nvcc -Xptxas -v` report, the mangled name shortened to its identifier
+    and its integer or bool template arguments."""
+    out, fn, spills = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            ident = re.match(r"_Z(\d+)(\w+)", fn)
+            if ident:
+                size = int(ident.group(1))
+                name, rest = ident.group(2)[:size], ident.group(2)[size:]
+                targs = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+                if targs:
+                    vals = [{"b0": "false", "b1": "true"}.get(t + v, v)
+                            for t, v in re.findall(r"L([bi])(\d+)E", targs.group(1))]
+                    name += f"<{','.join(vals)}>"
+                fn = name
+            continue
+        if "spill stores" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spills))
+            fn, spills = None, ""
+    return out
 
 
 def log(msg: str) -> None:
@@ -764,6 +799,34 @@ def plain_ms(fn, warm: bool = True):
     return out, start.elapsed_time(end)
 
 
+# The launches of kernels 4 and 8 by kernel name (the earlier, three-launch
+# design has no reduce).
+RLC_STEPS = ("msm_tables", "msm_windows", "msm_reduce", "msm_tail")
+
+
+def step_times(fn, reps: int = 5):
+    """Device ms a call of each RLC step, by kernel name, from
+    torch.profiler over reps calls after one warm-up call; {} when the
+    profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    steps = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        name = evt.key.split("(")[0]
+        for step in RLC_STEPS:
+            if us and re.search(rf"\b{step}\b", name):
+                steps[step] = steps.get(step, 0.0) + us / 1e3 / reps
+    return steps
+
+
 def bound_ms(ops: int, nbytes: int, int32_rate: float):
     t_ops = ops / int32_rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -930,11 +993,101 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
                 raise AssertionError(f"{P.rlc.__name__} ({verdict}, {n} validators): "
                                      f"kernel {bool(got)} plain {bool(want)}")
             verdicts[verdict] = bool(got)
+            log(f"phase 4: {P.rlc.__name__} steps at {len(rows[0])} rows ({verdict}), device ms a call: "
+                f"{json.dumps(step_times(lambda: P.rlc(*rows))) or 'not measured (no profiler device time)'}")
         m = len(rows[0])
         log(f"phase 4: {P.rlc.__name__} verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
         rec = make_record(P.rlc, None, m, ms, p_ms, errs[P.rlc.__name__], P.ops_rlc(m, M._streams(m)),
                           m * (32 + 32 + 32 + 16) + 32 + 1, counts[P.rlc.__name__], int32_rate)
     return records + [rec]
+
+
+# -- phase 4 (continued): the RLC against the parent tree -----------------------
+
+# One turn of the A/B: the RLC kernels of the tree in argv[1] (its package
+# first on the path), timed on the inputs saved in argv[3] with this
+# script's event_ms and step_times (argv[2] is this repo's root); each
+# verdict checked; the times written as JSON to argv[4].
+AB_SCRIPT = r'''
+import importlib.util
+import json
+import sys
+
+import numpy as np
+import torch
+
+tree, root, inputs, out = sys.argv[1:5]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", f"{root}/chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.ops import msm as M
+
+_build.build_all(["msm", "msm_sr"])
+data = np.load(inputs)
+dev = torch.device("cuda", 0)
+res = {}
+for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
+    plane, m, verdict = key.split("__")
+    rows = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in ("a", "r", "zk", "z", "zs")]
+    fn = M.msm_verify_sr_kernel if plane == "sr25519" else M.msm_verify_kernel
+    got, ms = cs.event_ms(lambda: fn(*rows), 10)
+    if bool(got) != (verdict == "valid"):
+        raise SystemExit(f"{tree}: {key}: verdict {bool(got)}")
+    res[key] = {"ms": ms, "steps": cs.step_times(lambda: fn(*rows))}
+with open(out, "w") as f:
+    json.dump(res, f)
+'''
+AB_TIMEOUT_S = 600
+
+
+def ab_rlc(planes, chain_id, commits, bad_index, rng, parent, tmp):
+    """Kernels 4 and 8 of the parent tree (its package at `parent`) against
+    this tree's, in turns parent, new, new, parent, each turn a process of
+    its own: the 1,000- and 10,000-validator commits' rows (1,024 and
+    16,384), valid and tampered with one z_raw, both planes; mean ms of 10
+    launches by CUDA events and each step's device ms by torch.profiler.
+    Logs one line an input and returns the turns."""
+    import numpy as np
+
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+
+    arrays = {}
+    for kind, P in planes.items():
+        for n in SIZES[1:]:
+            z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
+            for verdict, bad in (("valid", None), ("tampered", bad_index[n])):
+                (a, r, zk, z, zs, _), _ = host_prep(P, commit_jobs(commits[kind][n], chain_id, bad), n, z_raw)
+                rows = V.pad_pow2_rows([a, r, zk, z], n) + [zs]
+                for col, x in zip(("a", "r", "zk", "z", "zs"), rows):
+                    arrays[f"{kind}__{len(rows[0])}__{verdict}__{col}"] = x
+    inputs = os.path.join(tmp, "ab_inputs.npz")
+    np.savez(inputs, **arrays)
+    script = os.path.join(tmp, "ab.py")
+    with open(script, "w") as f:
+        f.write(AB_SCRIPT)
+    turns = []
+    for i, (label, tree) in enumerate((("parent", parent), ("new", ROOT), ("new", ROOT), ("parent", parent))):
+        out = os.path.join(tmp, f"ab{i}.json")
+        proc = subprocess.run([sys.executable, script, tree, ROOT, inputs, out], cwd=tree,
+                              capture_output=True, text=True, timeout=AB_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"A/B turn {i} ({label}, {tree}) failed (rc {proc.returncode}):\n"
+                                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+        with open(out) as f:
+            turns.append((label, json.load(f)))
+    for key in turns[0][1]:
+        ms = {label: " / ".join("%.3f" % t[key]["ms"] for lab, t in turns if lab == label)
+              for label in ("parent", "new")}
+        steps = {label: next(t[key]["steps"] for lab, t in turns if lab == label)
+                 for label in ("parent", "new")}
+        plane, rows, verdict = key.split("__")
+        log(f"ab: {plane} {rows} rows {verdict}, ms a call (turns 1 and 4 / 2 and 3): parent "
+            f"{ms['parent']}, new {ms['new']}; steps parent {json.dumps(steps['parent'])} "
+            f"new {json.dumps(steps['new'])}")
+    return turns
 
 
 # -- phase 5: the other cache geometries --------------------------------------
@@ -1463,6 +1616,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding the kernels against their plain versions")
+    ap.add_argument("--ab-parent", metavar="DIR",
+                    help="after phase 4, time the RLC kernels of the tree unpacked at DIR against "
+                         "this tree's, in turns")
     args = ap.parse_args()
 
     import torch
@@ -1499,9 +1655,8 @@ def main() -> int:
     reports = _build.build_all()
     log(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"phase 1: {name}: {line.strip()}")
+        for fn, regs, spills in ptxas_functions(rep):
+            log(f"phase 1: {name}: {fn}: {regs} registers, {spills}")
 
     rng = np.random.default_rng(args.seed)
     planes = {kind: plane(kind) for kind in PLANES}
@@ -1528,6 +1683,11 @@ def main() -> int:
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
                                         int32_rate, runs)
+    if args.ab_parent:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ab_rlc(planes, chain_id, commits, bad_index, rng, os.path.abspath(args.ab_parent), tmp)
+        log(f"phase 4: the A/B against {args.ab_parent} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += geometry_path(planes, dev, chain_id, commits, bad_index, errs, int32_rate, runs)
     log(f"phase 5: the cache geometries in {time.perf_counter() - t0:.1f} s")

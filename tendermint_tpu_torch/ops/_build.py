@@ -37,14 +37,14 @@ KERNELS = {
     "verify": {"tm_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _P]},
     "pk_tables": {"tm_build_pk_tables": [_P, _P, _P, _I, _I, _P]},
     "verify_cached": {"tm_verify_cached_split": _CACHE_HIT[:-1] + [_I, _P]},
-    "msm": {"tm_msm_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "msm": {"tm_msm_verify": [_P] * 11 + [_I, _I, _I, _P]},
     "pk_tables_single": {"tm_build_pk_tables_single": [_P, _P, _P, _I, _P]},
     "verify_cached_single": {"tm_verify_cached": _CACHE_HIT},
-    "msm_cached": {"tm_msm_verify_cached": [_P] * 12 + [_I, _I, _I, _I, _P]},
+    "msm_cached": {"tm_msm_verify_cached": [_P] * 13 + [_I, _I, _I, _I, _P]},
     "verify_sr": {"tm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _I, _P]},
     "sr_tables": {"tm_build_sr_tables": [_P, _P, _P, _I, _I, _P]},
     "verify_sr_cached": {"tm_verify_sr_cached_split": _CACHE_HIT[:-1] + [_I, _P]},
-    "msm_sr": {"tm_msm_verify_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "msm_sr": {"tm_msm_verify_sr": [_P] * 11 + [_I, _I, _I, _P]},
     "sr_tables_single": {"tm_build_sr_tables_single": [_P, _P, _P, _I, _P]},
     "verify_sr_cached_single": {"tm_verify_sr_cached": _CACHE_HIT},
     "fail_count": {"tm_fail_count": [_P, _I, _I, _P, _P]},

@@ -62,6 +62,30 @@ def _streams(n: int) -> int:
     return g
 
 
+# The windows step's grid (csrc/msm.cuh msm_windows): 96 columns (64 A
+# windows, 32 R windows) x G streams x K chunks, blocks of up to 128
+# threads, two blocks resident on an SM at 255 registers a thread.
+MSM_COLS = 96
+WINDOW_BLOCK = 128
+RESIDENT_PER_SM = 2 * WINDOW_BLOCK
+# Rows a windows-step thread walks at most, where K allows.
+MAX_CHUNK_ROUNDS = 32
+
+
+def _window_chunks(n: int, g: int, sms: int) -> int:
+    """K, the chunks each stream's n // g rounds are split into: the least
+    power of two that gives the windows grid two resident waves on `sms`
+    SMs and each thread at most MAX_CHUNK_ROUNDS rows, within K <= n // g
+    (no chunk is empty) and K <= WINDOW_BLOCK (a stream's chunks share a
+    block)."""
+    rounds = n // g
+    k = 1
+    while 2 * k <= min(rounds, WINDOW_BLOCK) and (
+            MSM_COLS * g * k < 2 * RESIDENT_PER_SM * sms or rounds > MAX_CHUNK_ROUNDS * k):
+        k *= 2
+    return k
+
+
 def _select_windows(table: torch.Tensor, nibs: torch.Tensor) -> torch.Tensor:
     """table (16, 4, 32, G), nibs (W, G) -> (4, 32, W, G): entry nibs[w, g]
     of column g for every window."""
@@ -138,9 +162,20 @@ def msm_verify_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
     return all_ok & _cofactored_identity(total, sb)
 
 
+def _msm_scratch(n: int, g: int, dev):
+    """The RLC kernels' scratch for n rows of g streams: the 16 multiples of
+    each of the 2n points (160-byte rows), their decode bits, the partial
+    sum of each (column, stream) and the 64 window sums, 4 x 10 int32 limbs
+    a point."""
+    return (torch.empty((2 * n, 16, 4 * 10), dtype=torch.int32, device=dev),
+            torch.empty(2 * n, dtype=torch.uint8, device=dev),
+            torch.empty((4 * 10, MSM_COLS * g), dtype=torch.int32, device=dev),
+            torch.empty((4 * 10, 64), dtype=torch.int32, device=dev))
+
+
 def _launch_msm(name: str, lib_name: str, entry: str, a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
     """Check the RLC inputs, allocate the scratch and launch one of the RLC
-    libraries (three kernels from one C entry point); returns the () bool
+    libraries (four kernels from one C entry point); returns the () bool
     verdict on the device."""
     n = a_enc.shape[0]
     g = _streams(n)
@@ -148,21 +183,21 @@ def _launch_msm(name: str, lib_name: str, entry: str, a_enc, r_enc, zk_bytes, z_
     _check_rows(name, n, 16, z_bytes)
     _check_rows(name, 1, 32, zs_bytes)
     dev = a_enc.device
-    tabs = torch.empty((16 * 4 * 10, 2 * n), dtype=torch.int32, device=dev)
-    oks = torch.empty(2 * n, dtype=torch.uint8, device=dev)
-    wsum = torch.empty((4 * 10, 64 * g), dtype=torch.int32, device=dev)
+    chunks = _window_chunks(n, g, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tabs, oks, part, ws = _msm_scratch(n, g, dev)
     out = torch.empty((), dtype=torch.bool, device=dev)
     rc = getattr(_build.load(lib_name), entry)(
         a_enc.data_ptr(), r_enc.data_ptr(), zk_bytes.data_ptr(), z_bytes.data_ptr(),
         zs_bytes.data_ptr(), device_table("fixed", dev).data_ptr(), tabs.data_ptr(),
-        oks.data_ptr(), wsum.data_ptr(), out.data_ptr(), n, g, _build.stream_of(a_enc),
+        oks.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), n, g, chunks,
+        _build.stream_of(a_enc),
     )
     _build.check(rc, name)
     return out
 
 
 def msm_verify_kernel(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
-    """RLC check: csrc/msm.cu on CUDA tensors (three launches from one entry
+    """RLC check: csrc/msm.cu on CUDA tensors (four launches from one entry
     point, counted once), the plain version on CPU tensors."""
     args = (a_enc, r_enc, zk_bytes, z_bytes, zs_bytes)
     if not _route("msm_verify_kernel", *args):
@@ -216,7 +251,7 @@ def msm_verify_kernel_cached_plain(tables, oks, slots, r_enc, zk_bytes, z_bytes,
 
 
 def msm_verify_kernel_cached(tables, oks, slots, r_enc, zk_bytes, z_bytes, zs_bytes):
-    """Cached RLC check: csrc/msm_cached.cu on CUDA tensors (three launches
+    """Cached RLC check: csrc/msm_cached.cu on CUDA tensors (four launches
     from one entry point, counted once), the plain version on CPU tensors."""
     args = (tables, oks, slots, r_enc, zk_bytes, z_bytes, zs_bytes)
     if not _route("msm_verify_kernel_cached", *args):
@@ -234,12 +269,14 @@ def msm_verify_kernel_cached(tables, oks, slots, r_enc, zk_bytes, z_bytes, zs_by
     tabs = torch.empty((16 * 4 * 10, n), dtype=torch.int32, device=dev)
     row_oks = torch.empty(n, dtype=torch.uint8, device=dev)
     wsum = torch.empty((4 * 10, wn * g), dtype=torch.int32, device=dev)
+    ws = torch.empty((4 * 10, wn), dtype=torch.int32, device=dev)
     out = torch.empty((), dtype=torch.bool, device=dev)
     rc = _build.load("msm_cached").tm_msm_verify_cached(
         tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r_enc.data_ptr(),
         zk_bytes.data_ptr(), z_bytes.data_ptr(), zs_bytes.data_ptr(),
         device_table("fixed", dev).data_ptr(), tabs.data_ptr(), row_oks.data_ptr(),
-        wsum.data_ptr(), out.data_ptr(), n, g, tables.shape[0], splits, _build.stream_of(r_enc),
+        wsum.data_ptr(), ws.data_ptr(), out.data_ptr(), n, g, tables.shape[0], splits,
+        _build.stream_of(r_enc),
     )
     _build.check(rc, name)
     msm_verify_kernel_cached.launches += 1
@@ -268,7 +305,7 @@ def msm_verify_sr_kernel_plain(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
 
 
 def msm_verify_sr_kernel(a_enc, r_enc, zk_bytes, z_bytes, zs_bytes):
-    """sr25519 RLC check: csrc/msm_sr.cu on CUDA tensors (three launches
+    """sr25519 RLC check: csrc/msm_sr.cu on CUDA tensors (four launches
     from one entry point, counted once), the plain version on CPU tensors."""
     args = (a_enc, r_enc, zk_bytes, z_bytes, zs_bytes)
     if not _route("msm_verify_sr_kernel", *args):

@@ -12,9 +12,13 @@ import torch
 from tendermint_tpu.crypto import ed25519_ref as ref
 from tendermint_tpu.ops import msm as JM
 from tendermint_tpu.ops import verify as JV
+from tendermint_tpu_torch.ops import curve as C
+from tendermint_tpu_torch.ops import field as F
 from tendermint_tpu_torch.ops import msm as M
+from tendermint_tpu_torch.ops import ristretto as R
 from tendermint_tpu_torch.ops import verify as V
 
+import test_torch_verify_sr as SR
 from test_torch_verify import seeded_jobs
 
 # The plain versions run many small ops: one intra-op thread per test
@@ -190,3 +194,223 @@ def test_rlc_cached_fills_then_hits(spies):
     assert M.collect_rlc(M.verify_batch_rlc_cached_async(pks, msgs, sigs, z_raw=Z16 * 8,
                                                          device="cpu")) is False
     assert calls == ["prepare_batch", "msm_verify_kernel_cached"] * 2
+
+
+# -- the RLC kernels' launch geometry and order of summation (csrc/msm.cuh) --
+
+# Row counts the wrappers hand the RLC kernels: pad_pow2_rows' powers of
+# two and shard_rows' multiples of 256, up to 2^17.
+PADDED_ROWS = sorted({1 << e for e in range(18)} | set(range(256, (1 << 17) + 1, 256)))
+
+
+def _window_rows(n, g, chunks, threads, blocks):
+    """The rows each windows-step thread of one column walks, as the kernel
+    indexes them: thread tid is chunk tid % K of stream tid // K, and chunk
+    k walks rounds [k R / K, (k + 1) R / K) of the R = n / g rounds, row
+    stream + g * round. Returns (rows, per-chunk lengths)."""
+    tid = np.arange(blocks * threads)
+    stream, k = tid // chunks, tid % chunks
+    live = stream < g
+    stream, k = stream[live], k[live]
+    rounds = n // g
+    lo, hi = k * rounds // chunks, (k + 1) * rounds // chunks
+    lengths = hi - lo
+    starts = np.repeat(np.cumsum(lengths) - lengths, lengths)
+    r = np.repeat(lo, lengths) + np.arange(lengths.sum()) - starts
+    return np.repeat(stream, lengths) + g * r, lengths
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+@pytest.mark.parametrize("streams", [1, 2, 128, 1024])
+def test_window_geometry_covers_every_row(monkeypatch, streams, sms):
+    """For every padded row count: K is a power of two that leaves no chunk
+    empty and keeps a stream's chunks in one block; each column's threads
+    walk every row exactly once; the partial sums and window sums the
+    kernels write fit the scratch the wrapper allocates; row counts the
+    stream count does not divide still raise."""
+    monkeypatch.setattr(M, "G_STREAMS", streams)
+    for n in PADDED_ROWS:
+        if n % min(streams, n):
+            with pytest.raises(ValueError, match="not a multiple of the stream count"):
+                M._streams(n)
+            continue
+        g = M._streams(n)
+        k = M._window_chunks(n, g, sms)
+        assert k & (k - 1) == 0 and 1 <= k <= min(n // g, M.WINDOW_BLOCK), (n, g, k)
+        threads = min(M.WINDOW_BLOCK, g * k)
+        blocks = -(-g * k // threads)
+        assert threads % k == 0 and blocks * threads >= g * k
+        rows, lengths = _window_rows(n, g, k, threads, blocks)
+        assert lengths.min() >= 1 and lengths.max() <= max(n // g // k + 1, 1)
+        assert rows.size == n and np.array_equal(np.bincount(rows, minlength=n), np.ones(n, int)), (n, g, k)
+        tabs, oks, part, ws = M._msm_scratch(n, g, "meta")
+        assert tabs.shape == (2 * n, 16, 40) and oks.shape == (2 * n,)
+        # point c * g + s of part, limb i at i * stride (csrc ge_store)
+        assert part.shape == (40, M.MSM_COLS * g) and (M.MSM_COLS - 1) * g + g - 1 < part.shape[1]
+        assert ws.shape == (40, 64)
+
+
+def test_window_chunks_fill_the_card():
+    """At the main path's shapes on 132 SMs the windows grid holds at least
+    two resident waves and a thread walks at most MAX_CHUNK_ROUNDS rows."""
+    for n in (1024, 2560, 10240, 16384, 1 << 17):
+        g = M._streams(n)
+        k = M._window_chunks(n, g, 132)
+        assert M.MSM_COLS * g * k >= 2 * M.RESIDENT_PER_SM * 132 or k == min(n // g, M.WINDOW_BLOCK)
+        assert n // g // k <= M.MAX_CHUNK_ROUNDS
+    assert M._window_chunks(16384, 128, 132) == 8 and M._window_chunks(1024, 128, 132) == 8
+
+
+def _add(p, q):
+    return C.point_add(p, q, out_t=True)
+
+
+def _identity_like(p):
+    return C.identity_point(p.shape[2:], p.device)
+
+
+def _kernel_order_total(neg, nibs_zk, nibs_z, n, g, chunks):
+    """A model of csrc/msm.cuh's order of summation, in the plain curve
+    ops: each of the 96 columns' (stream, chunk) sums from its first entry,
+    the block's tree over a stream's chunks, the reduce (each of 64 threads
+    over the streams t, t + 64, ... of the window's A column, then its R
+    column, from the identity; then a tree over the threads), and Horner
+    over the 64 window sums (4 doublings and one addition a window). Each
+    step's skipped additions are additions of the identity here. Returns
+    the (4, 32, 1) sum with T."""
+    table = C._build_var_table(neg).permute(3, 0, 1, 2)  # (2n, 16, 4, 32)
+    row = torch.arange(n)[None, :]
+    entries = torch.cat([table[row, nibs_zk.long()], table[n + row, nibs_z.long()]])  # (96, n, 4, 32)
+    entries = entries.permute(2, 3, 0, 1)  # (4, 32, 96, n)
+    rounds = n // g
+    parts = []
+    for s in range(g):
+        sums = []
+        for k in range(chunks):
+            lo, hi = k * rounds // chunks, (k + 1) * rounds // chunks
+            acc = entries[..., s + g * lo]
+            for r in range(lo + 1, hi):
+                acc = _add(acc, entries[..., s + g * r])
+            sums.append(acc)
+        half = chunks // 2
+        while half:
+            sums[:half] = [_add(sums[i], sums[i + half]) for i in range(half)]
+            half //= 2
+        parts.append(sums[0])
+    part = torch.stack(parts, dim=-1)  # (4, 32, 96, g)
+    threads = 64
+    acc = C.identity_point((64, threads), neg.device)
+    ident = C.identity_point((64, threads), neg.device)
+    for col_off in (0, 64):
+        cols = torch.arange(64) + col_off
+        for j in range(-(-g // threads)):
+            s = torch.arange(threads) + threads * j
+            live = (cols[:, None] < M.MSM_COLS) & (s[None, :] < g)
+            p = part[:, :, cols.clamp(max=M.MSM_COLS - 1)][..., s.clamp(max=g - 1)]
+            acc = _add(acc, torch.where(live, p, ident))
+    half = threads // 2
+    while half:
+        acc = torch.cat([_add(acc[..., :half], acc[..., half:2 * half]), acc[..., half:]], dim=-1)
+        half //= 2
+    windows = acc[..., 0]  # (4, 32, 64)
+    total = windows[..., 63:64]
+    for w in range(62, -1, -1):
+        for _ in range(4):
+            total = C.point_double(total, out_t=True)
+        total = _add(total, windows[..., w:w + 1])
+    return total
+
+
+def _kernel_order_comb(zs_bytes):
+    """[zs]B as the tail's comb warp sums it: lane L adds entries 2L and
+    2L + 1, then a tree across the 32 lanes (lane L adds lane L + off)."""
+    nibbles = C.scalar_to_nibbles(zs_bytes)[:, 0]
+    table = torch.as_tensor(C.fixed_base_table())  # (64, 16, 4, 32)
+    entries = table[torch.arange(64), nibbles.long()].permute(1, 2, 0)  # (4, 32, 64)
+    lanes = _add(entries[..., 0::2], entries[..., 1::2])
+    off = 16
+    while off:
+        lanes = torch.cat([_add(lanes[..., :off], lanes[..., off:2 * off]), lanes[..., off:]], dim=-1)
+        off //= 2
+    return lanes[..., 0:1]
+
+
+def _affine(p):
+    """Canonical affine (x, y) limbs of a (4, 32, 1) point."""
+    zinv = F.fe_invert(p[2])
+    return F.fe_canonical(F.fe_mul(p[0], zinv)), F.fe_canonical(F.fe_mul(p[1], zinv))
+
+
+def _edge_encodings_jobs():
+    """Valid under ZIP-215 only: honest signatures beside the small-order
+    key with identity R and s = 0, the key y = p + 1 (non-canonical, decodes
+    as y = 1) and x = 0 with the sign bit set (decodes as x = 0)."""
+    pks, msgs, sigs = seeded_jobs(46, 5)
+    ident = ref.compress(ref.IDENTITY)
+    neg_zero = bytearray(ident)
+    neg_zero[31] |= 0x80
+    pks += [ref.small_order_points()[1], (ref.P + 1).to_bytes(32, "little"), bytes(neg_zero)]
+    msgs += [b"anything", b"y>=p", b"-0"]
+    sigs += [ident + bytes(32), ident + bytes(32), bytes(neg_zero) + bytes(32)]
+    return pks, msgs, sigs
+
+
+def _sr_jobs(case):
+    pks, msgs, sigs = SR.seeded_jobs(78, 7)
+    for col, v in zip((pks, msgs, sigs), SR.zero_row()):
+        col.append(v)
+    if case == "tampered":
+        sigs[3] = sigs[3][:40] + bytes([sigs[3][40] ^ 1]) + sigs[3][41:]
+    elif case == "wrong_key":
+        pks[5] = SR.seeded_jobs(79, 1)[0][0]
+    elif case == "encodings":  # a non-canonical key (RFC 9496): it does not decode
+        pks[2] = bytes.fromhex(SR.BAD_ENCODINGS[0])
+    return pks, msgs, sigs
+
+
+def _ed_jobs(case):
+    pks, msgs, sigs = _edge_encodings_jobs() if case == "encodings" else valid_edge_jobs()
+    if case == "tampered":
+        sigs[3] = sigs[3][:40] + bytes([sigs[3][40] ^ 1]) + sigs[3][41:]
+    elif case == "wrong_key":
+        pks[5] = seeded_jobs(42, 1)[0][0]
+    return pks, msgs, sigs
+
+
+@pytest.mark.parametrize("case", ["valid", "tampered", "wrong_key", "encodings"])
+@pytest.mark.parametrize("plane", ["ed25519", "sr25519"])
+def test_kernel_summation_order_matches_reference(plane, case):
+    """The RLC kernels' order (columns, chunks, block tree, window reduce,
+    Horner over window sums, comb tree), modelled at 8 rows on two
+    geometries, gives the point that _accumulate_windows and
+    fixed_base_mul give where every row decodes, and the JAX program's
+    verdict on every batch."""
+    jobs = _sr_jobs(case) if plane == "sr25519" else _ed_jobs(case)
+    rows = SR._rlc_rows(jobs, Z16 * 8) if plane == "sr25519" else _rows(*jobs, Z16 * 8)
+    jax_fn = JM.msm_verify_sr_kernel if plane == "sr25519" else JM.msm_verify_kernel
+    want = bool(jax_fn(*rows))
+    assert want == (case in ("valid", "encodings") if plane == "ed25519" else case == "valid")
+    a, r, zk, z, zs = (V._limb_major(torch.from_numpy(np.array(x))) for x in rows)
+    n = a.shape[1]
+    decode = R.decode if plane == "sr25519" else C.decompress
+    pts, oks = decode(torch.cat([a, r], dim=1))
+    neg = C.point_neg(pts)
+    nibs_zk, nibs_z = C.scalar_to_nibbles(zk), C.scalar_to_nibbles(z)
+    ref_total = M._accumulate_windows(neg, nibs_zk, nibs_z, n)
+    ref_sb = C.fixed_base_mul(zs)
+    sb = _kernel_order_comb(zs)
+    for x, y in zip(_affine(sb), _affine(ref_sb)):
+        assert torch.equal(x, y)
+    decoded = bool(torch.all(oks))
+    assert decoded == (case != "encodings" or plane == "ed25519")
+    for g, chunks in ((2, 2), (1, 4)):
+        total = _kernel_order_total(neg, nibs_zk, nibs_z, n, g, chunks)
+        # an undecodable row leaves a candidate off the curve, where the
+        # order of additions shows; the decode bit decides that batch
+        for x, y in zip(_affine(_add(total, sb)), _affine(_add(ref_total, ref_sb))):
+            assert torch.equal(x, y) or not decoded
+        if plane == "sr25519":
+            got = decoded and bool(torch.all(R.encode(_add(total, sb)) == 0))
+        else:
+            got = decoded and bool(M._cofactored_identity(total, sb))
+        assert got == want, (g, chunks)
