@@ -9,8 +9,12 @@ Both signature planes run the same phases, each fatal on failure:
      them, and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card on an
      edge batch (exact equality: the arithmetic is integer): tampered
-     rows, the ZIP-215 edge encodings for ed25519, the RFC 9496 bad
-     encodings, a missing marker bit, s >= L and a zero row for sr25519;
+     rows, the ZIP-215 edge encodings for ed25519 (small-order, undecodable
+     and non-canonical R, R plus a point of order 8), the RFC 9496 bad
+     encodings, a missing marker bit, s >= L, an honest R made
+     non-canonical, negated or random, and a zero row for sr25519; the
+     cache hits also with a tampered k, slots past the end and a slot
+     whose oks is false;
      and the bitmap against the plane's pure-Python oracle; the cache fill
      and hit at every pubkey-cache split (TM_TPU_PK_SPLIT 4, 1, 2, 8), and
      the cached RLC at S = 2, 4, 8; fail_count (the sharded path's fail
@@ -30,8 +34,10 @@ Both signature planes run the same phases, each fatal on failure:
      by kernel name), the host prep of the 10,000-validator commits, and
      the end-to-end verify_commit wall times; with --ab-parent DIR (a
      git archive of another commit, unpacked inside the repo), the RLC
-     kernels of that tree against this one's on the same rows, in turns
-     parent, new, new, parent, each a process of its own ("ab:" lines);
+     kernels and the split cache hits (1,024 rows at S = 2, 4, 8, and row
+     15's 10,240 and 2,560 rows at S = 4) of that tree against this one's
+     on the same rows, in turns parent, new, new, parent, each a process
+     of its own ("ab:" lines);
   5. the other cache geometries, S = 1, 2 and 8, each through a new cache
      of that split: verify_commit on the 150-validator commit and on the
      tampered 1,000-validator one, exact launches (the single-table
@@ -58,11 +64,18 @@ Both signature planes run the same phases, each fatal on failure:
      quarter of the tampered 10,000-validator commit; then each kernel of the
      path against its plain version at the sharded shapes, 10,240 rows and a
      shard of 2,560, exact and timed, fail_count beside torch.sum, and
-     verify_batch_sharded against the single-card verify_batch end to end.
+     verify_batch_sharded against the single-card verify_batch end to end;
+  8. the cutover autotune (ops/engine.py) in a fresh process with the
+     cutovers unpinned: a 4-signature batch verify starts the probe on
+     the card, its thread is joined, and its cutovers must follow the
+     reference's formula from its two timings, with no recorded
+     exception and exactly its 4 bitmap launches.
 
 Phases 3, 5, 6 and 7 are each a main path: every call in them runs with
 the launch counters set to 0 just before it and read just after, and each
-phase fails if one of its kernels never launched.
+phase fails if one of its kernels never launched. They run with
+TM_TPU_AUTOTUNE=off, so the probe's launches, which land from a thread at
+an unknown time, stay out of their counts.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -364,12 +377,26 @@ def tamper(sig: bytes) -> bytes:
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
+def sign_torsion_r(priv: bytes, msg: bytes, rng) -> bytes:
+    """An ed25519 signature whose R is [r]B plus a point of order 8, the
+    challenge taken over that R: valid under the cofactored equation only."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+    t8 = next(p for p in map(ref.decompress, ref.small_order_points())
+              if not ref.point_is_identity(ref.scalar_mult(4, p)))
+    a = ref._clamp(ref._sha512(priv[:32]))
+    r = int.from_bytes(rng.bytes(64), "little") % ref.L
+    r_enc = ref.compress(ref.point_add(ref.scalar_mult(r, ref.BASE), t8))
+    s = (r + ref.challenge_scalar(r_enc, priv[32:], msg) * a) % ref.L
+    return r_enc + s.to_bytes(32, "little")
+
+
 def edge_batch(rng, n=64):
     """n rows: honest signatures, tampered ones, and the ZIP-215 edges."""
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
 
     pks, msgs, sigs = [], [], []
-    for i in range(n - 6):
+    for i in range(n - 9):
         priv = ref.gen_privkey(rng.bytes(32))
         msg = b"chip-smoke-%d" % i + rng.bytes(16)
         sig = ref.sign(priv, msg)
@@ -397,6 +424,12 @@ def edge_batch(rng, n=64):
     # a small-order R on an honest key
     priv = ref.gen_privkey(rng.bytes(32))
     pks.append(priv[32:]); msgs.append(b"so-R"); sigs.append(so[2] + ref.sign(priv, b"so-R")[32:])
+    # an R that does not decode, on the same key
+    pks.append(priv[32:]); msgs.append(b"bad-R"); sigs.append(y.to_bytes(32, "little") + ref.sign(priv, b"bad-R")[32:])
+    # a non-canonical R (y = p + 1, the identity) over a small-order key, s = 0: valid
+    pks.append(so[1]); msgs.append(b"R>=p"); sigs.append((ref.P + 1).to_bytes(32, "little") + b"\x00" * 32)
+    # R = [r]B + a point of order 8: valid after the cofactor
+    pks.append(priv[32:]); msgs.append(b"R+T8"); sigs.append(sign_torsion_r(priv, b"R+T8", rng))
     return pks, msgs, sigs
 
 
@@ -420,12 +453,13 @@ RISTRETTO_BAD_ENCODINGS = [
 
 def sr_edge_batch(rng, n=64):
     """n rows: honest sr25519 signatures, tampered s and tampered R, the RFC
-    9496 bad encodings as keys, a missing marker bit, s >= L, and the zero
-    row (identity key, identity R, s = 0: valid)."""
+    9496 bad encodings as keys, a missing marker bit, s >= L, an honest R
+    made non-canonical (s + p), negated and replaced by random bytes, and
+    the zero row (identity key, identity R, s = 0: valid)."""
     from tendermint_tpu_torch.crypto import sr25519 as sr
 
     pks, msgs, sigs = [], [], []
-    for i in range(n - len(RISTRETTO_BAD_ENCODINGS) - 4):
+    for i in range(n - len(RISTRETTO_BAD_ENCODINGS) - 7):
         priv = sr.Sr25519PrivKey(rng.bytes(32))
         msg = b"chip-smoke-sr-%d" % i + rng.bytes(16)
         sig = priv.sign(msg)
@@ -447,6 +481,11 @@ def sr_edge_batch(rng, n=64):
     s = int.from_bytes(sigs[0][32:], "little") & ((1 << 255) - 1)
     big = bytearray((s + sr.L).to_bytes(32, "little")); big[31] |= 0x80
     pks.append(pks[0]); msgs.append(msgs[0]); sigs.append(sigs[0][:32] + bytes(big))
+    # row 1's honest R non-canonical (s + p), negated, and random bytes
+    r_enc, rest = sigs[1][:32], sigs[1][32:]
+    neg_r = sr.ristretto_encode(sr.point_neg(sr.ristretto_decode(r_enc)))
+    for r_bad in ((int.from_bytes(r_enc, "little") + sr.P).to_bytes(32, "little"), neg_r, rng.bytes(32)):
+        pks.append(pks[1]); msgs.append(msgs[1]); sigs.append(r_bad + rest)
     # the zero row, marked
     pks.append(bytes(32)); msgs.append(b"zero"); sigs.append(bytes(63) + b"\x80")
     return pks, msgs, sigs
@@ -538,8 +577,10 @@ def check_kernels(rng, dev, P):
         if not (torch.equal(got, want) and torch.equal(got, got_signed)) or not (
                 (got.cpu().numpy() & pre) == oracle).all():
             raise AssertionError(f"{name}: kernel {got.tolist()} plain {want.tolist()}")
+        _, _, rows = hit_edges(hit, hit_plain, oracle, cache_t, cache_o, slots, r_d, s_d, k_d)
         errs[name] = 0
-        log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms)")
+        log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms); == plain with a "
+            f"tampered k, slots {len(cache_t) + 3} and 2^31 - 1 clamped, and oks false, at valid rows {rows}")
         caches[splits] = cache_t, cache_o, slots
 
     name = P.rlc.__name__
@@ -562,6 +603,32 @@ def check_kernels(rng, dev, P):
     if P.kind == "ed25519":
         check_rlc_cached(rng, dev, P, caches, pks, msgs, sigs, oracle, pre, errs)
     return errs
+
+
+def hit_edges(hit, hit_plain, oracle, cache_t, cache_o, slots, r, s, k):
+    """A cache hit on the cache's own edges, each at one valid row: a
+    tampered k, two slots past the end (the kernel clamps them to the last
+    slot, as the reference's gather does; the plain version is handed them
+    clamped), and a slot whose oks is false. The kernel must equal the plain
+    version and reject the tampered and the oks-false rows."""
+    import torch
+
+    ka, sb, sc, od = [i for i in range(len(oracle)) if oracle[i]][:4]
+    cap = len(cache_t)
+    k_x = k.clone()
+    k_x[ka, 3] ^= 0x20
+    slots_x = slots.clone()
+    slots_x[sb], slots_x[sc] = cap + 3, 2**31 - 1
+    oks_x = cache_o.clone()
+    oks_x[slots[od].long()] = False
+    got = hit(cache_t, oks_x, slots_x, r, s, k_x)
+    want = hit_plain(cache_t, oks_x, slots_x.clamp(0, cap - 1), r, s, k_x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or bool(got[ka]) or bool(got[od]):
+        raise AssertionError(f"{hit.__name__} on the cache edges (tampered k #{ka}, slots out of "
+                             f"range #{sb} #{sc}, oks false #{od}): kernel {got.tolist()} "
+                             f"plain {want.tolist()}")
+    return got, want, (ka, sb, sc, od)
 
 
 def check_rlc_cached(rng, dev, P, caches, pks, msgs, sigs, oracle, pre, errs):
@@ -1002,12 +1069,13 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
     return records + [rec]
 
 
-# -- phase 4 (continued): the RLC against the parent tree -----------------------
+# -- phase 4 (continued): the RLC and the split hits against the parent tree --
 
-# One turn of the A/B: the RLC kernels of the tree in argv[1] (its package
-# first on the path), timed on the inputs saved in argv[3] with this
-# script's event_ms and step_times (argv[2] is this repo's root); each
-# verdict checked; the times written as JSON to argv[4].
+# One turn of the A/B: the RLC kernels and the split cache hits of the tree
+# in argv[1] (its package first on the path), timed on the inputs saved in
+# argv[3] with this script's event_ms and step_times (argv[2] is this repo's
+# root); each verdict and bitmap checked; the times, and the ptxas reports
+# of the libraries the turn built, written as JSON to argv[4].
 AB_SCRIPT = r'''
 import importlib.util
 import json
@@ -1023,36 +1091,56 @@ cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import msm as M
+from tendermint_tpu_torch.ops import verify as V
+from tendermint_tpu_torch.ops import verify_sr as VS
 
-_build.build_all(["msm", "msm_sr"])
+reports = _build.build_all(["msm", "msm_sr", "pk_tables", "sr_tables", "verify_cached",
+                            "verify_sr_cached"])
 data = np.load(inputs)
 dev = torch.device("cuda", 0)
-res = {}
+res = {"ptxas": {name: cs.ptxas_functions(rep) for name, rep in reports.items()}, "ms": {}}
 for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
-    plane, m, verdict = key.split("__")
-    rows = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in ("a", "r", "zk", "z", "zs")]
-    fn = M.msm_verify_sr_kernel if plane == "sr25519" else M.msm_verify_kernel
-    got, ms = cs.event_ms(lambda: fn(*rows), 10)
-    if bool(got) != (verdict == "valid"):
-        raise SystemExit(f"{tree}: {key}: verdict {bool(got)}")
-    res[key] = {"ms": ms, "steps": cs.step_times(lambda: fn(*rows))}
+    what, plane, m, variant = key.split("__")
+    sr = plane == "sr25519"
+    if what == "rlc":
+        rows = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_RLC_COLS]
+        fn = M.msm_verify_sr_kernel if sr else M.msm_verify_kernel
+        got, ms = cs.event_ms(lambda: fn(*rows), 10)
+        if bool(got) != (variant == "valid"):
+            raise SystemExit(f"{tree}: {key}: verdict {bool(got)}")
+        res["ms"][key] = {"ms": ms, "steps": cs.step_times(lambda: fn(*rows))}
+    else:
+        a, *args = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_HIT_COLS[:-1]]
+        fill = VS.build_sr_tables_split if sr else V.build_pk_tables_split
+        fn = VS.verify_sr_kernel_cached_split if sr else V.verify_kernel_cached_split
+        tables, oks = fill(a, int(variant[1:]))
+        got, ms = cs.event_ms(lambda: fn(tables, oks, *args), 10)
+        if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
+            raise SystemExit(f"{tree}: {key}: the bitmap differs from this tree's kernel's")
+        res["ms"][key] = {"ms": ms}
 with open(out, "w") as f:
     json.dump(res, f)
 '''
 AB_TIMEOUT_S = 600
+AB_RLC_COLS = ("a", "r", "zk", "z", "zs")
+AB_HIT_COLS = ("a", "slots", "r", "s", "k", "want")
+AB_HIT_SPLITS = (2, 4, 8)
 
 
-def ab_rlc(planes, chain_id, commits, bad_index, rng, parent, tmp):
-    """Kernels 4 and 8 of the parent tree (its package at `parent`) against
-    this tree's, in turns parent, new, new, parent, each turn a process of
-    its own: the 1,000- and 10,000-validator commits' rows (1,024 and
-    16,384), valid and tampered with one z_raw, both planes; mean ms of 10
-    launches by CUDA events and each step's device ms by torch.profiler.
-    Logs one line an input and returns the turns."""
+def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
+    """The A/B's inputs as named arrays: the RLC's rows of the 1,000- and
+    10,000-validator commits (1,024 and 16,384), valid and tampered with
+    one z_raw; the split hits' rows of the tampered 1,000-validator commit
+    (1,024) at S = 2, 4 and 8, and of the tampered 10,000-validator one at
+    row 15's shapes (10,240 rows and the 2,560-row shard of the bad row) at
+    S = 4, each with the keys its cache holds (slot i for key i; each turn
+    fills the tables with its tree's fill, which this change leaves as it
+    was) and the bitmap this tree's hit gives them."""
     import numpy as np
 
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.parallel import sharded_verify as SV
 
     arrays = {}
     for kind, P in planes.items():
@@ -1061,10 +1149,43 @@ def ab_rlc(planes, chain_id, commits, bad_index, rng, parent, tmp):
             for verdict, bad in (("valid", None), ("tampered", bad_index[n])):
                 (a, r, zk, z, zs, _), _ = host_prep(P, commit_jobs(commits[kind][n], chain_id, bad), n, z_raw)
                 rows = V.pad_pow2_rows([a, r, zk, z], n) + [zs]
-                for col, x in zip(("a", "r", "zk", "z", "zs"), rows):
-                    arrays[f"{kind}__{len(rows[0])}__{verdict}__{col}"] = x
+                for col, x in zip(AB_RLC_COLS, rows):
+                    arrays[f"rlc__{kind}__{len(rows[0])}__{verdict}__{col}"] = x
+        for n, splits_list in ((SIZES[1], AB_HIT_SPLITS), (SIZES[2], (DEFAULT_SPLITS,))):
+            bad = bad_index[n]
+            a, r, s, k, _ = P.prepare(*commit_jobs(commits[kind][n], chain_id, bad))
+            if n == SIZES[2]:  # row 15's shapes: 10,240 rows and the 2,560-row shard of the bad row
+                m, q = SV.shard_rows(n, 1), SV.shard_rows(n, 4)
+                a, r, s, k = SV._pad_rows([a, r, s, k], m)
+                shapes = (slice(0, m), slice(bad // q * q, (bad // q + 1) * q))
+            else:
+                a, r, s, k = V.pad_pow2_rows([a, r, s, k], n)
+                shapes = (slice(0, len(a)),)
+            (a_d,) = V._to_device([a], dev)
+            for splits in splits_list:
+                tables, oks = P.fill(a_d, splits)
+                for sl in shapes:
+                    slots = np.arange(len(a), dtype=np.int32)[sl]
+                    args = V._to_device([slots, r[sl], s[sl], k[sl]], dev)
+                    key = f"hit__{kind}__{len(slots)}__S{splits}"
+                    want = P.hit(tables, oks, *args).cpu().numpy()
+                    for col, x in zip(AB_HIT_COLS, (a, slots, r[sl], s[sl], k[sl], want)):
+                        arrays[f"{key}__{col}"] = x
+    return arrays
+
+
+def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
+    """Kernels 4 and 8 and the split hits (kernels 3 and 13, and row 15's
+    shapes) of the parent tree (its package at `parent`) against this
+    tree's, in turns parent,
+    new, new, parent, each turn a process of its own, on ab_inputs' rows:
+    mean ms of 10 launches by CUDA events, the RLC's steps by
+    torch.profiler. Logs the parent's ptxas report of the hits, one line an
+    input, and returns the turns."""
+    import numpy as np
+
     inputs = os.path.join(tmp, "ab_inputs.npz")
-    np.savez(inputs, **arrays)
+    np.savez(inputs, **ab_inputs(planes, dev, chain_id, commits, bad_index, rng))
     script = os.path.join(tmp, "ab.py")
     with open(script, "w") as f:
         f.write(AB_SCRIPT)
@@ -1078,15 +1199,24 @@ def ab_rlc(planes, chain_id, commits, bad_index, rng, parent, tmp):
                                  f"{(proc.stdout + proc.stderr)[-3000:]}")
         with open(out) as f:
             turns.append((label, json.load(f)))
-    for key in turns[0][1]:
-        ms = {label: " / ".join("%.3f" % t[key]["ms"] for lab, t in turns if lab == label)
+    for label, res in turns:
+        for name, fns in res["ptxas"].items():
+            if name in ("verify_cached", "verify_sr_cached"):
+                for fn, regs, spills in fns:
+                    log(f"ab: {label} tree {name}: {fn}: {regs} registers, {spills}")
+    for key in turns[0][1]["ms"]:
+        ms = {label: " / ".join("%.3f" % t["ms"][key]["ms"] for lab, t in turns if lab == label)
               for label in ("parent", "new")}
-        steps = {label: next(t[key]["steps"] for lab, t in turns if lab == label)
-                 for label in ("parent", "new")}
-        plane, rows, verdict = key.split("__")
-        log(f"ab: {plane} {rows} rows {verdict}, ms a call (turns 1 and 4 / 2 and 3): parent "
-            f"{ms['parent']}, new {ms['new']}; steps parent {json.dumps(steps['parent'])} "
-            f"new {json.dumps(steps['new'])}")
+        what, plane, rows, variant = key.split("__")
+        if what == "rlc":
+            steps = {label: next(t["ms"][key]["steps"] for lab, t in turns if lab == label)
+                     for label in ("parent", "new")}
+            log(f"ab: {plane} RLC {rows} rows {variant}, ms a call (turns 1 and 4 / 2 and 3): parent "
+                f"{ms['parent']}, new {ms['new']}; steps parent {json.dumps(steps['parent'])} "
+                f"new {json.dumps(steps['new'])}")
+        else:
+            log(f"ab: {plane} split hit {rows} rows {variant[0]} = {variant[1:]}, ms a call (turns 1 and "
+                f"4 / 2 and 3): parent {ms['parent']}, new {ms['new']}")
     return turns
 
 
@@ -1611,14 +1741,87 @@ def sharded_end_to_end(planes, meshes, dev, chain_id, commits, runs):
         log(f"phase 7: {kind} end to end on {n} validators, seconds a call: {json.dumps(t)}")
 
 
+# -- phase 8: the cutover autotune -------------------------------------------------
+
+# A fresh process with the cutovers unpinned and TM_TPU_AUTOTUNE unset: a
+# 4-signature batch verify (below every cutover, so the host path) starts the
+# probe on the card; the probe's thread is joined; writes what the probe
+# recorded, the cutovers and the launch counts as JSON to argv[2].
+AUTOTUNE_SCRIPT = r'''
+import importlib.util
+import json
+import os
+import sys
+
+root, out = sys.argv[1:3]
+for var in ("TM_TPU_AUTOTUNE", "TM_TPU_BATCH_CUTOVER", "TM_TPU_MSM_CUTOVER"):
+    os.environ.pop(var, None)
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location("chip_smoke_autotune", f"{root}/chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from tendermint_tpu_torch.crypto import ed25519 as ed
+from tendermint_tpu_torch.crypto import ed25519_ref as ref
+from tendermint_tpu_torch.ops import engine as E
+
+cs.reset_counts()
+priv = ref.gen_privkey(bytes(32))
+bv = ed.Ed25519BatchVerifier()
+for i in range(4):
+    msg = b"autotune-%d" % i
+    bv.add(ed.Ed25519PubKey(priv[32:]), msg, ref.sign(priv, msg))
+ok, _ = bv.verify()
+probe = E._AUTOTUNE.get("thread")
+if probe is not None:
+    probe.join(timeout=300)
+rec = {k: (repr(v) if k in ("error", "thread") else v) for k, v in E._AUTOTUNE.items()}
+with open(out, "w") as f:
+    json.dump({"ok": ok, "alive": probe is not None and probe.is_alive(), "autotune": rec,
+               "cutovers": [ed.DEVICE_BATCH_CUTOVER, ed.MSM_BATCH_CUTOVER],
+               "launches": {k: v for k, v in cs.read_counts().items() if v}}, f)
+'''
+
+
+def autotune_phase(tmp):
+    """The probe on the card in a fresh process: it must start, end, record
+    no exception, set the cutovers to the reference's formula from its two
+    timings, and launch the 8-signature bitmap exactly 4 times (one warm-up,
+    three timed); the batch itself stays on the host."""
+    script, out = os.path.join(tmp, "autotune.py"), os.path.join(tmp, "autotune.json")
+    with open(script, "w") as f:
+        f.write(AUTOTUNE_SCRIPT)
+    proc = subprocess.run([sys.executable, script, ROOT, out], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 8 failed (rc {proc.returncode}):\n{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    rec = res["autotune"]
+    if "error" in rec or res["alive"] or "thread" not in rec or not res["ok"]:
+        raise AssertionError(f"phase 8: the probe did not run to its end cleanly: {json.dumps(res)}")
+    cutover = 8
+    while cutover * rec["t_host"] < rec["t_launch"] and cutover < 4096:
+        cutover *= 2
+    want = [cutover, max(64, min(4 * cutover, 8192))]
+    got = [rec["device_batch_cutover"], rec["msm_batch_cutover"]]
+    if got != want or res["cutovers"] != want:
+        raise AssertionError(f"phase 8: cutovers {got} (module {res['cutovers']}), the formula gives {want}")
+    if res["launches"] != {"verify_kernel": 4}:
+        raise AssertionError(f"phase 8: launched {res['launches']}, expected {{'verify_kernel': 4}}")
+    log(f"phase 8: autotune probe: t_host {rec['t_host'] * 1e3:.4f} ms a host verify, t_launch "
+        f"{rec['t_launch'] * 1e3:.4f} ms an 8-signature bitmap call -> DEVICE_BATCH_CUTOVER {got[0]}, "
+        f"MSM_BATCH_CUTOVER {got[1]} (the formula's); launches {json.dumps(res['launches'])}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding the kernels against their plain versions")
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="after phase 4, time the RLC kernels of the tree unpacked at DIR against "
-                         "this tree's, in turns")
+                    help="after phase 4, time the RLC kernels and the split cache hits of the tree "
+                         "unpacked at DIR against this tree's, in turns")
     args = ap.parse_args()
 
     import torch
@@ -1626,6 +1829,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the exact-launch phases run with the cutovers fixed: the autotune's
+    # probe launches from a thread at an unknown time (phase 8 runs it)
+    os.environ["TM_TPU_AUTOTUNE"] = "off"
     sys.path.insert(0, ROOT)
     try:
         from tendermint_tpu_torch.ops import _build
@@ -1686,7 +1892,7 @@ def main() -> int:
     if args.ab_parent:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            ab_rlc(planes, chain_id, commits, bad_index, rng, os.path.abspath(args.ab_parent), tmp)
+            ab_parent(planes, dev, chain_id, commits, bad_index, rng, os.path.abspath(args.ab_parent), tmp)
         log(f"phase 4: the A/B against {args.ab_parent} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += geometry_path(planes, dev, chain_id, commits, bad_index, errs, int32_rate, runs)
@@ -1702,6 +1908,10 @@ def main() -> int:
     kernels += kernels_at_sharded_shapes(planes, dev, rng, chain_id, commits, bad_index, counts, int32_rate)
     sharded_end_to_end(planes, meshes, dev, chain_id, commits, runs)
     log(f"phase 7: the sharded path in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        autotune_phase(tmp)
+    log(f"phase 8: the autotune in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(r[k], 4) for k in ("challenges_s", "prepare_batch_s", "rlc_scalars_s",
                                                "uncached_s", "fill_s", "single_s", "mesh4_s") if k in r}

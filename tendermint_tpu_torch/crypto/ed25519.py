@@ -116,11 +116,13 @@ def _pk_cache_enabled() -> bool:
 
 # Below this many signatures a device launch costs more than it saves;
 # the batch is then verified serially on the host (routing by size, not a
-# fallback on failure).
+# fallback on failure). The environment pins it; otherwise it is a default
+# that ops/engine.maybe_autotune refines on the card.
 DEVICE_BATCH_CUTOVER = int(os.environ.get("TM_TPU_BATCH_CUTOVER", "64"))
 
 # At or above this batch size the RLC kernel (ops/msm.py) runs first and
 # the bitmap plane only on failure (types/validation.go:245-255 shape).
+# Autotuned like DEVICE_BATCH_CUTOVER.
 MSM_BATCH_CUTOVER = int(os.environ.get("TM_TPU_MSM_CUTOVER", "256"))
 
 
@@ -225,6 +227,11 @@ def dispatch_batch(pks, msgs, sigs, device, bitmap, rlc_async, host_verify):
     if n == 0:
         return lambda: (False, [])
     _engine_setting()
+    # the cutovers below deserve the one-shot launch-latency probe (a no-op
+    # after the first call, and without a card)
+    from ..ops import engine
+
+    engine.maybe_autotune()
     if _use_device() and n >= DEVICE_BATCH_CUTOVER:
         device = bitmap.resolve_device(device)
 

@@ -128,3 +128,18 @@ __device__ __forceinline__ void ristretto_encode(uint8_t out[32], const ge &p) {
   fe_abs(t, t);
   fe_tobytes(out, t);
 }
+
+// Equality of two ristretto255 elements given by Edwards representatives
+// in 2E (RFC 9496 section 4.5): X1 Y2 == Y1 X2 or Y1 Y2 == X1 X2, 4
+// products, projective and blind to T.
+__device__ __forceinline__ bool ristretto_equal(const ge &p, const ge &q) {
+  fe l, r, t;
+  fe_mul(l, p.X, q.Y);
+  fe_mul(r, p.Y, q.X);
+  fe_sub(t, l, r);
+  const bool xy = fe_iszero(t);
+  fe_mul(l, p.Y, q.Y);
+  fe_mul(r, p.X, q.X);
+  fe_sub(t, l, r);
+  return xy || fe_iszero(t);
+}

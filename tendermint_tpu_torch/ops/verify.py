@@ -59,12 +59,16 @@ SPLITS = (1, 2, 4, 8)
 
 
 def pk_splits() -> int:
-    """TM_TPU_PK_SPLIT, read as the reference reads it (at each cache
-    lookup here, at import there)."""
+    """TM_TPU_PK_SPLIT, checked as the reference checks it. The module
+    calls this once at import, so an invalid split fails there, as the
+    reference's import does; each cache lookup reads it again."""
     splits = int(os.environ.get("TM_TPU_PK_SPLIT", str(PK_SPLITS)))
     if splits not in SPLITS:
         raise ValueError(f"TM_TPU_PK_SPLIT must be 1, 2, 4 or 8, got {splits}")
     return splits
+
+
+pk_splits()
 
 
 def cache_entry_shape(splits: int) -> tuple:

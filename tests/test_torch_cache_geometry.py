@@ -11,6 +11,10 @@ each case sets it with monkeypatch and traces the _impl body under a fresh
 jax.jit of a new function, so no program traced at the default S = 4 is
 reused."""
 
+import os
+import subprocess
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -228,3 +232,23 @@ def test_sr25519_verify_commit_through_each_split(monkeypatch, splits):
     assert got == want and got[1].startswith("wrong signature (#3): ")
     cache = VS.sr_pubkey_cache("cpu")
     assert V.table_splits(cache.tables) == splits and len(cache._lru) == 8
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("package", ["tendermint_tpu_torch", "tendermint_tpu"])
+def test_invalid_split_fails_at_import(package):
+    """TM_TPU_PK_SPLIT=3 makes importing ops/verify.py raise the same
+    ValueError in the port as in the reference; a valid split imports."""
+    env = dict(os.environ, TM_TPU_PK_SPLIT="3", JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
+    code = f"import {package}.ops.verify"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=180)
+    assert proc.returncode == 1
+    assert proc.stderr.strip().splitlines()[-1] == (
+        "ValueError: TM_TPU_PK_SPLIT must be 1, 2, 4 or 8, got 3")
+    env["TM_TPU_PK_SPLIT"] = "2"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -29,8 +29,8 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import tendermint_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "ops.ristretto",
-             "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost"):
+for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "ops.engine",
+             "ops.ristretto", "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
