@@ -13,8 +13,10 @@ Both signature planes run the same phases, each fatal on failure:
      and non-canonical R, R plus a point of order 8), the RFC 9496 bad
      encodings, a missing marker bit, s >= L, an honest R made
      non-canonical, negated or random, and a zero row for sr25519; the
-     cache hits also with a tampered k, slots past the end and a slot
-     whose oks is false;
+     cache hits also with a tampered k, a slot whose oks is false, slots
+     counted from the end (slot - C) and the edge slots -1, -5, -C,
+     -C - 1, INT32_MIN, C, C + 3, INT32_MAX, the plain version handed the
+     same raw slots (both wrap, then clamp, as the reference's gather);
      and the bitmap against the plane's pure-Python oracle; the cache fill
      and hit at every pubkey-cache split (TM_TPU_PK_SPLIT 4, 1, 2, 8), and
      the cached RLC at S = 2, 4, 8; fail_count (the sharded path's fail
@@ -31,13 +33,16 @@ Both signature planes run the same phases, each fatal on failure:
      tampered row alone invalid; the same calls timed with CUDA events
      beside the plain version, the bound and the launches, the RLC's
      device time by step (tables, windows, reduce, tail: torch.profiler
-     by kernel name), the host prep of the 10,000-validator commits, and
-     the end-to-end verify_commit wall times; with --ab-parent DIR (a
-     git archive of another commit, unpacked inside the repo), the RLC
-     kernels and the split cache hits (1,024 rows at S = 2, 4, 8, and row
-     15's 10,240 and 2,560 rows at S = 4) of that tree against this one's
-     on the same rows, in turns parent, new, new, parent, each a process
-     of its own ("ab:" lines);
+     by kernel name) and the ed25519 bitmap's (tables, ladder), the host
+     prep of the 10,000-validator commits, and the end-to-end
+     verify_commit wall times; with --ab-parent DIR (a git archive of
+     another commit, unpacked inside the repo), the RLC kernels, the
+     uncached bitmaps (8, 2,560, 10,240 and 16,384 rows), the split fills
+     (1,024 keys at S = 2, 4, 8 and 10,240 at S = 4; their tables must
+     hash the same in every turn) and the split cache hits (1,024 rows at
+     S = 2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 4) of that
+     tree against this one's on the same rows, in turns parent, new, new,
+     parent, each a process of its own ("ab:" lines);
   5. the other cache geometries, S = 1, 2 and 8, each through a new cache
      of that split: verify_commit on the 150-validator commit and on the
      tampered 1,000-validator one, exact launches (the single-table
@@ -580,7 +585,8 @@ def check_kernels(rng, dev, P):
         _, _, rows = hit_edges(hit, hit_plain, oracle, cache_t, cache_o, slots, r_d, s_d, k_d)
         errs[name] = 0
         log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms); == plain with a "
-            f"tampered k, slots {len(cache_t) + 3} and 2^31 - 1 clamped, and oks false, at valid rows {rows}")
+            f"tampered k, oks false and slots - C wrapped at valid rows {rows}, and slots "
+            f"{edge_slots(len(cache_t))}")
         caches[splits] = cache_t, cache_o, slots
 
     name = P.rlc.__name__
@@ -605,30 +611,45 @@ def check_kernels(rng, dev, P):
     return errs
 
 
+# Slots no real path hands out, held as the reference's jnp gather maps
+# them (a negative slot counts from the end, then the index clamps):
+# -1, -5, -C, -C - 1, INT32_MIN, C, C + 3 and INT32_MAX.
+def edge_slots(cap: int):
+    return [-1, -5, -cap, -cap - 1, -2**31, cap, cap + 3, 2**31 - 1]
+
+
 def hit_edges(hit, hit_plain, oracle, cache_t, cache_o, slots, r, s, k):
-    """A cache hit on the cache's own edges, each at one valid row: a
-    tampered k, two slots past the end (the kernel clamps them to the last
-    slot, as the reference's gather does; the plain version is handed them
-    clamped), and a slot whose oks is false. The kernel must equal the plain
-    version and reject the tampered and the oks-false rows."""
+    """A cache hit on the cache's own edges: a tampered k and a slot whose
+    oks is false, each at a valid row; four valid rows whose slots are
+    given counted from the end (slot - C, which must wrap back to the
+    key's own entry and stay valid); and the edge_slots at other rows. The
+    plain version gets the same raw slots. The kernel must equal it,
+    reject the tampered and the oks-false rows and accept the wrapped
+    ones."""
     import torch
 
-    ka, sb, sc, od = [i for i in range(len(oracle)) if oracle[i]][:4]
+    valid = [i for i in range(len(oracle)) if oracle[i]]
+    ka, od, *wrapped = valid[:6]
     cap = len(cache_t)
+    edges = [i for i in range(len(oracle)) if i not in valid[:6]][:len(edge_slots(cap))]
     k_x = k.clone()
     k_x[ka, 3] ^= 0x20
     slots_x = slots.clone()
-    slots_x[sb], slots_x[sc] = cap + 3, 2**31 - 1
+    for i in wrapped:
+        slots_x[i] -= cap
+    for i, v in zip(edges, edge_slots(cap)):
+        slots_x[i] = v
     oks_x = cache_o.clone()
     oks_x[slots[od].long()] = False
     got = hit(cache_t, oks_x, slots_x, r, s, k_x)
-    want = hit_plain(cache_t, oks_x, slots_x.clamp(0, cap - 1), r, s, k_x)
+    want = hit_plain(cache_t, oks_x, slots_x, r, s, k_x)
     torch.cuda.synchronize()
-    if not torch.equal(got, want) or bool(got[ka]) or bool(got[od]):
-        raise AssertionError(f"{hit.__name__} on the cache edges (tampered k #{ka}, slots out of "
-                             f"range #{sb} #{sc}, oks false #{od}): kernel {got.tolist()} "
+    if (not torch.equal(got, want) or bool(got[ka]) or bool(got[od])
+            or not all(bool(got[i]) for i in wrapped)):
+        raise AssertionError(f"{hit.__name__} on the cache edges (tampered k #{ka}, oks false #{od}, "
+                             f"slots - C at {wrapped}, edge slots at {edges}): kernel {got.tolist()} "
                              f"plain {want.tolist()}")
-    return got, want, (ka, sb, sc, od)
+    return got, want, (ka, od, *wrapped)
 
 
 def check_rlc_cached(rng, dev, P, caches, pks, msgs, sigs, oracle, pre, errs):
@@ -869,12 +890,14 @@ def plain_ms(fn, warm: bool = True):
 # The launches of kernels 4 and 8 by kernel name (the earlier, three-launch
 # design has no reduce).
 RLC_STEPS = ("msm_tables", "msm_windows", "msm_reduce", "msm_tail")
+# The launches of kernel 1: the decode step, then the four-lane ladder.
+BITMAP_STEPS = ("verify_tables", "verify_ladder")
 
 
-def step_times(fn, reps: int = 5):
-    """Device ms a call of each RLC step, by kernel name, from
-    torch.profiler over reps calls after one warm-up call; {} when the
-    profiler reports no device time."""
+def step_times(fn, reps: int = 5, names=RLC_STEPS):
+    """Device ms a call of each step (the RLC's by default), by kernel
+    name, from torch.profiler over reps calls after one warm-up call; {}
+    when the profiler reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -888,7 +911,7 @@ def step_times(fn, reps: int = 5):
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
         name = evt.key.split("(")[0]
-        for step in RLC_STEPS:
+        for step in names:
             if us and re.search(rf"\b{step}\b", name):
                 steps[step] = steps.get(step, 0.0) + us / 1e3 / reps
     return steps
@@ -1030,6 +1053,9 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
     m = len(rows[0])
     records.append(make_record(P.bitmap, None, m, ms, p_ms, errs[P.bitmap.__name__], P.ops_bitmap(m),
                                129 * m, counts[P.bitmap.__name__], int32_rate))
+    if P.kind == "ed25519":
+        log(f"phase 4: {P.bitmap.__name__} steps at {m} rows, device ms a call: "
+            f"{json.dumps(step_times(lambda: P.bitmap(*rows), names=BITMAP_STEPS)) or 'not measured'}")
 
     # the cache fill and the cache hit at the default split: the tampered
     # 1,000-validator commit (1024 rows)
@@ -1077,6 +1103,7 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
 # root); each verdict and bitmap checked; the times, and the ptxas reports
 # of the libraries the turn built, written as JSON to argv[4].
 AB_SCRIPT = r'''
+import hashlib
 import importlib.util
 import json
 import sys
@@ -1095,7 +1122,7 @@ from tendermint_tpu_torch.ops import verify as V
 from tendermint_tpu_torch.ops import verify_sr as VS
 
 reports = _build.build_all(["msm", "msm_sr", "pk_tables", "sr_tables", "verify_cached",
-                            "verify_sr_cached"])
+                            "verify_sr_cached", "verify", "verify_sr"])
 data = np.load(inputs)
 dev = torch.device("cuda", 0)
 res = {"ptxas": {name: cs.ptxas_functions(rep) for name, rep in reports.items()}, "ms": {}}
@@ -1109,15 +1136,23 @@ for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
         if bool(got) != (variant == "valid"):
             raise SystemExit(f"{tree}: {key}: verdict {bool(got)}")
         res["ms"][key] = {"ms": ms, "steps": cs.step_times(lambda: fn(*rows))}
+    elif what == "bitmap":
+        rows = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_BITMAP_COLS[:-1]]
+        fn = VS.verify_sr_kernel if sr else V.verify_kernel
+        got, ms = cs.event_ms(lambda: fn(*rows), 10)
+        if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
+            raise SystemExit(f"{tree}: {key}: the bitmap differs from this tree's kernel's")
+        res["ms"][key] = {"ms": ms}
     else:
         a, *args = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_HIT_COLS[:-1]]
         fill = VS.build_sr_tables_split if sr else V.build_pk_tables_split
         fn = VS.verify_sr_kernel_cached_split if sr else V.verify_kernel_cached_split
-        tables, oks = fill(a, int(variant[1:]))
+        (tables, oks), fill_ms = cs.event_ms(lambda: fill(a, int(variant[1:])), 10)
         got, ms = cs.event_ms(lambda: fn(tables, oks, *args), 10)
         if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
             raise SystemExit(f"{tree}: {key}: the bitmap differs from this tree's kernel's")
-        res["ms"][key] = {"ms": ms}
+        digest = hashlib.sha256(tables.cpu().numpy().tobytes() + oks.cpu().numpy().tobytes()).hexdigest()
+        res["ms"][key] = {"ms": ms, "fill_ms": fill_ms, "fill_sha256": digest}
 with open(out, "w") as f:
     json.dump(res, f)
 '''
@@ -1125,6 +1160,7 @@ AB_TIMEOUT_S = 600
 AB_RLC_COLS = ("a", "r", "zk", "z", "zs")
 AB_HIT_COLS = ("a", "slots", "r", "s", "k", "want")
 AB_HIT_SPLITS = (2, 4, 8)
+AB_BITMAP_COLS = ("a", "r", "s", "k", "want")
 
 
 def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
@@ -1133,9 +1169,14 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
     one z_raw; the split hits' rows of the tampered 1,000-validator commit
     (1,024) at S = 2, 4 and 8, and of the tampered 10,000-validator one at
     row 15's shapes (10,240 rows and the 2,560-row shard of the bad row) at
-    S = 4, each with the keys its cache holds (slot i for key i; each turn
-    fills the tables with its tree's fill, which this change leaves as it
-    was) and the bitmap this tree's hit gives them."""
+    S = 4, each with the keys its cache holds (slot i for key i) and the
+    bitmap this tree's hit gives them; each turn fills the tables with its
+    tree's fill, timed (the split fills, rows 2 and 12, at 1,024 keys and S
+    = 2, 4, 8 and at 10,240 keys and S = 4) and hashed, for the two trees'
+    fills must write the same bytes; and the uncached bitmaps'
+    rows (rows 1 and 9) of the tampered 10,000-validator commit at 16,384
+    (verify_commit's), 10,240 and 2,560 (row 14's) and 8 rows (the
+    autotune's size), with this tree's bitmap."""
     import numpy as np
 
     from tendermint_tpu_torch.ops import msm as M
@@ -1151,6 +1192,17 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
                 rows = V.pad_pow2_rows([a, r, zk, z], n) + [zs]
                 for col, x in zip(AB_RLC_COLS, rows):
                     arrays[f"rlc__{kind}__{len(rows[0])}__{verdict}__{col}"] = x
+        n = SIZES[2]
+        bad = bad_index[n]
+        a, r, s, k, _ = P.prepare(*commit_jobs(commits[kind][n], chain_id, bad))
+        m, q = SV.shard_rows(n, 1), SV.shard_rows(n, 4)
+        shard = SV._pad_rows([a, r, s, k], m)
+        for rows in (V.pad_pow2_rows([a, r, s, k], n), shard,
+                     [x[bad // q * q:(bad // q + 1) * q] for x in shard], [x[:8] for x in shard]):
+            rows = [np.ascontiguousarray(x) for x in rows]
+            want = P.bitmap(*V._to_device(rows, dev)).cpu().numpy()
+            for col, x in zip(AB_BITMAP_COLS, rows + [want]):
+                arrays[f"bitmap__{kind}__{len(rows[0])}__rows__{col}"] = x
         for n, splits_list in ((SIZES[1], AB_HIT_SPLITS), (SIZES[2], (DEFAULT_SPLITS,))):
             bad = bad_index[n]
             a, r, s, k, _ = P.prepare(*commit_jobs(commits[kind][n], chain_id, bad))
@@ -1175,13 +1227,15 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
 
 
 def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
-    """Kernels 4 and 8 and the split hits (kernels 3 and 13, and row 15's
+    """Kernels 4 and 8, the uncached bitmaps (kernels 1 and 9, and row 14's
+    shapes), the split fills (kernels 2 and 12, whose tables must hash the
+    same in every turn) and the split hits (kernels 3 and 13, and row 15's
     shapes) of the parent tree (its package at `parent`) against this
     tree's, in turns parent,
     new, new, parent, each turn a process of its own, on ab_inputs' rows:
     mean ms of 10 launches by CUDA events, the RLC's steps by
-    torch.profiler. Logs the parent's ptxas report of the hits, one line an
-    input, and returns the turns."""
+    torch.profiler. Logs each tree's ptxas report of the bitmap, the sr25519
+    fill and the hits, one line an input, and returns the turns."""
     import numpy as np
 
     inputs = os.path.join(tmp, "ab_inputs.npz")
@@ -1201,9 +1255,10 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
             turns.append((label, json.load(f)))
     for label, res in turns:
         for name, fns in res["ptxas"].items():
-            if name in ("verify_cached", "verify_sr_cached"):
+            if name in ("verify_cached", "verify_sr_cached", "verify", "sr_tables"):
                 for fn, regs, spills in fns:
                     log(f"ab: {label} tree {name}: {fn}: {regs} registers, {spills}")
+    data = np.load(inputs)
     for key in turns[0][1]["ms"]:
         ms = {label: " / ".join("%.3f" % t["ms"][key]["ms"] for lab, t in turns if lab == label)
               for label in ("parent", "new")}
@@ -1214,9 +1269,21 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
             log(f"ab: {plane} RLC {rows} rows {variant}, ms a call (turns 1 and 4 / 2 and 3): parent "
                 f"{ms['parent']}, new {ms['new']}; steps parent {json.dumps(steps['parent'])} "
                 f"new {json.dumps(steps['new'])}")
+        elif what == "bitmap":
+            log(f"ab: {plane} uncached bitmap {rows} rows, ms a call (turns 1 and 4 / 2 and 3): parent "
+                f"{ms['parent']}, new {ms['new']}")
         else:
             log(f"ab: {plane} split hit {rows} rows {variant[0]} = {variant[1:]}, ms a call (turns 1 and "
                 f"4 / 2 and 3): parent {ms['parent']}, new {ms['new']}")
+            digests = {t["ms"][key]["fill_sha256"] for _, t in turns}
+            if len(digests) != 1:
+                raise AssertionError(f"ab: {plane} fill for {key}: the trees' tables differ ({digests})")
+            if len(data[f"{key}__a"]) == int(rows):
+                fill_ms = {label: " / ".join("%.3f" % t["ms"][key]["fill_ms"] for lab, t in turns
+                                             if lab == label) for label in ("parent", "new")}
+                log(f"ab: {plane} split fill {rows} keys {variant[0]} = {variant[1:]}, ms a call (turns "
+                    f"1 and 4 / 2 and 3): parent {fill_ms['parent']}, new {fill_ms['new']}; tables and "
+                    f"decode bits byte-identical in all four turns")
     return turns
 
 
@@ -1820,8 +1887,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding the kernels against their plain versions")
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="after phase 4, time the RLC kernels and the split cache hits of the tree "
-                         "unpacked at DIR against this tree's, in turns")
+                    help="after phase 4, time the RLC kernels, the uncached bitmaps, the split fills "
+                         "and the split cache hits of the tree unpacked at DIR against this tree's, "
+                         "in turns")
     args = ap.parse_args()
 
     import torch

@@ -1,10 +1,11 @@
 // The per-row ladders and the cache-table writer shared by the bitmap
-// kernels of both signature planes: ed25519 (verify.cu, verify_cached.cu,
-// pk_tables.cu and the single-table pk_tables_single.cu,
-// verify_cached_single.cu) and sr25519 (verify_sr.cu, verify_sr_cached.cu,
-// sr_tables.cu, sr_tables_single.cu, verify_sr_cached_single.cu). The
-// planes differ only in how points are decoded and compared (ge25519.cuh,
-// ristretto.cuh).
+// kernels of both signature planes: ed25519 (verify_cached.cu, pk_tables.cu
+// and the single-table pk_tables_single.cu, verify_cached_single.cu) and
+// sr25519 (verify_sr.cu, verify_sr_cached.cu, sr_tables_single.cu,
+// verify_sr_cached_single.cu). The planes differ only in how points are
+// decoded and compared (ge25519.cuh, ristretto.cuh). The uncached ed25519
+// bitmap (verify.cu) and the sr25519 split fill (sr_tables.cu) run four
+// lanes a point instead (coop.cuh) and take only the helpers below.
 #pragma once
 #include "ge25519.cuh"
 
@@ -211,4 +212,14 @@ __device__ __forceinline__ void write_power_tables(int16_t *dst, ge p, int split
 // The cache geometries of the reference (TM_TPU_PK_SPLIT).
 __host__ __device__ __forceinline__ bool valid_splits(int splits) {
   return splits == 1 || splits == 2 || splits == 4 || splits == 8;
+}
+
+// The cache entry a slot reads, as the reference's `tables[slots]` under
+// jnp indexing maps it: a negative slot counts from the end (slot + C),
+// then the index clamps into [0, C - 1], so -5 reads C - 5, -C - 1 and
+// INT32_MIN read 0, C and INT32_MAX read C - 1. raw + C is formed only
+// for -C <= raw < 0, so nothing overflows.
+__device__ __forceinline__ int cache_slot(int raw, int capacity) {
+  if (raw < 0) return raw < -capacity ? 0 : raw + capacity;
+  return raw < capacity ? raw : capacity - 1;
 }

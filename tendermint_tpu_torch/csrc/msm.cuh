@@ -23,7 +23,8 @@
 //      operation spread over the four lanes, lane i holding coordinate i
 //      (X, Y, Z, T): dbl-2008-hwcd in two rounds (4 squarings, then 4
 //      products), add-2008-hwcd-3 in three (4 products, the 2d product,
-//      4 products), limbs exchanged by __shfl_sync. Warp 1 meanwhile sums
+//      4 products), limbs exchanged by __shfl_sync (coop.cuh, mask 0xF:
+//      the rest of warp 0 waits). Warp 1 meanwhile sums
 //      the 64 comb entries of [zs]B as a tree across its lanes, and the
 //      other warps AND the decode bits of every row, padding rows included.
 //      At the join the four lanes add [zs]B and decide: ed25519 clears the
@@ -58,6 +59,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "coop.cuh"
 #include "ladder.cuh"
 #include "ristretto.cuh"
 
@@ -71,19 +73,10 @@ constexpr int MSM_SLOT = 44;
 constexpr int MSM_RED_THREADS = 64;
 constexpr int MSM_TAIL_THREADS = 128;
 constexpr int MSM_MAX_WINDOWS = 64;
+// The tail's Horner quad: lanes 0-3 of warp 0, alone in their warp.
+constexpr unsigned TAIL_QUAD = 0xFu;
 
-// One point as a contiguous row of 40 int32 (X, Y, Z, T, ten limbs each),
-// moved as ten 16-byte words; the row must be 16-byte aligned.
-__device__ __forceinline__ void ge_store_row(int32_t *dst, const ge &p) {
-  const fe *c[4] = {&p.X, &p.Y, &p.Z, &p.T};
-  int4 *d = reinterpret_cast<int4 *>(dst);
-#pragma unroll
-  for (int j = 0; j < 10; j++)
-    d[j] = make_int4(c[(4 * j) / 10]->v[(4 * j) % 10], c[(4 * j + 1) / 10]->v[(4 * j + 1) % 10],
-                     c[(4 * j + 2) / 10]->v[(4 * j + 2) % 10],
-                     c[(4 * j + 3) / 10]->v[(4 * j + 3) % 10]);
-}
-
+// A point stored as a row (coop.cuh ge_store_row's layout).
 __device__ __forceinline__ void ge_load_row(ge &p, const int32_t *src) {
   fe *c[4] = {&p.X, &p.Y, &p.Z, &p.T};
   const int4 *s = reinterpret_cast<const int4 *>(src);
@@ -225,85 +218,6 @@ __global__ void __launch_bounds__(MSM_RED_THREADS)
   if (t == 0) ge_store(ws + w, 0, wn, acc);
 }
 
-// -- four cooperating lanes: lane q of the group holds coordinate q of a
-// point (X, Y, Z, T). Only lanes 0-3 of a warp call these.
-
-__device__ __forceinline__ void fe_shfl(fe &r, const fe &v, int src) {
-#pragma unroll
-  for (int l = 0; l < 10; l++) r.v[l] = __shfl_sync(0xF, v.v[l], src, 4);
-}
-
-// r = the argument numbered q.
-__device__ __forceinline__ void fe_pick(fe &r, int q, const fe &a0, const fe &a1, const fe &a2,
-                                        const fe &a3) {
-#pragma unroll
-  for (int l = 0; l < 10; l++)
-    r.v[l] = q == 0 ? a0.v[l] : q == 1 ? a1.v[l] : q == 2 ? a2.v[l] : a3.v[l];
-}
-
-// Coordinate `coord` of a point stored strided (ge_store's layout).
-__device__ __forceinline__ void fe_load_coord(fe &r, const int32_t *base, int coord, int stride) {
-#pragma unroll
-  for (int l = 0; l < 10; l++) r.v[l] = base[(coord * 10 + l) * stride];
-}
-
-// mine = coordinate q of 2P, ge_dbl's formula (T included) in two rounds.
-__device__ __forceinline__ void coop_dbl(fe &mine, int q) {
-  fe x, y, u, s, a, b, c, d, e, f, g, h;
-  fe_shfl(x, mine, 0);
-  fe_shfl(y, mine, 1);
-  fe_add(h, x, y);
-  fe_pick(u, q, x, y, mine, h);
-  fe_sq(s, u);  // X^2, Y^2, Z^2, (X+Y)^2
-  fe_add(c, s, s);
-  fe_carry(c, c);
-  fe_pick(s, q, s, s, c, s);  // lane 2: C = 2 Z^2, carried
-  fe_shfl(a, s, 0);
-  fe_shfl(b, s, 1);
-  fe_shfl(c, s, 2);
-  fe_shfl(d, s, 3);
-  fe_sub(e, d, a);
-  fe_sub(e, e, b);
-  fe_sub(g, b, a);
-  fe_sub(f, g, c);
-  fe_add(h, a, b);
-  fe_neg(h, h);
-  fe_pick(u, q, e, g, f, e);
-  fe_pick(x, q, f, h, g, h);
-  fe_mul(mine, u, x);  // X3 = EF, Y3 = GH, Z3 = FG, T3 = EH
-}
-
-// mine = coordinate q of P + Q, Q a point with T stored strided at qp:
-// ge_add's formula in three rounds.
-__device__ __forceinline__ void coop_add(fe &mine, const int32_t *qp, int stride, int q) {
-  fe partner, qx, qy, qw, f1, f2, r, a, b, c, d, e, f, g, h;
-  fe_shfl(partner, mine, q ^ 1);  // lanes 0/1 swap X, Y; lanes 2/3 swap Z, T
-  fe_load_coord(qx, qp, 0, stride);
-  fe_load_coord(qy, qp, 1, stride);
-  fe_load_coord(qw, qp, q == 2 ? 3 : 2, stride);
-  fe_sub(a, partner, mine);  // lane 0: Y1 - X1
-  fe_add(b, mine, partner);  // lane 1: Y1 + X1
-  fe_pick(f1, q, a, b, partner, partner);
-  fe_sub(a, qy, qx);
-  fe_add(b, qy, qx);
-  fe_pick(f2, q, a, b, qw, qw);
-  fe_mul(r, f1, f2);  // A, B, T1 T2, Z1 Z2
-  if (q == 2) fe_mul_c(r, r, FE_D2);
-  fe_add(d, r, r);
-  fe_pick(r, q, r, r, r, d);  // C = 2d T1 T2, D = 2 Z1 Z2
-  fe_shfl(a, r, 0);
-  fe_shfl(b, r, 1);
-  fe_shfl(c, r, 2);
-  fe_shfl(d, r, 3);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_pick(f1, q, e, g, f, e);
-  fe_pick(f2, q, f, h, g, h);
-  fe_mul(mine, f1, f2);  // X3 = EF, Y3 = GH, Z3 = FG, T3 = EH
-}
-
 // The tail over wn <= 64 window sums (ws, strided by wn); oks holds m
 // decode bits. One block of MSM_TAIL_THREADS: warp 0 lanes 0-3 Horner,
 // warp 1 the comb, the rest the decode bits.
@@ -324,8 +238,8 @@ __global__ void __launch_bounds__(MSM_TAIL_THREADS, 1)
 #pragma unroll 1
       for (int w = wn - 2; w >= 0; w--) {
 #pragma unroll 1
-        for (int i = 0; i < 4; i++) coop_dbl(mine, q);
-        coop_add(mine, sh_w + w, wn, q);
+        for (int i = 0; i < 4; i++) coop_dbl(mine, q, TAIL_QUAD);
+        coop_add(mine, sh_w + w, wn, q, TAIL_QUAD);
       }
     }
   } else if (warp == 1) {
@@ -357,13 +271,13 @@ __global__ void __launch_bounds__(MSM_TAIL_THREADS, 1)
   ok = __syncthreads_and(ok);
   if (warp != 0 || lane >= 4) return;
   bool zero;
-  coop_add(mine, sh_b, 1, q);
+  coop_add(mine, sh_b, 1, q, TAIL_QUAD);
   if constexpr (SR) {
     ge s;  // lane 0 gathers the sum, T included: the encoder reads it
     fe_copy(s.X, mine);
-    fe_shfl(s.Y, mine, 1);
-    fe_shfl(s.Z, mine, 2);
-    fe_shfl(s.T, mine, 3);
+    fe_shfl(s.Y, mine, 1, TAIL_QUAD);
+    fe_shfl(s.Z, mine, 2, TAIL_QUAD);
+    fe_shfl(s.T, mine, 3, TAIL_QUAD);
     if (lane != 0) return;
     uint8_t enc[32];
     ristretto_encode(enc, s);
@@ -373,11 +287,11 @@ __global__ void __launch_bounds__(MSM_TAIL_THREADS, 1)
     zero = any == 0;
   } else {
 #pragma unroll 1
-    for (int i = 0; i < 3; i++) coop_dbl(mine, q);
+    for (int i = 0; i < 3; i++) coop_dbl(mine, q, TAIL_QUAD);
     ge s;  // lane 0 gathers X, Y, Z
     fe_copy(s.X, mine);
-    fe_shfl(s.Y, mine, 1);
-    fe_shfl(s.Z, mine, 2);
+    fe_shfl(s.Y, mine, 1, TAIL_QUAD);
+    fe_shfl(s.Z, mine, 2, TAIL_QUAD);
     if (lane != 0) return;
     zero = ge_is_identity(s);
   }
@@ -435,8 +349,8 @@ __global__ void msm_cached_tables(const uint8_t *r_enc, const int32_t *slots,
   if (i >= n) return;
   ge p;
   const bool r_ok = ge_decompress(p, r_enc + 32 * i);
-  // an out-of-range slot clamps, as the reference's XLA gather does
-  const int slot = min(max(slots[i], 0), capacity - 1);
+  // a slot wraps from the end, then clamps, as the reference's jnp gather does
+  const int slot = cache_slot(slots[i], capacity);
   oks[i] = (r_ok && cache_oks[slot]) ? 1 : 0;
   ge_neg(p, p);
   ge_build_table(tabs + i, n, p);
@@ -458,7 +372,7 @@ __global__ void msm_cached_windows(const uint8_t *zk_bytes, const uint8_t *z_byt
       ge_add(acc, acc, e, true);
     }
     if (w < per) {
-      const int slot = min(max(slots[row], 0), capacity - 1);
+      const int slot = cache_slot(slots[row], capacity);
       const int16_t *entry = tables + (size_t)slot * splits * 16 * 128;
       const uint8_t *zk = zk_bytes + 32 * row;
 #pragma unroll 1

@@ -23,8 +23,9 @@
 //
 // Design: one thread per key; each table entry is canonicalized and
 // written as it is produced, so nothing but the running point stays live
-// (write_power_tables in ladder.cuh, shared with the sr25519 fill and the
-// single-table fills, which are this kernel at S = 1).
+// (write_power_tables in ladder.cuh, shared with the single-table fills,
+// which are this kernel at S = 1; the sr25519 split fill runs four lanes a
+// key instead, coop.cuh).
 #include <cuda_runtime.h>
 
 #include "ladder.cuh"

@@ -13,40 +13,127 @@
 // this design issues 100 wide multiplies per product and per square.
 // Memory traffic is 128 bytes in and 1 byte out.
 //
-// Design: one thread per signature with the ten-limb radix-2^25.5 field
-// (fe25519.cuh). The 16-multiples table of -A lives in scratch that the
-// wrapper allocates (strided so a warp's loads coalesce); the table of B
-// is read from the constant table by direct index, since verification
-// handles only public data (the ladder is ladder.cuh's, shared with the
-// sr25519 kernel). Later work: warp-cooperative multiplication,
-// shared-memory tables, occupancy.
+// What holds it back is latency, not throughput: a row of the first,
+// one-thread design was one chain of ~3,750 dependent field products, and
+// 16,384 rows filled one wave of threads at 255 registers. So the work is
+// split in two launches behind one entry point:
+//   1. verify_tables: one thread per point of -A | R (2 n threads, 32,768
+//      at 16,384 rows, one wave at 255 registers). Thread i < n decodes A
+//      (ZIP-215) and writes -A as entry 1 of its table, thread n + i
+//      decodes R and writes -R; each point a contiguous 160-byte row, each
+//      thread a decode bit.
+//   2. verify_ladder: four lanes a row (a quad, coop.cuh), lane q holding
+//      coordinate q of the running point, so each point operation is two
+//      (doubling) or three (addition) rounds of one product a lane. The
+//      quad first builds -A's multiples 0, 2, ..., 15 (14 additions, 42
+//      rounds; each lane writes its coordinate, then __syncwarp), then runs
+//      63 Straus windows of 4 doublings and 2 additions (B's entry from the
+//      block's shared-memory copy of the base table, then -A's), about 880
+//      rounds, then adds -R and clears the cofactor by 3 doublings: the row
+//      is valid when [8]([s]B - [k]A - R) is the identity, X = 0 and Y = Z.
+//      That is the reference's group equation [8]([s]B - [k]A) == [8]R on
+//      the decoded points (the laws are complete on ed25519, so coinciding
+//      or small-order points need no branch); a row whose A or R does not
+//      decode is false whatever its point.
+// Building -A's multiples in step 1 on a lone lane instead (14 additions,
+// ~126 dependent products) measured slower at every batch size. A quad
+// past the end of the batch runs the last row (it writes that row's table
+// with the same values) and writes no bit, so every lane of a warp
+// reaches every shuffle.
 #include <cuda_runtime.h>
 
+#include "coop.cuh"
 #include "ladder.cuh"
 
-__global__ void verify_rows(const uint8_t *a_enc, const uint8_t *r_enc, const uint8_t *s_bytes,
-                            const uint8_t *k_bytes, const int32_t *base_table, int32_t *scratch,
-                            uint8_t *out, int n) {
+constexpr int VERIFY_TABLE_THREADS = 128;
+constexpr int VERIFY_LADDER_THREADS = 128;  // 32 rows a block
+// ints a B entry in shared memory: 40 and one of padding, so the 16
+// entries start on 16 distinct banks
+constexpr int B_SLOT = 41;
+
+// Scratch: 17 rows of 40 int32 a signature (the 16 multiples of -A, then
+// -R), then 2 n decode bytes (A's, then R's).
+__global__ void verify_tables(const uint8_t *a_enc, const uint8_t *r_enc, int32_t *tabs,
+                              uint8_t *oks, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t *s = s_bytes + 32 * i;
-  const uint8_t *k = k_bytes + 32 * i;
-  ge a, r, q;
-  const bool a_ok = ge_decompress(a, a_enc + 32 * i);
-  const bool r_ok = ge_decompress(r, r_enc + 32 * i);
-  ge_neg(a, a);
-  int32_t *tab = scratch + i;
-  ge_build_table(tab, n, a);
-  ge_straus_base(q, base_table, tab, n, s, k, false);
-  out[i] = (a_ok && r_ok && ge_cofactored_equal(q, r)) ? 1 : 0;
+  if (i >= 2 * n) return;
+  ge p;
+  const bool a_row = i < n;
+  oks[i] = ge_decompress(p, a_row ? a_enc + 32 * i : r_enc + 32 * (i - n)) ? 1 : 0;
+  ge_neg(p, p);
+  // -A as entry 1 of its row's table (step 2 builds the rest), -R after the tables
+  ge_store_row(tabs + (a_row ? ((size_t)i * 16 + 1) * 40 : ((size_t)16 * n + (i - n)) * 40), p);
+}
+
+__global__ void __launch_bounds__(VERIFY_LADDER_THREADS)
+    verify_ladder(const uint8_t *s_bytes, const uint8_t *k_bytes, const int32_t *base_table,
+                  int32_t *tabs, const uint8_t *oks, uint8_t *out, int n) {
+  __shared__ int32_t sh_b[16 * B_SLOT];
+  const int t = threadIdx.x, q = t & 3;
+  // the base table (16, 4, 32) radix-2^8 limbs, in ten-limb form
+  for (int c = t; c < 64; c += blockDim.x) {
+    fe v;
+    fe_from_limbs8(v, base_table + 32 * c);
+#pragma unroll
+    for (int l = 0; l < 10; l++) sh_b[(c >> 2) * B_SLOT + (c & 3) * 10 + l] = v.v[l];
+  }
+  __syncthreads();
+  const int row_raw = blockIdx.x * (blockDim.x / 4) + t / 4;
+  const int row = min(row_raw, n - 1);
+  const uint8_t *s = s_bytes + 32 * row;
+  const uint8_t *k = k_bytes + 32 * row;
+  int32_t *a_tab = tabs + (size_t)row * 16 * 40;
+  // -A's multiples 0, 2, ..., 15 by the quad, each lane writing its
+  // coordinate; a quad past the end writes row n - 1's same values
+  fe a, mine;
+  fe_load_coord(a, a_tab + 40, q, 1);
+  if (q == 1 || q == 2)
+    fe_one(mine);
+  else
+    fe_zero(mine);
+  fe_store_coord(a_tab, q, mine);
+  fe_copy(mine, a);
+#pragma unroll 1
+  for (int j = 2; j < 16; j++) {
+    coop_add_reg(mine, a, q);
+    fe_store_coord(a_tab + j * 40, q, mine);
+  }
+  __syncwarp();
+  // window 63 has no leading doublings
+  fe_load_coord(mine, sh_b + nibble(s, 63) * B_SLOT, q, 1);
+  coop_add(mine, a_tab + nibble(k, 63) * 40, 1, q);
+#pragma unroll 1
+  for (int w = 62; w >= 0; w--) {
+#pragma unroll 1
+    for (int i = 0; i < 4; i++) coop_dbl(mine, q);
+    coop_add(mine, sh_b + nibble(s, w) * B_SLOT, 1, q);
+    coop_add(mine, a_tab + nibble(k, w) * 40, 1, q);
+  }
+  coop_add(mine, tabs + ((size_t)16 * n + row) * 40, 1, q);  // - R
+#pragma unroll 1
+  for (int i = 0; i < 3; i++) coop_dbl(mine, q);
+  fe y, z;
+  fe_shfl(y, mine, 1);
+  fe_shfl(z, mine, 2);
+  if (q != 0 || row_raw >= n) return;
+  fe_sub(y, y, z);
+  const bool identity = fe_iszero(mine) && fe_iszero(y);
+  out[row] = (oks[row] && oks[n + row] && identity) ? 1 : 0;
 }
 
 extern "C" int tm_verify(const void *a_enc, const void *r_enc, const void *s_bytes,
                          const void *k_bytes, const void *base_table, void *scratch, void *out,
                          int n, void *stream) {
-  const int threads = 128;
-  verify_rows<<<grid_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t *)a_enc, (const uint8_t *)r_enc, (const uint8_t *)s_bytes,
-      (const uint8_t *)k_bytes, (const int32_t *)base_table, (int32_t *)scratch, (uint8_t *)out, n);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int32_t *tabs = (int32_t *)scratch;
+  uint8_t *oks = (uint8_t *)(tabs + (size_t)17 * 40 * n);
+  verify_tables<<<grid_for(2 * n, VERIFY_TABLE_THREADS), VERIFY_TABLE_THREADS, 0, st>>>(
+      (const uint8_t *)a_enc, (const uint8_t *)r_enc, tabs, oks, n);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  verify_ladder<<<grid_for(4 * n, VERIFY_LADDER_THREADS), VERIFY_LADDER_THREADS, 0, st>>>(
+      (const uint8_t *)s_bytes, (const uint8_t *)k_bytes, (const int32_t *)base_table, tabs, oks,
+      (uint8_t *)out, n);
   return (int)cudaGetLastError();
 }

@@ -61,8 +61,8 @@ __global__ void __launch_bounds__(32 * (split_lanes<S>::max_warps + 1))
   const int j = warp * split_lanes<S>::rows + lane / lanes;  // the ladder lane's row in the block
   // rows past n run on the last row's inputs and are never written
   const int i = min(row0 + j, n - 1);
-  // an out-of-range slot clamps, as the reference's XLA gather does
-  const int slot = min(max(slots[i], 0), capacity - 1);
+  // a slot wraps from the end, then clamps, as the reference's jnp gather does
+  const int slot = cache_slot(slots[i], capacity);
   ge q;
   if (warp == ladder_warps) {
     if (lane < block_rows)

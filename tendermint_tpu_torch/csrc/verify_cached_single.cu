@@ -15,7 +15,8 @@
 // and per square. It reads 96 bytes of input and at most the 4 KiB cache
 // entry.
 //
-// Design: verify.cu's, one thread per signature, with A's table read from
+// Design: one thread per signature on ladder.cuh's 252-doubling ladder
+// (verify_sr.cu's), with A's table read from
 // the int16 cache entry (ge_straus_base_cached in ladder.cuh, limbs read
 // modulo p, so the JAX cache's signed limbs work as the port's canonical
 // ones) instead of decoded and built into scratch.
@@ -30,8 +31,8 @@ __global__ void verify_cached_single_rows(const int16_t *tables, const uint8_t *
                                           int capacity) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  // an out-of-range slot clamps, as the reference's XLA gather does
-  const int slot = min(max(slots[i], 0), capacity - 1);
+  // a slot wraps from the end, then clamps, as the reference's jnp gather does
+  const int slot = cache_slot(slots[i], capacity);
   ge r, q;
   const bool r_ok = ge_decompress(r, r_enc + 32 * i);
   ge_straus_base_cached(q, base_table, tables + (size_t)slot * 16 * 128, s_bytes + 32 * i,

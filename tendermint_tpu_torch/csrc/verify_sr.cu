@@ -13,8 +13,8 @@
 // multiplies per product and per square. Memory traffic is 128 bytes in
 // and 1 byte out.
 //
-// Design: verify.cu's, one thread per signature (the ladder is
-// ladder.cuh's), with ristretto decode in place of ZIP-215 decompression
+// Design: one thread per signature (the ladder is ladder.cuh's
+// ge_straus_base, the first design of the ed25519 bitmap), with ristretto decode in place of ZIP-215 decompression
 // and encode-and-compare in place of the cofactored equality. The last
 // ladder addition writes T, which the encoder reads.
 #include <cuda_runtime.h>

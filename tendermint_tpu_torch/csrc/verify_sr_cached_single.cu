@@ -31,8 +31,8 @@ __global__ void verify_sr_cached_single_rows(const int16_t *tables, const uint8_
                                              int capacity) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  // an out-of-range slot clamps, as the reference's XLA gather does
-  const int slot = min(max(slots[i], 0), capacity - 1);
+  // a slot wraps from the end, then clamps, as the reference's jnp gather does
+  const int slot = cache_slot(slots[i], capacity);
   ge q;
   ge_straus_base_cached(q, base_table, tables + (size_t)slot * 16 * 128, s_bytes + 32 * i,
                         k_bytes + 32 * i, true);

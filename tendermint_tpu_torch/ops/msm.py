@@ -39,8 +39,8 @@ from . import _build
 from . import curve as C
 from . import ristretto as R
 from .verify import (
-    L, SPLITS, _check_cache_args, _check_rows, _limb_major, _route, _to_device, device_table,
-    pad_pow2_rows, prepare_batch, pubkey_cache, resolve_device,
+    L, SPLITS, _check_cache_args, _check_rows, _limb_major, _route, _to_device, cache_slots,
+    device_table, pad_pow2_rows, prepare_batch, pubkey_cache, resolve_device,
 )
 from .verify_sr import prepare_batch as prepare_batch_sr
 
@@ -223,7 +223,7 @@ def msm_verify_kernel_cached_plain(tables, oks, slots, r_enc, zk_bytes, z_bytes,
     n = r.shape[1]
     r_pt, r_oks = C.decompress(r)
     neg_r = C.point_neg(r_pt)
-    sl = slots.long()
+    sl = cache_slots(slots, tables.shape[0])
     all_ok = torch.all(oks[sl]) & torch.all(r_oks)
     splits = tables.shape[1]
     per = 64 // splits  # zk nibbles per cache row

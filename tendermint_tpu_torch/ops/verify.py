@@ -182,15 +182,17 @@ def verify_kernel_plain(a_enc, r_enc, s_bytes, k_bytes):
 
 
 def verify_kernel(a_enc, r_enc, s_bytes, k_bytes):
-    """Uncached bitmap: csrc/verify.cu on CUDA tensors, the plain version
-    on CPU tensors."""
+    """Uncached bitmap: csrc/verify.cu on CUDA tensors (two launches from
+    one entry point, counted once: the decode and tables step, then the
+    four-lane ladder), the plain version on CPU tensors."""
     if not _route("verify_kernel", a_enc, r_enc, s_bytes, k_bytes):
         return verify_kernel_plain(a_enc, r_enc, s_bytes, k_bytes)
     n = a_enc.shape[0]
     _check_rows("verify_kernel", n, 32, a_enc, r_enc, s_bytes, k_bytes)
     dev = a_enc.device
     out = torch.empty(n, dtype=torch.bool, device=dev)
-    scratch = torch.empty((16 * 4 * 10, n), dtype=torch.int32, device=dev)
+    # 17 points of 40 int32 a row (-A's 16 multiples, -R), then 2 n decode bytes
+    scratch = torch.empty(17 * 40 * n + (n + 1) // 2, dtype=torch.int32, device=dev)
     lib = _build.load("verify")
     rc = lib.tm_verify(
         a_enc.data_ptr(), r_enc.data_ptr(), s_bytes.data_ptr(), k_bytes.data_ptr(),
@@ -264,10 +266,19 @@ build_pk_tables_split.launches = 0
 # -- kernel 3: cache-hit bitmap ---------------------------------------------
 
 
+def cache_slots(slots, capacity: int) -> torch.Tensor:
+    """The cache entries int32 slots read, as int64 indices, mapped as the
+    reference's `tables[slots]` under jnp indexing maps them (and the
+    kernels' cache_slot, csrc/ladder.cuh): a negative slot counts from the
+    end (slot + C), then the index clamps into [0, C - 1]."""
+    s = slots.long()
+    return torch.where(s < 0, s + capacity, s).clamp_(0, capacity - 1)
+
+
 def _cached_a_tables(tables, slots):
     """The slots' cache entries as int32 limbs, batch last: (S, 16, 4, 32,
     B) for a split cache, (16, 4, 32, B) for a single-table one."""
-    a = tables[slots.long()].to(torch.int32)
+    a = tables[cache_slots(slots, tables.shape[0])].to(torch.int32)
     return a.permute(*range(1, a.ndim), 0)
 
 
@@ -278,7 +289,7 @@ def verify_kernel_cached_split_plain(tables, oks, slots, r_enc, s_bytes, k_bytes
     s, k = _limb_major(s_bytes), _limb_major(k_bytes)
     r_pt, r_ok = C.decompress(r)
     q = C.double_scalar_mul_split(s, k, _cached_a_tables(tables, slots), splits=tables.shape[1])
-    return _cofactored_accept(q, r_pt, oks[slots.long()], r_ok, r.shape[1])
+    return _cofactored_accept(q, r_pt, oks[cache_slots(slots, len(oks))], r_ok, r.shape[1])
 
 
 def _launch_hit(name: str, lib_name: str, entry: str, table: str, splits, args):
@@ -350,7 +361,7 @@ def verify_kernel_cached_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
     s, k = _limb_major(s_bytes), _limb_major(k_bytes)
     r_pt, r_ok = C.decompress(r)
     q = C.double_scalar_mul_base(s, k, final_t=False, a_table=_cached_a_tables(tables, slots))
-    return _cofactored_accept(q, r_pt, oks[slots.long()], r_ok, r.shape[1])
+    return _cofactored_accept(q, r_pt, oks[cache_slots(slots, len(oks))], r_ok, r.shape[1])
 
 
 def verify_kernel_cached(tables, oks, slots, r_enc, s_bytes, k_bytes):

@@ -42,8 +42,8 @@ from . import curve as C
 from . import ristretto as R
 from .verify import (  # collect: the bitmap planes share it
     L, PK_SPLITS, SPLITS, _cached_a_tables, _check_rows, _check_splits, _launch_fill, _launch_hit,
-    _limb_major, _power_tables_plain, _route, _to_device, collect, device_table, dispatch_cached,
-    pad_pow2_rows, plane_cache, resolve_device,
+    _limb_major, _power_tables_plain, _route, _to_device, cache_slots, collect, device_table,
+    dispatch_cached, pad_pow2_rows, plane_cache, resolve_device,
 )
 
 
@@ -129,7 +129,7 @@ def verify_sr_kernel_cached_split_plain(tables, oks, slots, r_enc, s_bytes, k_by
     s, k = _limb_major(s_bytes), _limb_major(k_bytes)
     q = C.double_scalar_mul_split(s, k, _cached_a_tables(tables, slots), splits=tables.shape[1])
     q = C.point_add(q, C.identity_point(q.shape[2:], q.device), out_t=True)
-    return oks[slots.long()] & _encoding_equal(q, r)
+    return oks[cache_slots(slots, len(oks))] & _encoding_equal(q, r)
 
 
 def verify_sr_kernel_cached_split(tables, oks, slots, r_enc, s_bytes, k_bytes):
@@ -181,7 +181,7 @@ def verify_sr_kernel_cached_plain(tables, oks, slots, r_enc, s_bytes, k_bytes):
     r = _limb_major(r_enc)
     s, k = _limb_major(s_bytes), _limb_major(k_bytes)
     q = C.double_scalar_mul_base(s, k, a_table=_cached_a_tables(tables, slots))
-    return oks[slots.long()] & _encoding_equal(q, r)
+    return oks[cache_slots(slots, len(oks))] & _encoding_equal(q, r)
 
 
 def verify_sr_kernel_cached(tables, oks, slots, r_enc, s_bytes, k_bytes):
