@@ -33,15 +33,16 @@ Both signature planes run the same phases, each fatal on failure:
      tampered row alone invalid; the same calls timed with CUDA events
      beside the plain version, the bound and the launches, the RLC's
      device time by step (tables, windows, reduce, tail: torch.profiler
-     by kernel name) and the ed25519 bitmap's (tables, ladder), the host
-     prep of the 10,000-validator commits, and the end-to-end
+     by kernel name) and each uncached bitmap's (tables, ladder), the
+     host prep of the 10,000-validator commits, and the end-to-end
      verify_commit wall times; with --ab-parent DIR (a git archive of
      another commit, unpacked inside the repo), the RLC kernels, the
-     uncached bitmaps (8, 2,560, 10,240 and 16,384 rows), the split fills
-     (1,024 keys at S = 2, 4, 8 and 10,240 at S = 4; their tables must
-     hash the same in every turn) and the split cache hits (1,024 rows at
-     S = 2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 4) of that
-     tree against this one's on the same rows, in turns parent, new, new,
+     uncached bitmaps (8, 2,560, 10,240 and 16,384 rows, with their
+     steps), the split fills (1,024 keys at S = 2, 4, 8 and 10,240 at S =
+     4) and the single-table fills (1,024 keys), whose tables must hash
+     the same in every turn, and the split cache hits (1,024 rows at S =
+     2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 4) of that tree
+     against this one's on the same rows, in turns parent, new, new,
      parent, each a process of its own ("ab:" lines);
   5. the other cache geometries, S = 1, 2 and 8, each through a new cache
      of that split: verify_commit on the 150-validator commit and on the
@@ -133,10 +134,10 @@ def ops_verify(n: int) -> int:
 
 
 def ops_verify_sr(n: int) -> int:
-    # 1 ristretto decode, 14 table additions, top window add, 63 windows
-    # (the last addition with T), 1 encode
-    return n * _ops(RDECODE[0] + 63 * 16 + RENCODE[0],
-                    RDECODE[1] + 14 * 9 + 8 + 63 * (13 + 9 + 8) + 1 + RENCODE[1])
+    # 2 ristretto decodes (A and R), 14 table additions, top window add, 63
+    # windows (4 doublings + 2 additions), ristretto_equal's 4 products
+    return n * _ops(2 * RDECODE[0] + 63 * 16,
+                    2 * RDECODE[1] + 14 * 9 + 8 + 63 * (13 + 9 + 8) + 4)
 
 
 def ops_pk_tables(n: int, decode=DECODE, splits: int = 4) -> int:
@@ -261,7 +262,7 @@ def plane(kind: str) -> SimpleNamespace:
         return SimpleNamespace(
             kind=kind, prepare=V.prepare_batch, oracle=ref.verify, cache=V.pubkey_cache,
             edges=edge_batch, batch=V.verify_batch,
-            bitmap=V.verify_kernel, bitmap_plain=V.verify_kernel_plain,
+            bitmap=V.verify_kernel, bitmap_plain=V.verify_kernel_plain, bitmap_steps=BITMAP_STEPS,
             fill=V.build_pk_tables_split, fill_plain=V.build_pk_tables_split_plain,
             hit=V.verify_kernel_cached_split, hit_plain=V.verify_kernel_cached_split_plain,
             fill1=V.build_pk_tables, fill1_plain=V.build_pk_tables_plain,
@@ -275,6 +276,7 @@ def plane(kind: str) -> SimpleNamespace:
         kind=kind, prepare=VS.prepare_batch, oracle=sr.verify, cache=VS.sr_pubkey_cache,
         edges=sr_edge_batch, batch=VS.verify_batch,
         bitmap=VS.verify_sr_kernel, bitmap_plain=VS.verify_sr_kernel_plain,
+        bitmap_steps=SR_BITMAP_STEPS,
         fill=VS.build_sr_tables_split, fill_plain=VS.build_sr_tables_split_plain,
         hit=VS.verify_sr_kernel_cached_split, hit_plain=VS.verify_sr_kernel_cached_split_plain,
         fill1=VS.build_sr_tables, fill1_plain=VS.build_sr_tables_plain,
@@ -477,7 +479,7 @@ def sr_edge_batch(rng, n=64):
         sigs.append(sig)
     for enc in RISTRETTO_BAD_ENCODINGS:
         pks.append(bytes.fromhex(enc)); msgs.append(msgs[0]); sigs.append(sigs[0])
-    # a bad R encoding on an honest key: R is compared, never decoded
+    # a bad R encoding on an honest key
     pks.append(pks[0]); msgs.append(msgs[0]); sigs.append(bytes.fromhex(RISTRETTO_BAD_ENCODINGS[7]) + sigs[0][32:])
     # the marker bit cleared
     nomark = bytearray(sigs[0]); nomark[63] &= 0x7F
@@ -556,6 +558,24 @@ def check_kernels(rng, dev, P):
                              f"oracle {oracle.tolist()}")
     errs[name] = 0
     log(f"phase 2: {name} == plain == oracle on {n} rows ({int(oracle.sum())} valid)")
+    if P.kind == "sr25519":
+        # an honest row's R made odd (p - R) and non-canonical (R + p) after
+        # the host prep, so k stays R's: decode rejects both, and the odd
+        # encoding's decode candidate is R's point, so only R's decode bit
+        # makes that row false
+        from tendermint_tpu_torch.crypto import sr25519 as sr
+
+        h = int(np.flatnonzero(oracle)[0])
+        r_int = int.from_bytes(r[h].tobytes(), "little")
+        bad_r = np.frombuffer(b"".join(x.to_bytes(32, "little") for x in (sr.P - r_int, r_int + sr.P)),
+                              np.uint8).reshape(2, 32)
+        rows = cuda(a[[h, h]], bad_r, s[[h, h]], k[[h, h]])
+        got, want = P.bitmap(*rows), P.bitmap_plain(*rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or bool(got.any()):
+            raise AssertionError(f"{name} on R made odd and non-canonical: kernel {got.tolist()} "
+                                 f"plain {want.tolist()}")
+        log(f"phase 2: {name} == plain == False on an honest row with R made odd and non-canonical")
 
     caches = {}
     for splits in (DEFAULT_SPLITS,) + OTHER_SPLITS:
@@ -890,8 +910,9 @@ def plain_ms(fn, warm: bool = True):
 # The launches of kernels 4 and 8 by kernel name (the earlier, three-launch
 # design has no reduce).
 RLC_STEPS = ("msm_tables", "msm_windows", "msm_reduce", "msm_tail")
-# The launches of kernel 1: the decode step, then the four-lane ladder.
+# The launches of kernels 1 and 9: the decode step, then the four-lane ladder.
 BITMAP_STEPS = ("verify_tables", "verify_ladder")
+SR_BITMAP_STEPS = ("verify_sr_tables", "verify_sr_ladder")
 
 
 def step_times(fn, reps: int = 5, names=RLC_STEPS):
@@ -1053,9 +1074,8 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
     m = len(rows[0])
     records.append(make_record(P.bitmap, None, m, ms, p_ms, errs[P.bitmap.__name__], P.ops_bitmap(m),
                                129 * m, counts[P.bitmap.__name__], int32_rate))
-    if P.kind == "ed25519":
-        log(f"phase 4: {P.bitmap.__name__} steps at {m} rows, device ms a call: "
-            f"{json.dumps(step_times(lambda: P.bitmap(*rows), names=BITMAP_STEPS)) or 'not measured'}")
+    log(f"phase 4: {P.bitmap.__name__} steps at {m} rows, device ms a call: "
+        f"{json.dumps(step_times(lambda: P.bitmap(*rows), names=P.bitmap_steps)) or 'not measured'}")
 
     # the cache fill and the cache hit at the default split: the tampered
     # 1,000-validator commit (1024 rows)
@@ -1097,8 +1117,8 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
 
 # -- phase 4 (continued): the RLC and the split hits against the parent tree --
 
-# One turn of the A/B: the RLC kernels and the split cache hits of the tree
-# in argv[1] (its package first on the path), timed on the inputs saved in
+# One turn of the A/B: the RLC kernels, the uncached bitmaps, the fills and
+# the split cache hits of the tree in argv[1] (its package first on the path), timed on the inputs saved in
 # argv[3] with this script's event_ms and step_times (argv[2] is this repo's
 # root); each verdict and bitmap checked; the times, and the ptxas reports
 # of the libraries the turn built, written as JSON to argv[4].
@@ -1122,7 +1142,8 @@ from tendermint_tpu_torch.ops import verify as V
 from tendermint_tpu_torch.ops import verify_sr as VS
 
 reports = _build.build_all(["msm", "msm_sr", "pk_tables", "sr_tables", "verify_cached",
-                            "verify_sr_cached", "verify", "verify_sr"])
+                            "verify_sr_cached", "verify", "verify_sr", "pk_tables_single",
+                            "sr_tables_single"])
 data = np.load(inputs)
 dev = torch.device("cuda", 0)
 res = {"ptxas": {name: cs.ptxas_functions(rep) for name, rep in reports.items()}, "ms": {}}
@@ -1142,7 +1163,14 @@ for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
         got, ms = cs.event_ms(lambda: fn(*rows), 10)
         if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
             raise SystemExit(f"{tree}: {key}: the bitmap differs from this tree's kernel's")
-        res["ms"][key] = {"ms": ms}
+        steps = cs.step_times(lambda: fn(*rows), names=cs.SR_BITMAP_STEPS if sr else cs.BITMAP_STEPS)
+        res["ms"][key] = {"ms": ms, "steps": steps}
+    elif what == "fill1":
+        a = torch.from_numpy(data[f"{key}__a"]).to(dev)
+        fill = VS.build_sr_tables if sr else V.build_pk_tables
+        (tables, oks), ms = cs.event_ms(lambda: fill(a), 10)
+        digest = hashlib.sha256(tables.cpu().numpy().tobytes() + oks.cpu().numpy().tobytes()).hexdigest()
+        res["ms"][key] = {"ms": ms, "fill_sha256": digest}
     else:
         a, *args = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_HIT_COLS[:-1]]
         fill = VS.build_sr_tables_split if sr else V.build_pk_tables_split
@@ -1173,9 +1201,10 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
     bitmap this tree's hit gives them; each turn fills the tables with its
     tree's fill, timed (the split fills, rows 2 and 12, at 1,024 keys and S
     = 2, 4, 8 and at 10,240 keys and S = 4) and hashed, for the two trees'
-    fills must write the same bytes; and the uncached bitmaps'
-    rows (rows 1 and 9) of the tampered 10,000-validator commit at 16,384
-    (verify_commit's), 10,240 and 2,560 (row 14's) and 8 rows (the
+    fills must write the same bytes; the same 1,024 keys for the
+    single-table fills (rows 5 and 10), timed and hashed; and the uncached
+    bitmaps' rows (rows 1 and 9) of the tampered 10,000-validator commit at
+    16,384 (verify_commit's), 10,240 and 2,560 (row 14's) and 8 rows (the
     autotune's size), with this tree's bitmap."""
     import numpy as np
 
@@ -1213,6 +1242,7 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
             else:
                 a, r, s, k = V.pad_pow2_rows([a, r, s, k], n)
                 shapes = (slice(0, len(a)),)
+                arrays[f"fill1__{kind}__{len(a)}__S1__a"] = a
             (a_d,) = V._to_device([a], dev)
             for splits in splits_list:
                 tables, oks = P.fill(a_d, splits)
@@ -1228,14 +1258,14 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
 
 def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
     """Kernels 4 and 8, the uncached bitmaps (kernels 1 and 9, and row 14's
-    shapes), the split fills (kernels 2 and 12, whose tables must hash the
-    same in every turn) and the split hits (kernels 3 and 13, and row 15's
-    shapes) of the parent tree (its package at `parent`) against this
-    tree's, in turns parent,
+    shapes), the fills (the split kernels 2 and 12 and the single-table
+    kernels 5 and 10, whose tables must hash the same in every turn) and
+    the split hits (kernels 3 and 13, and row 15's shapes) of the parent
+    tree (its package at `parent`) against this tree's, in turns parent,
     new, new, parent, each turn a process of its own, on ab_inputs' rows:
-    mean ms of 10 launches by CUDA events, the RLC's steps by
-    torch.profiler. Logs each tree's ptxas report of the bitmap, the sr25519
-    fill and the hits, one line an input, and returns the turns."""
+    mean ms of 10 launches by CUDA events, the RLC's and the bitmaps' steps
+    by torch.profiler. Logs each tree's ptxas report of the bitmaps, the
+    fills and the hits, one line an input, and returns the turns."""
     import numpy as np
 
     inputs = os.path.join(tmp, "ab_inputs.npz")
@@ -1255,7 +1285,8 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
             turns.append((label, json.load(f)))
     for label, res in turns:
         for name, fns in res["ptxas"].items():
-            if name in ("verify_cached", "verify_sr_cached", "verify", "sr_tables"):
+            if name in ("verify_cached", "verify_sr_cached", "verify", "verify_sr", "pk_tables",
+                        "sr_tables", "pk_tables_single", "sr_tables_single"):
                 for fn, regs, spills in fns:
                     log(f"ab: {label} tree {name}: {fn}: {regs} registers, {spills}")
     data = np.load(inputs)
@@ -1270,8 +1301,17 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
                 f"{ms['parent']}, new {ms['new']}; steps parent {json.dumps(steps['parent'])} "
                 f"new {json.dumps(steps['new'])}")
         elif what == "bitmap":
+            steps = {label: next(t["ms"][key]["steps"] for lab, t in turns if lab == label)
+                     for label in ("parent", "new")}
             log(f"ab: {plane} uncached bitmap {rows} rows, ms a call (turns 1 and 4 / 2 and 3): parent "
-                f"{ms['parent']}, new {ms['new']}")
+                f"{ms['parent']}, new {ms['new']}; steps parent {json.dumps(steps['parent'])} "
+                f"new {json.dumps(steps['new'])}")
+        elif what == "fill1":
+            digests = {t["ms"][key]["fill_sha256"] for _, t in turns}
+            if len(digests) != 1:
+                raise AssertionError(f"ab: {plane} single-table fill: the trees' tables differ ({digests})")
+            log(f"ab: {plane} single-table fill {rows} keys, ms a call (turns 1 and 4 / 2 and 3): parent "
+                f"{ms['parent']}, new {ms['new']}; tables and decode bits byte-identical in all four turns")
         else:
             log(f"ab: {plane} split hit {rows} rows {variant[0]} = {variant[1:]}, ms a call (turns 1 and "
                 f"4 / 2 and 3): parent {ms['parent']}, new {ms['new']}")

@@ -10,8 +10,9 @@
 // run, passes mask 0xF. The values equal ge_dbl's and ge_add's coordinate
 // for coordinate modulo p, T included.
 //
-// Users: the RLC tail (msm.cuh), the uncached ed25519 bitmap's ladder
-// (verify.cu) and the sr25519 split fill (sr_tables.cu).
+// Users: the RLC tail (msm.cuh), the uncached bitmaps' ladder
+// (coop_straus_base: verify.cu, verify_sr.cu) and the split fills
+// (coop_fill: pk_tables.cu, sr_tables.cu).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -184,5 +185,86 @@ __device__ __forceinline__ void coop_write_power_tables(int16_t *dst, fe p, int 
       coop_add_reg(acc, p, q);
       if (live) coop_write_coord(row + j * 128, acc);
     }
+  }
+}
+
+// One key of a split fill by its quad, the body of both planes' fills
+// (pk_tables.cu with ZIP-215's ge_decompress, sr_tables.cu with
+// ristretto_decode), which differ only in `decode(p, enc)`. Quad m of the
+// grid takes key m: its four lanes decode the key in lock step (the same
+// work on each lane, no divergence within the quad), lane q keeps
+// coordinate q of -A (X and T negated) and coop_write_power_tables writes
+// the key's cache entry. A quad past the end decodes the last key and
+// writes nothing, so every lane of the warp reaches every shuffle.
+// The fills' blocks: one warp, eight keys.
+constexpr int COOP_FILL_THREADS = 32;
+
+template <typename Decode>
+__device__ __forceinline__ void coop_fill(Decode decode, const uint8_t *a_enc, int16_t *tables,
+                                          uint8_t *oks, int n, int splits) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x, q = t & 3;
+  const int key_raw = t / 4, key = min(key_raw, n - 1);
+  const bool live = key_raw < n;
+  ge p;
+  const bool ok = decode(p, a_enc + 32 * key);
+  if (live && q == 0) oks[key] = ok ? 1 : 0;
+  fe mine;  // coordinate q of -A
+  fe_pick(mine, q, p.X, p.Y, p.Z, p.T);
+  if (q == 0 || q == 3) fe_neg(mine, mine);
+  coop_write_power_tables(tables + (size_t)key * splits * 16 * 128, mine, q, splits, live);
+}
+
+// ints a base-table entry in shared memory: 40 and one of padding, so the
+// 16 entries start on 16 distinct banks
+constexpr int B_SLOT = 41;
+
+// The base table (16, 4, 32) radix-2^8 limbs into the block's shared
+// memory in ten-limb form, entry j at sh_b + j * B_SLOT; every thread of
+// the block must call it.
+__device__ __forceinline__ void coop_base_to_shared(int32_t *sh_b, const int32_t *base_table) {
+  for (int c = threadIdx.x; c < 64; c += blockDim.x) {
+    fe v;
+    fe_from_limbs8(v, base_table + 32 * c);
+#pragma unroll
+    for (int l = 0; l < 10; l++) sh_b[(c >> 2) * B_SLOT + (c & 3) * 10 + l] = v.v[l];
+  }
+  __syncthreads();
+}
+
+// mine = coordinate q of [s]B + [k]A' for one row by its quad, the ladder
+// of both uncached bitmaps (verify.cu, verify_sr.cu). a_tab is the row's 16
+// rows of 40 int32 with A' stored as entry 1: the quad first writes
+// entries 0, 2, ..., 15 (14 register additions, 42 rounds; each lane its
+// coordinate, then __syncwarp), then runs 63 Straus windows of 4 doublings
+// and 2 additions from the top (the reference's double_scalar_mul_base),
+// B's entry from sh_b (coop_base_to_shared), then A''s. The result carries
+// T. A quad past the end of the batch must run a live row's values (the
+// last row's) so that it writes that row's table with the same values.
+__device__ __forceinline__ void coop_straus_base(fe &mine, int q, const int32_t *sh_b,
+                                                 int32_t *a_tab, const uint8_t *s,
+                                                 const uint8_t *k) {
+  fe a;
+  fe_load_coord(a, a_tab + 40, q, 1);
+  if (q == 1 || q == 2)
+    fe_one(mine);
+  else
+    fe_zero(mine);
+  fe_store_coord(a_tab, q, mine);
+  fe_copy(mine, a);
+#pragma unroll 1
+  for (int j = 2; j < 16; j++) {
+    coop_add_reg(mine, a, q);
+    fe_store_coord(a_tab + j * 40, q, mine);
+  }
+  __syncwarp();
+  // window 63 has no leading doublings
+  fe_load_coord(mine, sh_b + nibble(s, 63) * B_SLOT, q, 1);
+  coop_add(mine, a_tab + nibble(k, 63) * 40, 1, q);
+#pragma unroll 1
+  for (int w = 62; w >= 0; w--) {
+#pragma unroll 1
+    for (int i = 0; i < 4; i++) coop_dbl(mine, q);
+    coop_add(mine, sh_b + nibble(s, w) * B_SLOT, 1, q);
+    coop_add(mine, a_tab + nibble(k, w) * 40, 1, q);
   }
 }

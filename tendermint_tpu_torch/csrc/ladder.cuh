@@ -1,10 +1,10 @@
-// The per-row ladders and the cache-table writer shared by the bitmap
-// kernels of both signature planes: ed25519 (verify_cached.cu, pk_tables.cu
-// and the single-table pk_tables_single.cu, verify_cached_single.cu) and
-// sr25519 (verify_sr.cu, verify_sr_cached.cu, sr_tables_single.cu,
-// verify_sr_cached_single.cu). The planes differ only in how points are
-// decoded and compared (ge25519.cuh, ristretto.cuh). The uncached ed25519
-// bitmap (verify.cu) and the sr25519 split fill (sr_tables.cu) run four
+// The per-row ladders and the cache-table writer shared by the cache
+// kernels of both signature planes: ed25519 (verify_cached.cu and the
+// single-table pk_tables_single.cu, verify_cached_single.cu) and sr25519
+// (verify_sr_cached.cu, sr_tables_single.cu, verify_sr_cached_single.cu).
+// The planes differ only in how points are decoded and compared
+// (ge25519.cuh, ristretto.cuh). The uncached bitmaps (verify.cu,
+// verify_sr.cu) and the split fills (pk_tables.cu, sr_tables.cu) run four
 // lanes a point instead (coop.cuh) and take only the helpers below.
 #pragma once
 #include "ge25519.cuh"
@@ -34,15 +34,6 @@ __device__ __forceinline__ void ge_straus_base_with(ge &q, const int32_t *base_t
     load_a(e, nibble(k, w));
     ge_add(q, q, e, final_t && w == 0);
   }
-}
-
-// The uncached ladder: A''s 16 multiples in strided int32 scratch
-// (ge_build_table).
-__device__ __forceinline__ void ge_straus_base(ge &q, const int32_t *base_table, const int32_t *tab,
-                                               int stride, const uint8_t *s, const uint8_t *k,
-                                               bool final_t) {
-  ge_straus_base_with(q, base_table, [&](ge &e, int j) { ge_load(e, tab, j, stride); }, s, k,
-                      final_t);
 }
 
 // The single-table cache-hit ladder: A''s 16 multiples are one cache entry,

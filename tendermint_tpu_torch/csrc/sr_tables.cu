@@ -21,42 +21,33 @@
 // What holds it back is latency: a key is one chain of dependent products,
 // and 1,024 keys are few threads. Design: four lanes a key (a quad,
 // coop.cuh), blocks of one warp (eight keys), so 1,024 keys spread over
-// 128 SMs. The quad's four lanes decode the key in lock step (the same
-// work on each lane, no divergence within the quad), then lane q keeps
-// coordinate q of -A; the doublings take two rounds and the additions
-// three, one product a lane a round (coop_write_power_tables). Each lane
-// canonicalizes and stores its own coordinate of each entry, so a quad
-// writes an entry's 256 bytes as one run of 16-byte stores. At most 10
-// blocks an SM (launch bounds, 168 registers): 10,240 keys are then one
-// wave instead of two at 255 registers, at the price of ~800 bytes of
-// spills in the decode, which measured no slower at 1,024 or 4,096 keys.
+// 128 SMs. The body is coop.cuh's coop_fill, shared with the ed25519 split
+// fill (pk_tables.cu), which differs only in its decoder. The quad's four
+// lanes decode the key in lock step (the same work on each lane, no
+// divergence within the quad), then lane q keeps coordinate q of -A; the
+// doublings take two rounds and the additions three, one product a lane a
+// round (coop_write_power_tables). Each lane canonicalizes and stores its
+// own coordinate of each entry, so a quad writes an entry's 256 bytes as
+// one run of 16-byte stores. At most 10 blocks an SM (launch bounds, 168
+// registers): 10,240 keys are then one wave instead of two at 255
+// registers, at the price of ~800 bytes of spills in the decode, which
+// measured no slower at 1,024 or 4,096 keys.
 #include <cuda_runtime.h>
 
 #include "coop.cuh"
 #include "ladder.cuh"
 #include "ristretto.cuh"
 
-constexpr int SR_FILL_THREADS = 32;
-
-__global__ void __launch_bounds__(SR_FILL_THREADS, 10)
+__global__ void __launch_bounds__(COOP_FILL_THREADS, 10)
     build_sr_tables(const uint8_t *a_enc, int16_t *tables, uint8_t *oks, int n, int splits) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x, q = t & 3;
-  // a quad past the end decodes the last key and writes nothing
-  const int key_raw = t / 4, key = min(key_raw, n - 1);
-  const bool live = key_raw < n;
-  ge p;
-  const bool ok = ristretto_decode(p, a_enc + 32 * key);
-  if (live && q == 0) oks[key] = ok ? 1 : 0;
-  fe mine;  // coordinate q of -A
-  fe_pick(mine, q, p.X, p.Y, p.Z, p.T);
-  if (q == 0 || q == 3) fe_neg(mine, mine);
-  coop_write_power_tables(tables + (size_t)key * splits * 16 * 128, mine, q, splits, live);
+  coop_fill([](ge &p, const uint8_t *enc) { return ristretto_decode(p, enc); }, a_enc, tables,
+            oks, n, splits);
 }
 
 extern "C" int tm_build_sr_tables(const void *a_enc, void *tables, void *oks, int n, int splits,
                                   void *stream) {
   if (!valid_splits(splits) || n < 1) return (int)cudaErrorInvalidValue;
-  build_sr_tables<<<grid_for(4 * n, SR_FILL_THREADS), SR_FILL_THREADS, 0, (cudaStream_t)stream>>>(
+  build_sr_tables<<<grid_for(4 * n, COOP_FILL_THREADS), COOP_FILL_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t *)a_enc, (int16_t *)tables, (uint8_t *)oks, n, splits);
   return (int)cudaGetLastError();
 }

@@ -29,8 +29,10 @@
 //      rounds; each lane writes its coordinate, then __syncwarp), then runs
 //      63 Straus windows of 4 doublings and 2 additions (B's entry from the
 //      block's shared-memory copy of the base table, then -A's), about 880
-//      rounds, then adds -R and clears the cofactor by 3 doublings: the row
-//      is valid when [8]([s]B - [k]A - R) is the identity, X = 0 and Y = Z.
+//      rounds (coop.cuh coop_straus_base, the sr25519 bitmap's ladder
+//      too, verify_sr.cu), then adds -R and clears the cofactor by 3
+//      doublings: the row is valid when [8]([s]B - [k]A - R) is the
+//      identity, X = 0 and Y = Z.
 //      That is the reference's group equation [8]([s]B - [k]A) == [8]R on
 //      the decoded points (the laws are complete on ed25519, so coinciding
 //      or small-order points need no branch); a row whose A or R does not
@@ -47,9 +49,6 @@
 
 constexpr int VERIFY_TABLE_THREADS = 128;
 constexpr int VERIFY_LADDER_THREADS = 128;  // 32 rows a block
-// ints a B entry in shared memory: 40 and one of padding, so the 16
-// entries start on 16 distinct banks
-constexpr int B_SLOT = 41;
 
 // Scratch: 17 rows of 40 int32 a signature (the 16 multiples of -A, then
 // -R), then 2 n decode bytes (A's, then R's).
@@ -69,46 +68,13 @@ __global__ void __launch_bounds__(VERIFY_LADDER_THREADS)
     verify_ladder(const uint8_t *s_bytes, const uint8_t *k_bytes, const int32_t *base_table,
                   int32_t *tabs, const uint8_t *oks, uint8_t *out, int n) {
   __shared__ int32_t sh_b[16 * B_SLOT];
+  coop_base_to_shared(sh_b, base_table);
   const int t = threadIdx.x, q = t & 3;
-  // the base table (16, 4, 32) radix-2^8 limbs, in ten-limb form
-  for (int c = t; c < 64; c += blockDim.x) {
-    fe v;
-    fe_from_limbs8(v, base_table + 32 * c);
-#pragma unroll
-    for (int l = 0; l < 10; l++) sh_b[(c >> 2) * B_SLOT + (c & 3) * 10 + l] = v.v[l];
-  }
-  __syncthreads();
   const int row_raw = blockIdx.x * (blockDim.x / 4) + t / 4;
   const int row = min(row_raw, n - 1);
-  const uint8_t *s = s_bytes + 32 * row;
-  const uint8_t *k = k_bytes + 32 * row;
-  int32_t *a_tab = tabs + (size_t)row * 16 * 40;
-  // -A's multiples 0, 2, ..., 15 by the quad, each lane writing its
-  // coordinate; a quad past the end writes row n - 1's same values
-  fe a, mine;
-  fe_load_coord(a, a_tab + 40, q, 1);
-  if (q == 1 || q == 2)
-    fe_one(mine);
-  else
-    fe_zero(mine);
-  fe_store_coord(a_tab, q, mine);
-  fe_copy(mine, a);
-#pragma unroll 1
-  for (int j = 2; j < 16; j++) {
-    coop_add_reg(mine, a, q);
-    fe_store_coord(a_tab + j * 40, q, mine);
-  }
-  __syncwarp();
-  // window 63 has no leading doublings
-  fe_load_coord(mine, sh_b + nibble(s, 63) * B_SLOT, q, 1);
-  coop_add(mine, a_tab + nibble(k, 63) * 40, 1, q);
-#pragma unroll 1
-  for (int w = 62; w >= 0; w--) {
-#pragma unroll 1
-    for (int i = 0; i < 4; i++) coop_dbl(mine, q);
-    coop_add(mine, sh_b + nibble(s, w) * B_SLOT, 1, q);
-    coop_add(mine, a_tab + nibble(k, w) * 40, 1, q);
-  }
+  fe mine;
+  coop_straus_base(mine, q, sh_b, tabs + (size_t)row * 16 * 40, s_bytes + 32 * row,
+                   k_bytes + 32 * row);
   coop_add(mine, tabs + ((size_t)16 * n + row) * 40, 1, q);  // - R
 #pragma unroll 1
   for (int i = 0; i < 3; i++) coop_dbl(mine, q);

@@ -14,11 +14,10 @@
 // 100 wide multiplies per product and per square. It reads 96 bytes of
 // input and at most the 4 KiB cache entry.
 //
-// Design: verify_sr.cu's, one thread per signature, with A's table read
-// from the int16 cache entry (ge_straus_base_cached in ladder.cuh) instead
-// of decoded and built into scratch. R is never decoded; the ladder's last
-// addition writes T, which the encoder reads, as the reference's
-// double_scalar_mul_base(..., final_t=True) does.
+// Design: one thread per signature, A's table read from the int16 cache
+// entry (ge_straus_base_cached in ladder.cuh). R is never decoded; the
+// ladder's last addition writes T, which the encoder reads, as the
+// reference's double_scalar_mul_base(..., final_t=True) does.
 #include <cuda_runtime.h>
 
 #include "ladder.cuh"

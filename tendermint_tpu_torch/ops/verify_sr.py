@@ -7,8 +7,11 @@ Every signature's equation
 is evaluated data-parallel across the batch with exactly the acceptance of
 the JAX package (tendermint_tpu/ops/verify_sr.py) and of the host verifier
 (crypto/sr25519.py). Ristretto255 has prime order: there is no cofactor,
-and equality is equality of encodings, so R is never decoded: the ladder's
-result is encoded and compared byte for byte with the wire R.
+and equality is equality of encodings. The plain versions encode the
+ladder's result and compare it byte for byte with the wire R, as the
+reference does; the uncached and split-hit kernels decode R instead and
+decide by RFC 9496's equality, the same function (csrc/verify_sr_cached.cu
+gives the proof).
 
 Five kernels live here, each a hand-written CUDA kernel for Hopper
 (csrc/*.cu) beside its plain PyTorch version:
@@ -28,7 +31,7 @@ CUDA tensors, the plain version for CPU tensors, a raise otherwise, and a
 
 Split of labor: the host checks the marker bit, clears it, checks s < L,
 and computes the Merlin challenges (crypto/sr25519.challenges_batch); the
-device decodes A, runs the ladder, encodes and compares.
+device decodes A, runs the ladder and decides.
 """
 
 from __future__ import annotations
@@ -67,15 +70,17 @@ def verify_sr_kernel_plain(a_enc, r_enc, s_bytes, k_bytes):
 
 
 def verify_sr_kernel(a_enc, r_enc, s_bytes, k_bytes):
-    """Uncached sr25519 bitmap: csrc/verify_sr.cu on CUDA tensors, the plain
-    version on CPU tensors."""
+    """Uncached sr25519 bitmap: csrc/verify_sr.cu on CUDA tensors (two
+    launches from one entry point, counted once: the decode step, then the
+    four-lane ladder), the plain version on CPU tensors."""
     if not _route("verify_sr_kernel", a_enc, r_enc, s_bytes, k_bytes):
         return verify_sr_kernel_plain(a_enc, r_enc, s_bytes, k_bytes)
     n = a_enc.shape[0]
     _check_rows("verify_sr_kernel", n, 32, a_enc, r_enc, s_bytes, k_bytes)
     dev = a_enc.device
     out = torch.empty(n, dtype=torch.bool, device=dev)
-    scratch = torch.empty((16 * 4 * 10, n), dtype=torch.int32, device=dev)
+    # 17 points of 40 int32 a row (-A's 16 multiples, R), then 2 n decode bytes
+    scratch = torch.empty(17 * 40 * n + (n + 1) // 2, dtype=torch.int32, device=dev)
     lib = _build.load("verify_sr")
     rc = lib.tm_verify_sr(
         a_enc.data_ptr(), r_enc.data_ptr(), s_bytes.data_ptr(), k_bytes.data_ptr(),

@@ -25,7 +25,21 @@ On top of those operations:
     equal the JAX verify_kernel's on chip_smoke.edge_batch's rows (the
     ZIP-215 edges: small-order, undecodable and non-canonical R, R plus a
     point of order 8, small-order keys, s >= L, a key that does not
-    decode) and on a row whose k is tampered after the host prep."""
+    decode) and on a row whose k is tampered after the host prep;
+  - row 2's fill (csrc/pk_tables.cu): row 12's schedule with ZIP-215
+    decoding (the kernels share coop_fill and differ only in the decoder);
+    its tables must equal the JAX build_pk_tables_split's after
+    canonicalization at S = 2, 4 and 8 on chip_smoke.edge_batch's keys
+    (small-order, y >= p, x = 0 with the sign bit, a non-point), and the
+    decode bits must equal;
+  - row 9's two-step schedule (csrc/verify_sr.cu): step 1 ristretto-decodes
+    A and R and stores -A and R; step 2 runs row 1's quad ladder
+    (coop_straus_base) and decides okA, okR and ristretto_equal(R, Q) on
+    Q's X and Y from lanes 0 and 1. Its bitmap must equal the JAX
+    verify_sr_kernel's (encode(Q) == R) on chip_smoke.sr_edge_batch's rows
+    (RFC 9496's bad encodings as keys and as R, a missing marker bit,
+    s >= L, an honest R made non-canonical, negated and random, the zero
+    row) and on a row whose k is tampered after the host prep."""
 
 import jax
 import numpy as np
@@ -36,12 +50,15 @@ import chip_smoke
 from tendermint_tpu.ops import verify as JV
 from tendermint_tpu.ops import verify_sr as JVS
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
+from tendermint_tpu_torch.crypto import sr25519 as tsr
 from tendermint_tpu_torch.ops import curve as C
 from tendermint_tpu_torch.ops import field as F
 from tendermint_tpu_torch.ops import ristretto as R
 from tendermint_tpu_torch.ops import verify as V
+from tendermint_tpu_torch.ops import verify_sr as VS
 
 import test_torch_verify_sr as TVS
+from test_torch_split_lanes import ristretto_equal
 
 # The plain versions run many small ops: one intra-op thread per test
 # worker keeps parallel workers from oversubscribing the cores.
@@ -170,10 +187,11 @@ def test_coop_add_equals_point_add(points, addend):
 # -- row 12: the sr25519 split fill --------------------------------------------
 
 
-def fill_model(a_enc, splits):
+def fill_model(a_enc, splits, decode=R.decode):
     """(B, S, 16, 4, 32) int16 canonical tables and (B,) decode bits, as
-    build_sr_tables (csrc/sr_tables.cu) computes and writes them."""
-    a_pt, ok = R.decode(V._limb_major(a_enc))
+    build_sr_tables (csrc/sr_tables.cu) computes and writes them, or, with
+    decode=C.decompress, build_tables (csrc/pk_tables.cu)."""
+    a_pt, ok = decode(V._limb_major(a_enc))
     neg = C.point_neg(a_pt)
     p = lanes(neg)
     ident = lanes(C.identity_point(a_pt.shape[2:]))
@@ -207,18 +225,32 @@ def test_sr_fill_model_matches_jax(monkeypatch, splits):
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jo))
 
 
-# -- row 1: the uncached ed25519 bitmap ------------------------------------------
+# -- row 2: the ed25519 split fill --------------------------------------------------
 
 
-def verify_model(a_enc, r_enc, s_bytes, k_bytes):
-    """(B,) bool: csrc/verify.cu's two steps on (B, 32) uint8 rows."""
-    a, r = V._limb_major(a_enc), V._limb_major(r_enc)
-    n = a.shape[1]
-    # step 1: one thread a point of -A | R
-    pts, oks = C.decompress(torch.cat([a, r], dim=1))
-    neg_a = lanes(C.point_neg(pts[..., :n]))
-    neg_r = C.point_neg(pts[..., n:])
-    # step 2: a quad a row; first -A's multiples, each lane its coordinate
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_pk_fill_model_matches_jax(monkeypatch, splits):
+    pks, _, _ = chip_smoke.edge_batch(np.random.default_rng(73), 12)
+    a = np.frombuffer(b"".join(pks), np.uint8).reshape(-1, 32)
+    monkeypatch.setattr(JV, "PK_SPLITS", splits)
+    jt, jo = jax.jit(lambda x: JV.build_pk_tables_split_impl(x))(a)
+    jt = torch.from_numpy(np.asarray(jt).astype(np.int32))
+    want = F.fe_canonical(jt.movedim(-1, 0)).movedim(0, -1).to(torch.int16)
+    got, ok = fill_model(torch.from_numpy(a.copy()), splits, decode=C.decompress)
+    assert tuple(got.shape) == (12, splits, 16, 4, 32)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jo))
+    assert not ok.all()  # the non-point key
+
+
+# -- rows 1 and 9: the uncached bitmaps -------------------------------------------
+
+
+def quad_ladder(neg_a, s_bytes, k_bytes):
+    """The quads' [s]B + [k]A' (coop_straus_base): -A's multiples 0, 2, ...,
+    15 by register additions, each lane its coordinate, then 63 windows of
+    4 doublings, B's entry and A''s entry; the four lanes' coordinates."""
+    n = neg_a[0].shape[-1]
     entries = [lanes(C.identity_point((n,))), neg_a]
     acc = neg_a
     for _ in range(14):
@@ -235,6 +267,19 @@ def verify_model(a_enc, r_enc, s_bytes, k_bytes):
             mine = coop_dbl(mine)
         mine = coop_add(mine, C._select16(base, nib_s[w]))
         mine = coop_add(mine, C._select16(a_tab, nib_k[w]))
+    return mine
+
+
+def verify_model(a_enc, r_enc, s_bytes, k_bytes):
+    """(B,) bool: csrc/verify.cu's two steps on (B, 32) uint8 rows."""
+    a, r = V._limb_major(a_enc), V._limb_major(r_enc)
+    n = a.shape[1]
+    # step 1: one thread a point of -A | R
+    pts, oks = C.decompress(torch.cat([a, r], dim=1))
+    neg_a = lanes(C.point_neg(pts[..., :n]))
+    neg_r = C.point_neg(pts[..., n:])
+    # step 2: a quad a row
+    mine = quad_ladder(neg_a, s_bytes, k_bytes)
     mine = coop_add(mine, neg_r)
     for _ in range(3):
         mine = coop_dbl(mine)
@@ -257,3 +302,41 @@ def test_verify_model_matches_jax_on_edge_rows():
     expect = list(oracle)
     expect[tampered_k] = False
     assert (got.numpy()[:len(sigs)] & pre).tolist() == expect
+
+
+def verify_sr_model(a_enc, r_enc, s_bytes, k_bytes):
+    """(B,) bool: csrc/verify_sr.cu's two steps on (B, 32) uint8 rows."""
+    a, r = V._limb_major(a_enc), V._limb_major(r_enc)
+    n = a.shape[1]
+    # step 1: one thread a point of A | R, -A stored, R as decoded
+    pts, oks = R.decode(torch.cat([a, r], dim=1))
+    neg_a = lanes(C.point_neg(pts[..., :n]))
+    r_pt = pts[..., n:]
+    # step 2: a quad a row; lane 0 decides on Q's X and Y from lanes 0, 1
+    mine = quad_ladder(neg_a, s_bytes, k_bytes)
+    return oks[:n] & oks[n:] & ristretto_equal(r_pt, mine[:2])
+
+
+def test_verify_sr_model_matches_jax_on_edge_rows():
+    rng = np.random.default_rng(74)
+    pks, msgs, sigs = chip_smoke.sr_edge_batch(rng, 30)
+    oracle = [tsr.verify(*j) for j in zip(pks, msgs, sigs)]
+    a, r, s, k, pre = VS.prepare_batch(pks, msgs, sigs)
+    tampered_k, h = [i for i in range(len(sigs)) if oracle[i]][:2]
+    k = k.copy()
+    k[tampered_k, 5] ^= 0x10
+    # row h's R made odd (p - R) and non-canonical (R + p) after the host
+    # prep, so k stays R's: decode rejects both, though the odd encoding's
+    # candidate is R's point, so only R's decode bit makes that row false
+    r_int = int.from_bytes(r[h].tobytes(), "little")
+    bad_r = [(tsr.P - r_int).to_bytes(32, "little"), (r_int + tsr.P).to_bytes(32, "little")]
+    a, s, k = (np.concatenate([x, x[[h, h]]]) for x in (a, s, k))
+    r = np.concatenate([r, np.frombuffer(b"".join(bad_r), np.uint8).reshape(2, 32)])
+    n = len(a)
+    rows = V.pad_pow2_rows([a, r, s, k], n)
+    want = np.asarray(JVS.verify_sr_kernel(*rows))
+    got = verify_sr_model(*(torch.from_numpy(np.array(x)) for x in rows))
+    np.testing.assert_array_equal(got.numpy(), want)
+    expect = list(oracle) + [False, False]
+    expect[tampered_k] = False
+    assert (got.numpy()[:n] & np.concatenate([pre, pre[[h, h]]])).tolist() == expect
