@@ -16,8 +16,10 @@ Both signature planes run the same phases, each fatal on failure:
      cache hits also with a tampered k, a slot whose oks is false, slots
      counted from the end (slot - C) and the edge slots -1, -5, -C,
      -C - 1, INT32_MIN, C, C + 3, INT32_MAX, the plain version handed the
-     same raw slots (both wrap, then clamp, as the reference's gather);
-     and the bitmap against the plane's pure-Python oracle; the cache fill
+     same raw slots (both wrap, then clamp, as the reference's gather),
+     and on sr25519 an honest R made odd and non-canonical after the host
+     prep (the bitmap and every hit); and the bitmap against the plane's
+     pure-Python oracle; the cache fill
      and hit at every pubkey-cache split (TM_TPU_PK_SPLIT 4, 1, 2, 8), and
      the cached RLC at S = 2, 4, 8; fail_count (the sharded path's fail
      count) on edge bitmaps of 1 to 10,240 rows, verdicts and 1-8 counts;
@@ -39,11 +41,13 @@ Both signature planes run the same phases, each fatal on failure:
      another commit, unpacked inside the repo), the RLC kernels, the
      uncached bitmaps (8, 2,560, 10,240 and 16,384 rows, with their
      steps), the split fills (1,024 keys at S = 2, 4, 8 and 10,240 at S =
-     4) and the single-table fills (1,024 keys), whose tables must hash
-     the same in every turn, and the split cache hits (1,024 rows at S =
-     2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 4) of that tree
-     against this one's on the same rows, in turns parent, new, new,
-     parent, each a process of its own ("ab:" lines);
+     4) and the single-table fills (1,024 and 10,240 keys), whose tables
+     must hash the same in every turn, and the cache hits (1,024 rows at
+     S = 1, 2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 1 and 4)
+     of that tree against this one's on the same rows, in turns parent,
+     new, new, parent, each a process of its own ("ab:" lines), and in
+     this tree's turns the single-table hits' two-launch layout and their
+     kernels at every block shape;
   5. the other cache geometries, S = 1, 2 and 8, each through a new cache
      of that split: verify_commit on the 150-validator commit and on the
      tampered 1,000-validator one, exact launches (the single-table
@@ -170,8 +174,9 @@ def ops_verify_cached_single(n: int) -> int:
 
 
 def ops_verify_sr_cached_single(n: int) -> int:
-    # top window add, 63 windows (the last addition with T), encode
-    return n * _ops(63 * 16 + RENCODE[0], 8 + 63 * (13 + 9 + 8) + 1 + RENCODE[1])
+    # ristretto decode of R, top window add, 63 windows (4 doublings + 2
+    # additions), ristretto_equal's 4 products
+    return n * _ops(RDECODE[0] + 63 * 16, RDECODE[1] + 8 + 63 * (13 + 9 + 8) + 4)
 
 
 def ops_msm(n: int, g: int, sr: bool = False) -> int:
@@ -603,10 +608,19 @@ def check_kernels(rng, dev, P):
                 (got.cpu().numpy() & pre) == oracle).all():
             raise AssertionError(f"{name}: kernel {got.tolist()} plain {want.tolist()}")
         _, _, rows = hit_edges(hit, hit_plain, oracle, cache_t, cache_o, slots, r_d, s_d, k_d)
+        if P.kind == "sr25519":
+            # the hits decide by R's decode bit too: the odd and non-canonical R above
+            got = hit(cache_t, cache_o, slots[[h, h]], *cuda(bad_r, s[[h, h]], k[[h, h]]))
+            want = hit_plain(cache_t, cache_o, slots[[h, h]], *cuda(bad_r, s[[h, h]], k[[h, h]]))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or bool(got.any()):
+                raise AssertionError(f"{name} on R made odd and non-canonical: kernel {got.tolist()} "
+                                     f"plain {want.tolist()}")
         errs[name] = 0
         log(f"phase 2: {name} == plain == oracle on {n} rows (both table forms); == plain with a "
             f"tampered k, oks false and slots - C wrapped at valid rows {rows}, and slots "
-            f"{edge_slots(len(cache_t))}")
+            f"{edge_slots(len(cache_t))}" + (", and == plain == False with R made odd and non-canonical"
+                                             if P.kind == "sr25519" else ""))
         caches[splits] = cache_t, cache_o, slots
 
     name = P.rlc.__name__
@@ -1118,10 +1132,12 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
 # -- phase 4 (continued): the RLC and the split hits against the parent tree --
 
 # One turn of the A/B: the RLC kernels, the uncached bitmaps, the fills and
-# the split cache hits of the tree in argv[1] (its package first on the path), timed on the inputs saved in
-# argv[3] with this script's event_ms and step_times (argv[2] is this repo's
-# root); each verdict and bitmap checked; the times, and the ptxas reports
-# of the libraries the turn built, written as JSON to argv[4].
+# the cache hits of the tree in argv[1] (its package first on the path),
+# timed on the inputs saved in argv[3] with this script's event_ms and
+# step_times (argv[2] is this repo's root); in this tree's turns also the
+# single-table hits' two-launch layout (build_two_launch_hit); each verdict
+# and bitmap checked; the times, and the ptxas reports of the libraries the
+# turn built, written as JSON to argv[4].
 AB_SCRIPT = r'''
 import hashlib
 import importlib.util
@@ -1143,7 +1159,9 @@ from tendermint_tpu_torch.ops import verify_sr as VS
 
 reports = _build.build_all(["msm", "msm_sr", "pk_tables", "sr_tables", "verify_cached",
                             "verify_sr_cached", "verify", "verify_sr", "pk_tables_single",
-                            "sr_tables_single"])
+                            "sr_tables_single", "verify_cached_single",
+                            "verify_sr_cached_single"])
+hit1 = None
 data = np.load(inputs)
 dev = torch.device("cuda", 0)
 res = {"ptxas": {name: cs.ptxas_functions(rep) for name, rep in reports.items()}, "ms": {}}
@@ -1173,18 +1191,212 @@ for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
         res["ms"][key] = {"ms": ms, "fill_sha256": digest}
     else:
         a, *args = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_HIT_COLS[:-1]]
-        fill = VS.build_sr_tables_split if sr else V.build_pk_tables_split
-        fn = VS.verify_sr_kernel_cached_split if sr else V.verify_kernel_cached_split
-        (tables, oks), fill_ms = cs.event_ms(lambda: fill(a, int(variant[1:])), 10)
+        fill, _, fn, _ = cs.cache_pair(cs.plane(plane), int(variant[1:]))
+        (tables, oks), fill_ms = cs.event_ms(lambda: fill(a), 10)
         got, ms = cs.event_ms(lambda: fn(tables, oks, *args), 10)
         if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
             raise SystemExit(f"{tree}: {key}: the bitmap differs from this tree's kernel's")
         digest = hashlib.sha256(tables.cpu().numpy().tobytes() + oks.cpu().numpy().tobytes()).hexdigest()
         res["ms"][key] = {"ms": ms, "fill_ms": fill_ms, "fill_sha256": digest}
+        if variant == "S1" and tree == root:
+            if hit1 is None:
+                hit1, res["ptxas"]["hit1_two_launch"] = cs.build_hit1_variants(out + ".d")
+            runs = {"two_launch_ms": lambda: cs.two_launch_hit(hit1["two_launch"], sr, tables, oks, *args)}
+            for w in range(1, 5):
+                runs[f"w{w}_ms"] = lambda w=w: cs.fixed_w_hit(hit1[plane], w, tables, oks, *args)
+            for label, call in runs.items():
+                got, ms = cs.event_ms(call, 10)
+                if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
+                    raise SystemExit(f"{tree}: {key}: the bitmap of {label[:-3]} differs")
+                res["ms"][key][label] = ms
 with open(out, "w") as f:
     json.dump(res, f)
 '''
 AB_TIMEOUT_S = 600
+
+# The single-table hits' other layout, timed beside them in this tree's A/B
+# turns and used nowhere else: a decode step of one thread a row writing
+# -R (ed25519) or R (sr25519) and its decode bit to scratch, then a quad a
+# row on coop.cuh's window loop under row 1's launch bound (80 registers),
+# deciding as the kernels do (csrc/verify_cached_single.cu,
+# csrc/verify_sr_cached_single.cu keep the decode in a warp beside the
+# ladder instead).
+HIT1_TWO_LAUNCH_SRC = r'''
+#include <cuda_runtime.h>
+
+#include "coop.cuh"
+#include "ristretto.cuh"
+
+template <bool SR>
+__global__ void hit1_decode(const uint8_t *r_enc, int32_t *rows, uint8_t *r_oks, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  ge p;
+  bool ok;
+  if (SR) {
+    ok = ristretto_decode(p, r_enc + 32 * i);
+  } else {
+    ok = ge_decompress(p, r_enc + 32 * i);
+    ge_neg(p, p);
+  }
+  r_oks[i] = ok ? 1 : 0;
+  ge_store_row(rows + (size_t)i * 40, p);
+}
+
+template <bool SR>
+__global__ void __launch_bounds__(128, 6)
+    hit1_ladder(const int16_t *tables, const uint8_t *oks, const int32_t *slots,
+                const uint8_t *s_bytes, const uint8_t *k_bytes, const int32_t *base_table,
+                const int32_t *rows, const uint8_t *r_oks, uint8_t *out, int n, int capacity) {
+  __shared__ int32_t sh_b[16 * B_SLOT];
+  coop_base_to_shared(sh_b, base_table);
+  const int q = threadIdx.x & 3;
+  const int row_raw = blockIdx.x * 32 + threadIdx.x / 4, row = min(row_raw, n - 1);
+  const int slot = cache_slot(slots[row], capacity);
+  const int16_t *entry = tables + (size_t)slot * 16 * 128;
+  fe mine;
+  coop_straus_with(
+      mine, q, sh_b,
+      [entry, q](fe &x, fe &y, fe &w, int e) { coop_load_cached(x, y, w, entry, e, q); },
+      s_bytes + 32 * row, k_bytes + 32 * row);
+  const int32_t *r_row = rows + (size_t)row * 40;
+  bool ok;
+  if (SR) {
+    ge qp, rp;
+    fe_shfl(qp.X, mine, 0);
+    fe_shfl(qp.Y, mine, 1);
+    fe_load_coord(rp.X, r_row, 0, 1);
+    fe_load_coord(rp.Y, r_row, 1, 1);
+    ok = ristretto_equal(rp, qp);
+  } else {
+    ok = coop_cofactored_identity(mine, q, r_row);
+  }
+  if (q == 0 && row_raw < n) out[row] = (oks[slot] && r_oks[row] && ok) ? 1 : 0;
+}
+
+template <bool SR>
+static int launch(const void *tables, const void *oks, const void *slots, const void *r_enc,
+                  const void *s_bytes, const void *k_bytes, const void *base_table,
+                  void *scratch, void *out, int n, int capacity, cudaStream_t st) {
+  int32_t *rows = (int32_t *)scratch;
+  uint8_t *r_oks = (uint8_t *)(rows + (size_t)40 * n);
+  hit1_decode<SR><<<grid_for(n, 128), 128, 0, st>>>((const uint8_t *)r_enc, rows, r_oks, n);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  hit1_ladder<SR><<<grid_for(4 * n, 128), 128, 0, st>>>(
+      (const int16_t *)tables, (const uint8_t *)oks, (const int32_t *)slots,
+      (const uint8_t *)s_bytes, (const uint8_t *)k_bytes, (const int32_t *)base_table, rows,
+      r_oks, (uint8_t *)out, n, capacity);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_hit1_two_launch(int sr, const void *tables, const void *oks, const void *slots,
+                                  const void *r_enc, const void *s_bytes, const void *k_bytes,
+                                  const void *base_table, void *scratch, void *out, int n,
+                                  int capacity, void *stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return sr ? launch<true>(tables, oks, slots, r_enc, s_bytes, k_bytes, base_table, scratch, out,
+                           n, capacity, st)
+            : launch<false>(tables, oks, slots, r_enc, s_bytes, k_bytes, base_table, scratch, out,
+                            n, capacity, st);
+}
+'''
+
+
+# An entry point appended to a single-table hit's source, taking the
+# ladder warps a block (W) from its caller instead of coop.cuh hit1_warps,
+# so that the A/B times the kernel at each block shape.
+HIT1_FIXED_W_SRC = r'''
+extern "C" int tm_hit1_fixed_w(int warps, const void *tables, const void *oks, const void *slots,
+                               const void *r_enc, const void *s_bytes, const void *k_bytes,
+                               const void *base_table, void *out, int n, int capacity,
+                               void *stream) {
+  KERNEL<<<grid_for(n, warps * HIT1_ROWS), 32 * (warps + 1), 0, (cudaStream_t)stream>>>(
+      (const int16_t *)tables, (const uint8_t *)oks, (const int32_t *)slots,
+      (const uint8_t *)r_enc, (const uint8_t *)s_bytes, (const uint8_t *)k_bytes,
+      (const int32_t *)base_table, (uint8_t *)out, n, capacity);
+  return (int)cudaGetLastError();
+}
+'''
+HIT1_KERNELS = {"ed25519": ("verify_cached_single", "verify_cached_single_rows"),
+                "sr25519": ("verify_sr_cached_single", "verify_sr_cached_single_rows")}
+
+
+def build_hit1_variants(workdir: str):
+    # the single-table hits' variants built against the imported package's
+    # csrc/ with its nvcc flags, one nvcc each, all at once: the two-launch
+    # layout (HIT1_TWO_LAUNCH_SRC) and each plane's kernel with
+    # HIT1_FIXED_W_SRC; returns ({"two_launch" or plane: loaded library},
+    # the two-launch layout's ptxas report parsed)
+    import ctypes
+
+    from tendermint_tpu_torch.ops import _build
+
+    os.makedirs(workdir, exist_ok=True)
+    sources = {"two_launch": HIT1_TWO_LAUNCH_SRC}
+    for kind, (name, kernel) in HIT1_KERNELS.items():
+        with open(_build.CSRC / f"{name}.cu") as f:
+            sources[kind] = f.read() + HIT1_FIXED_W_SRC.replace("KERNEL", kernel)
+    procs = {}
+    for kind, text in sources.items():
+        src, lib = os.path.join(workdir, f"hit1_{kind}.cu"), os.path.join(workdir, f"hit1_{kind}.so")
+        with open(src, "w") as f:
+            f.write(text)
+        procs[kind] = lib, subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-I", str(_build.CSRC), "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, report = {}, ""
+    for kind, (lib, proc) in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the single-table hit variant {kind} "
+                               f"(rc {proc.returncode}):\n{log_text}")
+        so = libs[kind] = ctypes.CDLL(lib)
+        if kind == "two_launch":
+            report = log_text
+            so.tm_hit1_two_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                                              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            so.tm_hit1_two_launch.restype = ctypes.c_int
+        else:
+            so.tm_hit1_fixed_w.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            so.tm_hit1_fixed_w.restype = ctypes.c_int
+    return libs, ptxas_functions(report)
+
+
+def fixed_w_hit(so, warps: int, tables, oks, slots, r, s, k):
+    # a single-table hit's bitmap by its kernel at W ladder warps a block
+    import torch
+
+    from tendermint_tpu_torch.ops import _build
+    from tendermint_tpu_torch.ops import verify as V
+
+    out = torch.empty(r.shape[0], dtype=torch.bool, device=r.device)
+    rc = so.tm_hit1_fixed_w(warps, tables.data_ptr(), oks.data_ptr(), slots.data_ptr(), r.data_ptr(),
+                            s.data_ptr(), k.data_ptr(), V.device_table("base", r.device).data_ptr(),
+                            out.data_ptr(), r.shape[0], tables.shape[0], _build.stream_of(r))
+    _build.check(rc, f"the single-table hit at W = {warps}")
+    return out
+
+
+def two_launch_hit(so, sr: bool, tables, oks, slots, r, s, k):
+    # the single-table hit's bitmap by the two-launch layout, on CUDA tensors
+    import torch
+
+    from tendermint_tpu_torch.ops import _build
+    from tendermint_tpu_torch.ops import verify as V
+
+    n = r.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=r.device)
+    scratch = torch.empty(40 * n + (n + 3) // 4, dtype=torch.int32, device=r.device)
+    rc = so.tm_hit1_two_launch(int(sr), tables.data_ptr(), oks.data_ptr(), slots.data_ptr(),
+                               r.data_ptr(), s.data_ptr(), k.data_ptr(),
+                               V.device_table("base", r.device).data_ptr(), scratch.data_ptr(),
+                               out.data_ptr(), n, tables.shape[0], _build.stream_of(r))
+    _build.check(rc, "the two-launch single-table hit")
+    return out
 AB_RLC_COLS = ("a", "r", "zk", "z", "zs")
 AB_HIT_COLS = ("a", "slots", "r", "s", "k", "want")
 AB_HIT_SPLITS = (2, 4, 8)
@@ -1194,14 +1406,15 @@ AB_BITMAP_COLS = ("a", "r", "s", "k", "want")
 def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
     """The A/B's inputs as named arrays: the RLC's rows of the 1,000- and
     10,000-validator commits (1,024 and 16,384), valid and tampered with
-    one z_raw; the split hits' rows of the tampered 1,000-validator commit
-    (1,024) at S = 2, 4 and 8, and of the tampered 10,000-validator one at
-    row 15's shapes (10,240 rows and the 2,560-row shard of the bad row) at
-    S = 4, each with the keys its cache holds (slot i for key i) and the
-    bitmap this tree's hit gives them; each turn fills the tables with its
-    tree's fill, timed (the split fills, rows 2 and 12, at 1,024 keys and S
-    = 2, 4, 8 and at 10,240 keys and S = 4) and hashed, for the two trees'
-    fills must write the same bytes; the same 1,024 keys for the
+    one z_raw; the cache hits' rows of the tampered 1,000-validator commit
+    (1,024) at S = 1, 2, 4 and 8, and of the tampered 10,000-validator one
+    at row 15's shapes (10,240 rows and the 2,560-row shard of the bad row)
+    at S = 1 and 4, each with the keys its cache holds (slot i for key i)
+    and the bitmap this tree's hit gives them; each turn fills the tables
+    with its tree's fill, timed (the split fills, rows 2 and 12, at 1,024
+    keys and S = 2, 4, 8 and at 10,240 keys and S = 4; the single-table
+    fills at S = 1) and hashed, for the two trees' fills must write the
+    same bytes; the same 1,024 keys for the
     single-table fills (rows 5 and 10), timed and hashed; and the uncached
     bitmaps' rows (rows 1 and 9) of the tampered 10,000-validator commit at
     16,384 (verify_commit's), 10,240 and 2,560 (row 14's) and 8 rows (the
@@ -1232,7 +1445,7 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
             want = P.bitmap(*V._to_device(rows, dev)).cpu().numpy()
             for col, x in zip(AB_BITMAP_COLS, rows + [want]):
                 arrays[f"bitmap__{kind}__{len(rows[0])}__rows__{col}"] = x
-        for n, splits_list in ((SIZES[1], AB_HIT_SPLITS), (SIZES[2], (DEFAULT_SPLITS,))):
+        for n, splits_list in ((SIZES[1], (1,) + AB_HIT_SPLITS), (SIZES[2], (1, DEFAULT_SPLITS))):
             bad = bad_index[n]
             a, r, s, k, _ = P.prepare(*commit_jobs(commits[kind][n], chain_id, bad))
             if n == SIZES[2]:  # row 15's shapes: 10,240 rows and the 2,560-row shard of the bad row
@@ -1245,12 +1458,13 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
                 arrays[f"fill1__{kind}__{len(a)}__S1__a"] = a
             (a_d,) = V._to_device([a], dev)
             for splits in splits_list:
-                tables, oks = P.fill(a_d, splits)
+                fill, _, hit, _ = cache_pair(P, splits)
+                tables, oks = fill(a_d)
                 for sl in shapes:
                     slots = np.arange(len(a), dtype=np.int32)[sl]
                     args = V._to_device([slots, r[sl], s[sl], k[sl]], dev)
                     key = f"hit__{kind}__{len(slots)}__S{splits}"
-                    want = P.hit(tables, oks, *args).cpu().numpy()
+                    want = hit(tables, oks, *args).cpu().numpy()
                     for col, x in zip(AB_HIT_COLS, (a, slots, r[sl], s[sl], k[sl], want)):
                         arrays[f"{key}__{col}"] = x
     return arrays
@@ -1260,13 +1474,17 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
     """Kernels 4 and 8, the uncached bitmaps (kernels 1 and 9, and row 14's
     shapes), the fills (the split kernels 2 and 12 and the single-table
     kernels 5 and 10, whose tables must hash the same in every turn) and
-    the split hits (kernels 3 and 13, and row 15's shapes) of the parent
-    tree (its package at `parent`) against this tree's, in turns parent,
-    new, new, parent, each turn a process of its own, on ab_inputs' rows:
-    mean ms of 10 launches by CUDA events, the RLC's and the bitmaps' steps
-    by torch.profiler. Logs each tree's ptxas report of the bitmaps, the
-    fills and the hits, one line an input, and returns the turns."""
+    the cache hits (the split kernels 3 and 13, the single-table kernels 6
+    and 11, and row 15's shapes) of the parent tree (its package at
+    `parent`) against this tree's, in turns parent, new, new, parent, each
+    turn a process of its own, on ab_inputs' rows: mean ms of 10 launches
+    by CUDA events, the RLC's and the bitmaps' steps by torch.profiler;
+    beside the single-table hits, in this tree's turns, their two-launch
+    layout (HIT1_TWO_LAUNCH_SRC) on the same rows. Logs each tree's ptxas
+    report of the bitmaps, the fills and the hits, one line an input, and
+    returns the turns."""
     import numpy as np
+    import torch
 
     inputs = os.path.join(tmp, "ab_inputs.npz")
     np.savez(inputs, **ab_inputs(planes, dev, chain_id, commits, bad_index, rng))
@@ -1286,7 +1504,8 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
     for label, res in turns:
         for name, fns in res["ptxas"].items():
             if name in ("verify_cached", "verify_sr_cached", "verify", "verify_sr", "pk_tables",
-                        "sr_tables", "pk_tables_single", "sr_tables_single"):
+                        "sr_tables", "pk_tables_single", "sr_tables_single", "verify_cached_single",
+                        "verify_sr_cached_single", "hit1_two_launch"):
                 for fn, regs, spills in fns:
                     log(f"ab: {label} tree {name}: {fn}: {regs} registers, {spills}")
     data = np.load(inputs)
@@ -1313,15 +1532,25 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
             log(f"ab: {plane} single-table fill {rows} keys, ms a call (turns 1 and 4 / 2 and 3): parent "
                 f"{ms['parent']}, new {ms['new']}; tables and decode bits byte-identical in all four turns")
         else:
-            log(f"ab: {plane} split hit {rows} rows {variant[0]} = {variant[1:]}, ms a call (turns 1 and "
-                f"4 / 2 and 3): parent {ms['parent']}, new {ms['new']}")
+            kind = "single-table hit" if variant == "S1" else "split hit"
+            log(f"ab: {plane} {kind} {rows} rows {variant[0]} = {variant[1:]}, ms a call (turns 1 and "
+                f"4 / 2 and 3): parent {ms['parent']}, new {ms['new']}; bitmaps equal in all four turns")
+            if variant == "S1":
+                new = {c: " / ".join("%.3f" % t["ms"][key][c] for lab, t in turns if lab == "new")
+                       for c in ("two_launch_ms", "w1_ms", "w2_ms", "w3_ms", "w4_ms")}
+                w = 3 if -(-int(rows) // (3 * 8)) <= torch.cuda.get_device_properties(0).multi_processor_count else 4
+                log(f"ab: {plane} single-table hit {rows} rows, ms a call (turns 2 and 3): the two-launch "
+                    f"layout (a decode step, then the quad ladder) {new['two_launch_ms']}; this tree's "
+                    f"kernel at W = 1, 2, 3, 4 ladder warps a block {new['w1_ms']}, {new['w2_ms']}, "
+                    f"{new['w3_ms']}, {new['w4_ms']} (the entry point takes W = {w}); bitmaps equal")
             digests = {t["ms"][key]["fill_sha256"] for _, t in turns}
             if len(digests) != 1:
                 raise AssertionError(f"ab: {plane} fill for {key}: the trees' tables differ ({digests})")
             if len(data[f"{key}__a"]) == int(rows):
                 fill_ms = {label: " / ".join("%.3f" % t["ms"][key]["fill_ms"] for lab, t in turns
                                              if lab == label) for label in ("parent", "new")}
-                log(f"ab: {plane} split fill {rows} keys {variant[0]} = {variant[1:]}, ms a call (turns "
+                kind = "single-table fill" if variant == "S1" else "split fill"
+                log(f"ab: {plane} {kind} {rows} keys {variant[0]} = {variant[1:]}, ms a call (turns "
                     f"1 and 4 / 2 and 3): parent {fill_ms['parent']}, new {fill_ms['new']}; tables and "
                     f"decode bits byte-identical in all four turns")
     return turns
@@ -1927,9 +2156,8 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding the kernels against their plain versions")
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="after phase 4, time the RLC kernels, the uncached bitmaps, the split fills "
-                         "and the split cache hits of the tree unpacked at DIR against this tree's, "
-                         "in turns")
+                    help="after phase 4, time the RLC kernels, the uncached bitmaps, the fills and "
+                         "the cache hits of the tree unpacked at DIR against this tree's, in turns")
     args = ap.parse_args()
 
     import torch

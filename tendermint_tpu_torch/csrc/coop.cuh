@@ -10,13 +10,16 @@
 // run, passes mask 0xF. The values equal ge_dbl's and ge_add's coordinate
 // for coordinate modulo p, T included.
 //
-// Users: the RLC tail (msm.cuh), the uncached bitmaps' ladder
-// (coop_straus_base: verify.cu, verify_sr.cu) and the split fills
-// (coop_fill: pk_tables.cu, sr_tables.cu).
+// Users: the RLC tail (msm.cuh), the quad ladder (coop_straus_with) of the
+// uncached bitmaps (coop_straus_base: verify.cu, verify_sr.cu) and of the
+// single-table cache hits (coop_load_cached: verify_cached_single.cu,
+// verify_sr_cached_single.cu), and the split fills (coop_fill:
+// pk_tables.cu, sr_tables.cu).
 #pragma once
 #include <cuda_runtime.h>
 
 #include "ge25519.cuh"
+#include "ladder.cuh"
 
 constexpr unsigned QUAD_ALL = 0xffffffffu;
 
@@ -231,19 +234,12 @@ __device__ __forceinline__ void coop_base_to_shared(int32_t *sh_b, const int32_t
   __syncthreads();
 }
 
-// mine = coordinate q of [s]B + [k]A' for one row by its quad, the ladder
-// of both uncached bitmaps (verify.cu, verify_sr.cu). a_tab is the row's 16
-// rows of 40 int32 with A' stored as entry 1: the quad first writes
-// entries 0, 2, ..., 15 (14 register additions, 42 rounds; each lane its
-// coordinate, then __syncwarp), then runs 63 Straus windows of 4 doublings
-// and 2 additions from the top (the reference's double_scalar_mul_base),
-// B's entry from sh_b (coop_base_to_shared), then A''s. The result carries
-// T. A quad past the end of the batch must run a live row's values (the
-// last row's) so that it writes that row's table with the same values.
-__device__ __forceinline__ void coop_straus_base(fe &mine, int q, const int32_t *sh_b,
-                                                 int32_t *a_tab, const uint8_t *s,
-                                                 const uint8_t *k) {
-  fe a;
+// -A's multiples 0, 2, ..., 15 of one row by its quad, beside entry 1
+// (-A) in a_tab, the row's 16 rows of 40 int32: 14 register additions, 42
+// rounds, each lane writing its coordinate, then __syncwarp so that every
+// lane may read the others' coordinates.
+__device__ __forceinline__ void coop_build_a_table(int32_t *a_tab, int q) {
+  fe a, mine;
   fe_load_coord(a, a_tab + 40, q, 1);
   if (q == 1 || q == 2)
     fe_one(mine);
@@ -257,14 +253,149 @@ __device__ __forceinline__ void coop_straus_base(fe &mine, int q, const int32_t 
     fe_store_coord(a_tab + j * 40, q, mine);
   }
   __syncwarp();
+}
+
+// mine = coordinate q of [s]B + [k]A' for one row by its quad: 63 Straus
+// windows of 4 doublings and 2 additions from the top (the reference's
+// double_scalar_mul_base), B's entry from sh_b (coop_base_to_shared), then
+// A''s, which load_a(x, y, w, j) loads: lane q's copy of X and Y of A''s
+// multiple j and its w (T on lane 2, Z on the others), as coop_add reads
+// a point. The result carries T. Every lane of the warp must call it.
+template <typename LoadA>
+__device__ __forceinline__ void coop_straus_with(fe &mine, int q, const int32_t *sh_b,
+                                                 LoadA load_a, const uint8_t *s,
+                                                 const uint8_t *k) {
+  fe x, y, w;
   // window 63 has no leading doublings
   fe_load_coord(mine, sh_b + nibble(s, 63) * B_SLOT, q, 1);
-  coop_add(mine, a_tab + nibble(k, 63) * 40, 1, q);
+  load_a(x, y, w, nibble(k, 63));
+  coop_add_xyw(mine, q, x, y, w, QUAD_ALL);
 #pragma unroll 1
-  for (int w = 62; w >= 0; w--) {
+  for (int win = 62; win >= 0; win--) {
 #pragma unroll 1
     for (int i = 0; i < 4; i++) coop_dbl(mine, q);
-    coop_add(mine, sh_b + nibble(s, w) * B_SLOT, 1, q);
-    coop_add(mine, a_tab + nibble(k, w) * 40, 1, q);
+    coop_add(mine, sh_b + nibble(s, win) * B_SLOT, 1, q);
+    load_a(x, y, w, nibble(k, win));
+    coop_add_xyw(mine, q, x, y, w, QUAD_ALL);
   }
+}
+
+// The ladder of both uncached bitmaps (verify.cu, verify_sr.cu): a_tab is
+// the row's 16 rows of 40 int32 with A' stored as entry 1; the quad builds
+// the other entries (coop_build_a_table), then runs the windows reading
+// them back. A quad past the end of the batch must run a live row's values
+// (the last row's) so that it writes that row's table with the same values.
+__device__ __forceinline__ void coop_straus_base(fe &mine, int q, const int32_t *sh_b,
+                                                 int32_t *a_tab, const uint8_t *s,
+                                                 const uint8_t *k) {
+  coop_build_a_table(a_tab, q);
+  const int32_t *tab = a_tab;
+  coop_straus_with(
+      mine, q, sh_b,
+      [tab, q](fe &x, fe &y, fe &w, int j) {
+        fe_load_coord(x, tab + j * 40, 0, 1);
+        fe_load_coord(y, tab + j * 40, 1, 1);
+        fe_load_coord(w, tab + j * 40, q == 2 ? 3 : 2, 1);
+      },
+      s, k);
+}
+
+// The single-table cache hits' loader (verify_cached_single.cu,
+// verify_sr_cached_single.cu): lane q's X, Y and w of multiple j of A',
+// read from the row's cache entry, (16, 4, 32) int16 radix-2^8 limbs,
+// modulo p (canonical bytes from the port's fill, signed limbs |l| < 2^9
+// from a JAX cache carried across by cache_from_reference).
+__device__ __forceinline__ void coop_load_cached(fe &x, fe &y, fe &w, const int16_t *entry, int j,
+                                                 int q) {
+  const int16_t *e = entry + j * 128;
+  fe_from_limbs8(x, e);
+  fe_from_limbs8(y, e + 32);
+  fe_from_limbs8(w, e + (q == 2 ? 96 : 64));
+}
+
+// Lane 0's verdict of an ed25519 hit on its row's point Q (coordinate q in
+// mine) and -R stored as a row: [8](Q - R) is the identity, X = 0 and Y =
+// Z, as verify.cu's ladder tests it (an addition and 3 doublings, every
+// lane of the warp calling).
+__device__ __forceinline__ bool coop_cofactored_identity(fe &mine, int q, const int32_t *neg_r) {
+  coop_add(mine, neg_r, 1, q);
+#pragma unroll 1
+  for (int i = 0; i < 3; i++) coop_dbl(mine, q);
+  fe y, z;
+  fe_shfl(y, mine, 1);
+  fe_shfl(z, mine, 2);
+  fe_sub(y, y, z);
+  return fe_iszero(mine) && fe_iszero(y);
+}
+
+// The single-table cache hits' blocks: W ladder warps of HIT1_ROWS rows, a
+// quad a row, and one decode warp, a lane a row, so W <= HIT1_MAX_WARPS.
+// Each of an SM's four schedulers issues for the warps it holds, and a
+// quad's chain keeps one warp's pace only while no other ladder warp
+// shares its scheduler. So hit1_warps takes W = 3 (the block's four warps
+// on the four schedulers) while the card has an SM for every block, then
+// W = 4 (a ladder warp on each scheduler, and beside one of them the
+// decode warp, which finishes early). The launch bound of HIT1_MIN_BLOCKS
+// blocks an SM holds a thread to 128 registers, so that past one block an
+// SM more blocks stay resident; the decode spills, hidden behind the
+// ladder.
+constexpr int HIT1_ROWS = 8;
+constexpr int HIT1_MAX_WARPS = 4;
+constexpr int HIT1_MIN_BLOCKS = 3;
+
+static cudaError_t hit1_warps(int n, int *warps) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *warps = grid_for(n, 3 * HIT1_ROWS) <= sms ? 3 : HIT1_MAX_WARPS;
+  return e;
+}
+
+// One block of a single-table cache hit, the body of both planes' kernels
+// (verify_cached_single.cu, verify_sr_cached_single.cu), which differ in
+// `decode(p, enc)`, R's decoder (the point each row's decision reads and
+// its decode bit), and `decide(mine, q, r_row)`, lane 0's verdict on the
+// row's point and R's stored row (every lane of a ladder warp calls it).
+// The decode warp decodes R for the block's rows into shared memory while
+// each ladder quad maps its slot (cache_slot, the reference's gather) and
+// runs the 63 windows on its cache entry (coop_straus_with with
+// coop_load_cached); after __syncthreads lane 0 of each quad writes
+// oks[slot] && R's bit && decide. A quad past the end runs the last row
+// and writes nothing, so every lane of a ladder warp reaches every shuffle.
+template <typename Decode, typename Decide>
+__device__ __forceinline__ void coop_cached_hit(Decode decode, Decide decide,
+                                                const int16_t *tables, const uint8_t *oks,
+                                                const int32_t *slots, const uint8_t *r_enc,
+                                                const uint8_t *s_bytes, const uint8_t *k_bytes,
+                                                const int32_t *base_table, uint8_t *out, int n,
+                                                int capacity) {
+  __shared__ int32_t sh_b[16 * B_SLOT];
+  __shared__ __align__(16) int32_t r_rows[HIT1_MAX_WARPS * HIT1_ROWS * 40];
+  __shared__ bool r_oks[HIT1_MAX_WARPS * HIT1_ROWS];
+  coop_base_to_shared(sh_b, base_table);
+  const int ladder_warps = blockDim.x / 32 - 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, q = lane & 3;
+  const int row0 = blockIdx.x * ladder_warps * HIT1_ROWS;
+  const int j = warp * HIT1_ROWS + lane / 4;  // the quad's row in the block
+  const int i = min(row0 + j, n - 1);
+  fe mine;
+  int slot = 0;
+  if (warp == ladder_warps) {
+    if (lane < ladder_warps * HIT1_ROWS) {
+      ge p;
+      r_oks[lane] = decode(p, r_enc + 32 * min(row0 + lane, n - 1));
+      ge_store_row(r_rows + lane * 40, p);
+    }
+  } else {
+    slot = cache_slot(slots[i], capacity);
+    const int16_t *entry = tables + (size_t)slot * 16 * 128;
+    coop_straus_with(
+        mine, q, sh_b,
+        [entry, q](fe &x, fe &y, fe &w, int e) { coop_load_cached(x, y, w, entry, e, q); },
+        s_bytes + 32 * i, k_bytes + 32 * i);
+  }
+  __syncthreads();
+  if (warp == ladder_warps) return;
+  const bool ok = decide(mine, q, r_rows + j * 40);
+  if (q == 0 && row0 + j < n) out[i] = (oks[slot] && r_oks[j] && ok) ? 1 : 0;
 }

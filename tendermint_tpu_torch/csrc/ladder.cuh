@@ -1,50 +1,14 @@
-// The per-row ladders and the cache-table writer shared by the cache
-// kernels of both signature planes: ed25519 (verify_cached.cu and the
-// single-table pk_tables_single.cu, verify_cached_single.cu) and sr25519
-// (verify_sr_cached.cu, sr_tables_single.cu, verify_sr_cached_single.cu).
-// The planes differ only in how points are decoded and compared
-// (ge25519.cuh, ristretto.cuh). The uncached bitmaps (verify.cu,
-// verify_sr.cu) and the split fills (pk_tables.cu, sr_tables.cu) run four
-// lanes a point instead (coop.cuh) and take only the helpers below.
+// What the cache kernels of both signature planes share: the split cache
+// hits' lane-parallel ladder and launch shape (verify_cached.cu,
+// verify_sr_cached.cu), the one-thread cache-table writer of the
+// single-table fills (pk_tables_single.cu, sr_tables_single.cu), and the
+// cache's geometries and slot rule, which every cache kernel reads. The
+// planes differ only in how points are decoded and compared (ge25519.cuh,
+// ristretto.cuh). The single-table hits (verify_cached_single.cu,
+// verify_sr_cached_single.cu), the uncached bitmaps and the split fills
+// run four lanes a point (coop.cuh) and take only the helpers below.
 #pragma once
 #include "ge25519.cuh"
-
-// [s]B + [k]A' for one row, 4-bit Straus windows from the top (the
-// reference's double_scalar_mul_base): B's multiples come from the
-// constant table by direct index, A''s from load_a(e, j), which loads
-// multiple j of A'. The result carries a valid T only with final_t (the
-// ristretto encoder reads it; the cofactored check does not).
-template <typename LoadA>
-__device__ __forceinline__ void ge_straus_base_with(ge &q, const int32_t *base_table, LoadA load_a,
-                                                    const uint8_t *s, const uint8_t *k,
-                                                    bool final_t) {
-  ge e;
-  // Window 63 has no leading doublings.
-  ge_from_limbs8(q, base_table + 128 * nibble(s, 63));
-  load_a(e, nibble(k, 63));
-  ge_add(q, q, e, false);
-#pragma unroll 1
-  for (int w = 62; w >= 0; w--) {
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, false);
-    ge_dbl(q, q, true);
-    ge_from_limbs8(e, base_table + 128 * nibble(s, w));
-    ge_add(q, q, e, true);
-    load_a(e, nibble(k, w));
-    ge_add(q, q, e, final_t && w == 0);
-  }
-}
-
-// The single-table cache-hit ladder: A''s 16 multiples are one cache entry,
-// (16, 4, 32) int16 radix-2^8 limbs, read modulo p (canonical from the
-// port's fill, signed from a JAX cache carried across).
-__device__ __forceinline__ void ge_straus_base_cached(ge &q, const int32_t *base_table,
-                                                      const int16_t *a_tab, const uint8_t *s,
-                                                      const uint8_t *k, bool final_t) {
-  ge_straus_base_with(q, base_table, [&](ge &e, int j) { ge_from_limbs8(e, a_tab + j * 128); }, s,
-                      k, final_t);
-}
 
 // The split cache hit's lane-parallel ladder (kernels 3 and 13): each row
 // of the batch is 2 S neighbouring lanes of a warp, split_lanes<S>::rows =

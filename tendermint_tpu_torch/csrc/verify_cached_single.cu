@@ -15,37 +15,53 @@
 // and per square. It reads 96 bytes of input and at most the 4 KiB cache
 // entry.
 //
-// Design: one thread per signature on ladder.cuh's 252-doubling ladder
-// (verify_sr.cu's), with A's table read from
-// the int16 cache entry (ge_straus_base_cached in ladder.cuh, limbs read
-// modulo p, so the JAX cache's signed limbs work as the port's canonical
-// ones) instead of decoded and built into scratch.
+// Design: the one-thread-a-row kernel ran each row as one chain of ~3,300
+// dependent products and left 1,024 rows on 8 of 132 SMs. Here a row is a
+// quad (coop.cuh coop_cached_hit, the sr25519 hit's body too): its four
+// lanes run the uncached bitmap's window loop (coop_straus_with, 63
+// windows, ~880 rounds of one product a lane) with -A's multiples read
+// straight from the int16 cache entry (coop_load_cached, limbs read modulo
+// p, so the JAX cache's signed limbs work as the port's canonical ones),
+// so no table is built. R's ZIP-215 decode (~265 products) runs in the
+// block's decode warp, a lane a row, beside the ladder warps, which then
+// add the stored -R, clear the cofactor by 3 doublings and test the
+// identity, X = 0 and Y = Z, as verify.cu's ladder does. A block is W
+// ladder warps of 8 rows and the decode warp, W = 3 or 4 by the rows and
+// the card's SMs (coop.cuh hit1_warps: no two ladder warps on one of an
+// SM's schedulers while the card has room). A row whose
+// R does not decode is decided by its decode bit, a slot whose key did not
+// decode by oks.
 #include <cuda_runtime.h>
 
-#include "ladder.cuh"
+#include "coop.cuh"
 
-__global__ void verify_cached_single_rows(const int16_t *tables, const uint8_t *oks,
-                                          const int32_t *slots, const uint8_t *r_enc,
-                                          const uint8_t *s_bytes, const uint8_t *k_bytes,
-                                          const int32_t *base_table, uint8_t *out, int n,
-                                          int capacity) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  // a slot wraps from the end, then clamps, as the reference's jnp gather does
-  const int slot = cache_slot(slots[i], capacity);
-  ge r, q;
-  const bool r_ok = ge_decompress(r, r_enc + 32 * i);
-  ge_straus_base_cached(q, base_table, tables + (size_t)slot * 16 * 128, s_bytes + 32 * i,
-                        k_bytes + 32 * i, false);
-  out[i] = (oks[slot] && r_ok && ge_cofactored_equal(q, r)) ? 1 : 0;
+__global__ void __launch_bounds__(32 * (HIT1_MAX_WARPS + 1), HIT1_MIN_BLOCKS)
+    verify_cached_single_rows(const int16_t *tables, const uint8_t *oks, const int32_t *slots,
+                              const uint8_t *r_enc, const uint8_t *s_bytes,
+                              const uint8_t *k_bytes, const int32_t *base_table, uint8_t *out,
+                              int n, int capacity) {
+  coop_cached_hit(
+      [](ge &p, const uint8_t *enc) {
+        const bool ok = ge_decompress(p, enc);
+        ge_neg(p, p);  // -R, which the quad adds
+        return ok;
+      },
+      [](fe &mine, int q, const int32_t *neg_r) {
+        return coop_cofactored_identity(mine, q, neg_r);
+      },
+      tables, oks, slots, r_enc, s_bytes, k_bytes, base_table, out, n, capacity);
 }
 
 extern "C" int tm_verify_cached(const void *tables, const void *oks, const void *slots,
                                 const void *r_enc, const void *s_bytes, const void *k_bytes,
                                 const void *base_table, void *out, int n, int capacity,
                                 void *stream) {
-  const int threads = 128;
-  verify_cached_single_rows<<<grid_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  int warps;
+  const cudaError_t e = hit1_warps(n, &warps);
+  if (e != cudaSuccess) return (int)e;
+  verify_cached_single_rows<<<grid_for(n, warps * HIT1_ROWS), 32 * (warps + 1), 0,
+                              (cudaStream_t)stream>>>(
       (const int16_t *)tables, (const uint8_t *)oks, (const int32_t *)slots,
       (const uint8_t *)r_enc, (const uint8_t *)s_bytes, (const uint8_t *)k_bytes,
       (const int32_t *)base_table, (uint8_t *)out, n, capacity);
