@@ -41,13 +41,16 @@ Both signature planes run the same phases, each fatal on failure:
      another commit, unpacked inside the repo), the RLC kernels, the
      uncached bitmaps (8, 2,560, 10,240 and 16,384 rows, with their
      steps), the split fills (1,024 keys at S = 2, 4, 8 and 10,240 at S =
-     4) and the single-table fills (1,024 and 10,240 keys), whose tables
-     must hash the same in every turn, and the cache hits (1,024 rows at
-     S = 1, 2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 1 and 4)
-     of that tree against this one's on the same rows, in turns parent,
-     new, new, parent, each a process of its own ("ab:" lines), and in
-     this tree's turns the single-table hits' two-launch layout and their
-     kernels at every block shape;
+     4) and the single-table fills (1,024, 4,096 and 10,240 keys), whose
+     tables must hash the same in every turn, and the cache hits (1,024
+     rows at S = 1, 2, 4, 8, and row 15's 10,240 and 2,560 rows at S = 1
+     and 4) of that tree against this one's on the same rows, in turns
+     parent, new, new, parent, each a process of its own ("ab:" lines), and
+     in this tree's turns the single-table hits' two-launch layout and
+     their kernels at every block shape, and both designs of the
+     single-table fills (one-lane and quad-split decoders), whose bytes
+     must equal the entry point's, with the SASS instruction counts of one
+     field product each way;
   5. the other cache geometries, S = 1, 2 and 8, each through a new cache
      of that split: verify_commit on the 150-validator commit and on the
      tampered 1,000-validator one, exact launches (the single-table
@@ -1135,9 +1138,10 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
 # the cache hits of the tree in argv[1] (its package first on the path),
 # timed on the inputs saved in argv[3] with this script's event_ms and
 # step_times (argv[2] is this repo's root); in this tree's turns also the
-# single-table hits' two-launch layout (build_two_launch_hit); each verdict
-# and bitmap checked; the times, and the ptxas reports of the libraries the
-# turn built, written as JSON to argv[4].
+# single-table hits' two-launch layout and block shapes and both designs of
+# the single-table fills (build_ab_variants), each fill's bytes held to the
+# entry point's; each verdict and bitmap checked; the times, and the ptxas
+# reports of the libraries the turn built, written as JSON to argv[4].
 AB_SCRIPT = r'''
 import hashlib
 import importlib.util
@@ -1161,10 +1165,19 @@ reports = _build.build_all(["msm", "msm_sr", "pk_tables", "sr_tables", "verify_c
                             "verify_sr_cached", "verify", "verify_sr", "pk_tables_single",
                             "sr_tables_single", "verify_cached_single",
                             "verify_sr_cached_single"])
-hit1 = None
 data = np.load(inputs)
 dev = torch.device("cuda", 0)
 res = {"ptxas": {name: cs.ptxas_functions(rep) for name, rep in reports.items()}, "ms": {}}
+variants = None
+if tree == root:
+    variants, variant_reports = cs.build_ab_variants(out + ".d")
+    res["ptxas"].update(variant_reports)
+
+
+def fill_digest(tables, oks):
+    return hashlib.sha256(tables.cpu().numpy().tobytes() + oks.cpu().numpy().tobytes()).hexdigest()
+
+
 for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
     what, plane, m, variant = key.split("__")
     sr = plane == "sr25519"
@@ -1187,8 +1200,15 @@ for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
         a = torch.from_numpy(data[f"{key}__a"]).to(dev)
         fill = VS.build_sr_tables if sr else V.build_pk_tables
         (tables, oks), ms = cs.event_ms(lambda: fill(a), 10)
-        digest = hashlib.sha256(tables.cpu().numpy().tobytes() + oks.cpu().numpy().tobytes()).hexdigest()
+        digest = fill_digest(tables, oks)
         res["ms"][key] = {"ms": ms, "fill_sha256": digest}
+        if variants is not None:
+            for label, split_decode in (("design_a_ms", False), ("design_b_ms", True)):
+                (tables, oks), ms = cs.event_ms(
+                    lambda: cs.fill1_design(variants["fill1"], split_decode, sr, a), 10)
+                if fill_digest(tables, oks) != digest:
+                    raise SystemExit(f"{tree}: {key}: {label[:-3]} writes other bytes than the entry point")
+                res["ms"][key][label] = ms
     else:
         a, *args = [torch.from_numpy(data[f"{key}__{c}"]).to(dev) for c in cs.AB_HIT_COLS[:-1]]
         fill, _, fn, _ = cs.cache_pair(cs.plane(plane), int(variant[1:]))
@@ -1196,14 +1216,11 @@ for key in sorted({f.rsplit("__", 1)[0] for f in data.files}):
         got, ms = cs.event_ms(lambda: fn(tables, oks, *args), 10)
         if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
             raise SystemExit(f"{tree}: {key}: the bitmap differs from this tree's kernel's")
-        digest = hashlib.sha256(tables.cpu().numpy().tobytes() + oks.cpu().numpy().tobytes()).hexdigest()
-        res["ms"][key] = {"ms": ms, "fill_ms": fill_ms, "fill_sha256": digest}
-        if variant == "S1" and tree == root:
-            if hit1 is None:
-                hit1, res["ptxas"]["hit1_two_launch"] = cs.build_hit1_variants(out + ".d")
-            runs = {"two_launch_ms": lambda: cs.two_launch_hit(hit1["two_launch"], sr, tables, oks, *args)}
+        res["ms"][key] = {"ms": ms, "fill_ms": fill_ms, "fill_sha256": fill_digest(tables, oks)}
+        if variant == "S1" and variants is not None:
+            runs = {"two_launch_ms": lambda: cs.two_launch_hit(variants["two_launch"], sr, tables, oks, *args)}
             for w in range(1, 5):
-                runs[f"w{w}_ms"] = lambda w=w: cs.fixed_w_hit(hit1[plane], w, tables, oks, *args)
+                runs[f"w{w}_ms"] = lambda w=w: cs.fixed_w_hit(variants[plane], w, tables, oks, *args)
             for label, call in runs.items():
                 got, ms = cs.event_ms(call, 10)
                 if not np.array_equal(got.cpu().numpy(), data[f"{key}__want"]):
@@ -1323,39 +1340,108 @@ HIT1_KERNELS = {"ed25519": ("verify_cached_single", "verify_cached_single_rows")
                 "sr25519": ("verify_sr_cached_single", "verify_sr_cached_single_rows")}
 
 
-def build_hit1_variants(workdir: str):
-    # the single-table hits' variants built against the imported package's
-    # csrc/ with its nvcc flags, one nvcc each, all at once: the two-launch
-    # layout (HIT1_TWO_LAUNCH_SRC) and each plane's kernel with
-    # HIT1_FIXED_W_SRC; returns ({"two_launch" or plane: loaded library},
-    # the two-launch layout's ptxas report parsed)
+# Both designs of the single-table fills, for this tree's A/B turns and
+# nowhere else: a quad a key on coop.cuh's coop_fill at S = 1, decoding with
+# the one-lane decoders (design A: ge_decompress, ristretto_decode, the four
+# lanes running one chain each) or with coop_decode.cuh's quad-split ones
+# (design B); csrc/pk_tables_single.cu and csrc/sr_tables_single.cu launch
+# design B. Beside them one field product a thread (fe_mul, coop_fe_mul,
+# coop_fe_sq), never launched, whose instructions cuobjdump counts.
+FILL1_DESIGNS_SRC = r'''
+#include <cuda_runtime.h>
+
+#include "coop_decode.cuh"
+
+template <int WHICH>
+__global__ void product_probe(const int32_t *in, int32_t *out) {
+  fe f, g, h;
+  fe_load_coord(f, in, 0, 1);
+  fe_load_coord(g, in, 1, 1);
+  const int q = threadIdx.x & 3;
+  if constexpr (WHICH == 0)
+    fe_mul(h, f, g);
+  else if constexpr (WHICH == 1)
+    coop_fe_mul(h, f, g, q);
+  else
+    coop_fe_sq(h, f, q);
+  fe_store_coord(out, threadIdx.x, h);
+}
+template __global__ void product_probe<0>(const int32_t *, int32_t *);
+template __global__ void product_probe<1>(const int32_t *, int32_t *);
+template __global__ void product_probe<2>(const int32_t *, int32_t *);
+
+template <bool SPLIT_DECODE, bool SR>
+__global__ void __launch_bounds__(COOP_FILL_THREADS, 10)
+    fill1_design(const uint8_t *a_enc, int16_t *tables, uint8_t *oks, int n) {
+  coop_fill(
+      [](ge &p, const uint8_t *enc) {
+        if constexpr (SR)
+          return SPLIT_DECODE ? coop_ristretto_decode(p, enc) : ristretto_decode(p, enc);
+        else
+          return SPLIT_DECODE ? coop_ge_decompress(p, enc) : ge_decompress(p, enc);
+      },
+      a_enc, tables, oks, n, 1);
+}
+
+template <bool SPLIT_DECODE, bool SR>
+static int launch(const void *a_enc, void *tables, void *oks, int n, cudaStream_t st) {
+  fill1_design<SPLIT_DECODE, SR><<<grid_for(4 * n, COOP_FILL_THREADS), COOP_FILL_THREADS, 0, st>>>(
+      (const uint8_t *)a_enc, (int16_t *)tables, (uint8_t *)oks, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_fill1_design(int split_decode, int sr, const void *a_enc, void *tables,
+                               void *oks, int n, void *stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (split_decode)
+    return sr ? launch<true, true>(a_enc, tables, oks, n, st) : launch<true, false>(a_enc, tables, oks, n, st);
+  return sr ? launch<false, true>(a_enc, tables, oks, n, st) : launch<false, false>(a_enc, tables, oks, n, st);
+}
+'''
+
+
+def build_ab_variants(workdir: str):
+    # the A/B's variants built against the imported package's csrc/ with its
+    # nvcc flags, one nvcc each, all at once: the single-table hits' two-
+    # launch layout (HIT1_TWO_LAUNCH_SRC), each plane's hit with
+    # HIT1_FIXED_W_SRC, and the single-table fills' two designs
+    # (FILL1_DESIGNS_SRC); returns ({"two_launch", "fill1" or plane: loaded
+    # library}, {"hit1_two_launch", "fill1_designs": ptxas report parsed,
+    # "fill1_sass": the fill source's SASS counts})
     import ctypes
 
     from tendermint_tpu_torch.ops import _build
 
     os.makedirs(workdir, exist_ok=True)
-    sources = {"two_launch": HIT1_TWO_LAUNCH_SRC}
+    sources = {"two_launch": HIT1_TWO_LAUNCH_SRC, "fill1": FILL1_DESIGNS_SRC}
     for kind, (name, kernel) in HIT1_KERNELS.items():
         with open(_build.CSRC / f"{name}.cu") as f:
             sources[kind] = f.read() + HIT1_FIXED_W_SRC.replace("KERNEL", kernel)
     procs = {}
     for kind, text in sources.items():
-        src, lib = os.path.join(workdir, f"hit1_{kind}.cu"), os.path.join(workdir, f"hit1_{kind}.so")
+        src, lib = os.path.join(workdir, f"variant_{kind}.cu"), os.path.join(workdir, f"variant_{kind}.so")
         with open(src, "w") as f:
             f.write(text)
         procs[kind] = lib, subprocess.Popen(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
              "-Xptxas", "-v", "-I", str(_build.CSRC), "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, report = {}, ""
+    libs, reports = {}, {}
     for kind, (lib, proc) in procs.items():
         log_text, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the single-table hit variant {kind} "
+            raise RuntimeError(f"nvcc failed for the A/B variant {kind} "
                                f"(rc {proc.returncode}):\n{log_text}")
         so = libs[kind] = ctypes.CDLL(lib)
-        if kind == "two_launch":
-            report = log_text
+        if kind == "fill1":
+            reports["fill1_designs"] = ptxas_functions(log_text)
+            reports["fill1_sass"] = sass_counts(lib)
+            so.tm_fill1_design.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                                           + [ctypes.c_int, ctypes.c_void_p])
+            so.tm_fill1_design.restype = ctypes.c_int
+        elif kind == "two_launch":
+            reports["hit1_two_launch"] = ptxas_functions(log_text)
             so.tm_hit1_two_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                                               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             so.tm_hit1_two_launch.restype = ctypes.c_int
@@ -1363,7 +1449,49 @@ def build_hit1_variants(workdir: str):
             so.tm_hit1_fixed_w.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             so.tm_hit1_fixed_w.restype = ctypes.c_int
-    return libs, ptxas_functions(report)
+    return libs, reports
+
+
+PRODUCT_PROBES = {"product_probe<0>": "fe_mul", "product_probe<1>": "coop_fe_mul",
+                  "product_probe<2>": "coop_fe_sq"}
+
+
+def sass_counts(lib: str):
+    """{kernel: {"instructions": n, opcode: n, ...}} of a library's SASS
+    (cuobjdump -sass), NOPs left out, names as ptxas_functions gives them."""
+    from tendermint_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = ptxas_functions(f"Function properties for {m.group(1)}\nUsed 0 registers")[0][0]
+            out[fn] = {"instructions": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn and m.group(1) != "NOP":
+            op = m.group(1).split(".")[0] + (".WIDE" if ".WIDE" in m.group(1) else "")
+            out[fn]["instructions"] += 1
+            out[fn][op] = out[fn].get(op, 0) + 1
+    return out
+
+
+def fill1_design(so, split_decode: bool, sr: bool, a):
+    # a single-table fill's (tables, decode bits) by design B (split_decode)
+    # or A, on CUDA tensors
+    import torch
+
+    from tendermint_tpu_torch.ops import _build
+
+    n = a.shape[0]
+    tables = torch.empty((n, 16, 4, 32), dtype=torch.int16, device=a.device)
+    oks = torch.empty(n, dtype=torch.bool, device=a.device)
+    rc = so.tm_fill1_design(int(split_decode), int(sr), a.data_ptr(), tables.data_ptr(),
+                            oks.data_ptr(), n, _build.stream_of(a))
+    _build.check(rc, f"the single-table fill's design {'B' if split_decode else 'A'}")
+    return tables, oks
 
 
 def fixed_w_hit(so, warps: int, tables, oks, slots, r, s, k):
@@ -1415,7 +1543,8 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
     keys and S = 2, 4, 8 and at 10,240 keys and S = 4; the single-table
     fills at S = 1) and hashed, for the two trees' fills must write the
     same bytes; the same 1,024 keys for the
-    single-table fills (rows 5 and 10), timed and hashed; and the uncached
+    single-table fills (rows 5 and 10), timed and hashed, and at 4,096 and
+    10,240 keys of the 10,000-validator commit; and the uncached
     bitmaps' rows (rows 1 and 9) of the tampered 10,000-validator commit at
     16,384 (verify_commit's), 10,240 and 2,560 (row 14's) and 8 rows (the
     autotune's size), with this tree's bitmap."""
@@ -1452,6 +1581,11 @@ def ab_inputs(planes, dev, chain_id, commits, bad_index, rng):
                 m, q = SV.shard_rows(n, 1), SV.shard_rows(n, 4)
                 a, r, s, k = SV._pad_rows([a, r, s, k], m)
                 shapes = (slice(0, m), slice(bad // q * q, (bad // q + 1) * q))
+                # the single-table fills at row 15's 10,240 keys and at
+                # PubkeyCache's default capacity, the largest fill a real
+                # cache takes
+                for keys in (m, 4096):
+                    arrays[f"fill1__{kind}__{keys}__S1__a"] = np.ascontiguousarray(a[:keys])
             else:
                 a, r, s, k = V.pad_pow2_rows([a, r, s, k], n)
                 shapes = (slice(0, len(a)),)
@@ -1479,10 +1613,12 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
     `parent`) against this tree's, in turns parent, new, new, parent, each
     turn a process of its own, on ab_inputs' rows: mean ms of 10 launches
     by CUDA events, the RLC's and the bitmaps' steps by torch.profiler;
-    beside the single-table hits, in this tree's turns, their two-launch
-    layout (HIT1_TWO_LAUNCH_SRC) on the same rows. Logs each tree's ptxas
-    report of the bitmaps, the fills and the hits, one line an input, and
-    returns the turns."""
+    in this tree's turns, beside the single-table hits their two-launch
+    layout (HIT1_TWO_LAUNCH_SRC) and block shapes on the same rows, and
+    beside the single-table fills both designs (FILL1_DESIGNS_SRC) on the
+    same keys. Logs each tree's ptxas report of the bitmaps, the fills and
+    the hits and the SASS counts of the fill designs and one field product,
+    one line an input, and returns the turns."""
     import numpy as np
     import torch
 
@@ -1501,13 +1637,22 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
                                  f"{(proc.stdout + proc.stderr)[-3000:]}")
         with open(out) as f:
             turns.append((label, json.load(f)))
+    logged = set()  # a tree's turns build the same variants: one line each
     for label, res in turns:
+        for fn, counts in res["ptxas"].get("fill1_sass", {}).items():
+            if (fn in PRODUCT_PROBES or fn.startswith("fill1_design")) and (label, fn) not in logged:
+                logged.add((label, fn))
+                ops = {op: n for op, n in counts.items() if op in ("IMAD", "IMAD.WIDE", "SHFL", "SEL")}
+                log(f"ab: {label} tree SASS of {PRODUCT_PROBES.get(fn, fn)}: {counts['instructions']} "
+                    f"instructions, {json.dumps(ops)}")
         for name, fns in res["ptxas"].items():
             if name in ("verify_cached", "verify_sr_cached", "verify", "verify_sr", "pk_tables",
                         "sr_tables", "pk_tables_single", "sr_tables_single", "verify_cached_single",
-                        "verify_sr_cached_single", "hit1_two_launch"):
+                        "verify_sr_cached_single", "hit1_two_launch", "fill1_designs"):
                 for fn, regs, spills in fns:
-                    log(f"ab: {label} tree {name}: {fn}: {regs} registers, {spills}")
+                    if (label, name, fn) not in logged:
+                        logged.add((label, name, fn))
+                        log(f"ab: {label} tree {name}: {fn}: {regs} registers, {spills}")
     data = np.load(inputs)
     for key in turns[0][1]["ms"]:
         ms = {label: " / ".join("%.3f" % t["ms"][key]["ms"] for lab, t in turns if lab == label)
@@ -1529,8 +1674,12 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
             digests = {t["ms"][key]["fill_sha256"] for _, t in turns}
             if len(digests) != 1:
                 raise AssertionError(f"ab: {plane} single-table fill: the trees' tables differ ({digests})")
+            designs = {c: " / ".join("%.3f" % t["ms"][key][c] for lab, t in turns if lab == "new")
+                       for c in ("design_a_ms", "design_b_ms")}
             log(f"ab: {plane} single-table fill {rows} keys, ms a call (turns 1 and 4 / 2 and 3): parent "
-                f"{ms['parent']}, new {ms['new']}; tables and decode bits byte-identical in all four turns")
+                f"{ms['parent']}, new {ms['new']}; in turns 2 and 3 design A (one-lane decoders) "
+                f"{designs['design_a_ms']}, design B (quad-split decoders) {designs['design_b_ms']}; "
+                f"tables and decode bits byte-identical in all four turns and under both designs")
         else:
             kind = "single-table hit" if variant == "S1" else "split hit"
             log(f"ab: {plane} {kind} {rows} rows {variant[0]} = {variant[1:]}, ms a call (turns 1 and "

@@ -13,8 +13,10 @@
 // Users: the RLC tail (msm.cuh), the quad ladder (coop_straus_with) of the
 // uncached bitmaps (coop_straus_base: verify.cu, verify_sr.cu) and of the
 // single-table cache hits (coop_load_cached: verify_cached_single.cu,
-// verify_sr_cached_single.cu), and the split fills (coop_fill:
-// pk_tables.cu, sr_tables.cu).
+// verify_sr_cached_single.cu), and every fill (coop_fill: the split fills
+// pk_tables.cu, sr_tables.cu and the single-table fills
+// pk_tables_single.cu, sr_tables_single.cu, whose decoders split each
+// product across the quad, coop_decode.cuh).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -154,13 +156,13 @@ __device__ __forceinline__ void coop_write_coord(int16_t *dst, const fe &v) {
 // The cache entry of a decoded, negated key at `splits` chunks of c =
 // 256/splits bits, written by its quad: lane q holds coordinate q of the
 // key's point in p and writes coordinate q of every entry, so the quad
-// writes each 256-byte entry as one contiguous run. The sequence is
-// write_power_tables' (ladder.cuh), the reference's build_power_tables:
-// per power c >= 1, c doublings (the last one's T is the one read), then
-// entries 0, P, P + P and 13 more additions of P; each entry equals the
-// one-lane fill's coordinate for coordinate modulo p, so its canonical
-// bytes are the same. Only a live quad writes; every quad of the warp
-// must call it (the point operations shuffle across the warp).
+// writes each 256-byte entry as one contiguous run. The sequence is the
+// reference's build_power_tables: per power c >= 1, c doublings (the last
+// one's T is the one read), then entries 0, P, P + P and 13 more additions
+// of P (at S = 1 the reference's _build_var_table); each entry equals the
+// one-lane formulas' (ge_dbl, ge_add) coordinate for coordinate modulo p,
+// so its canonical bytes are the same. Only a live quad writes; every quad
+// of the warp must call it (the point operations shuffle across the warp).
 __device__ __forceinline__ void coop_write_power_tables(int16_t *dst, fe p, int q, int splits,
                                                        bool live) {
   const int chunk_bits = 256 / splits;
@@ -191,11 +193,14 @@ __device__ __forceinline__ void coop_write_power_tables(int16_t *dst, fe p, int 
   }
 }
 
-// One key of a split fill by its quad, the body of both planes' fills
+// One key of a fill by its quad, the body of every fill: the split fills
 // (pk_tables.cu with ZIP-215's ge_decompress, sr_tables.cu with
-// ristretto_decode), which differ only in `decode(p, enc)`. Quad m of the
-// grid takes key m: its four lanes decode the key in lock step (the same
-// work on each lane, no divergence within the quad), lane q keeps
+// ristretto_decode) and the single-table fills at splits = 1
+// (pk_tables_single.cu, sr_tables_single.cu, with coop_decode.cuh's
+// decoders), which differ only in `decode(p, enc)`. Quad m of the grid
+// takes key m: its four lanes decode the key in lock step (the one-lane
+// decoders run the same work on each lane; the quad-split ones share each
+// product out, and every lane ends with the same point), lane q keeps
 // coordinate q of -A (X and T negated) and coop_write_power_tables writes
 // the key's cache entry. A quad past the end decodes the last key and
 // writes nothing, so every lane of the warp reaches every shuffle.

@@ -1,12 +1,10 @@
 // What the cache kernels of both signature planes share: the split cache
 // hits' lane-parallel ladder and launch shape (verify_cached.cu,
-// verify_sr_cached.cu), the one-thread cache-table writer of the
-// single-table fills (pk_tables_single.cu, sr_tables_single.cu), and the
-// cache's geometries and slot rule, which every cache kernel reads. The
-// planes differ only in how points are decoded and compared (ge25519.cuh,
-// ristretto.cuh). The single-table hits (verify_cached_single.cu,
-// verify_sr_cached_single.cu), the uncached bitmaps and the split fills
-// run four lanes a point (coop.cuh) and take only the helpers below.
+// verify_sr_cached.cu), and the cache's geometries and slot rule, which
+// every cache kernel reads. The planes differ only in how points are
+// decoded and compared (ge25519.cuh, ristretto.cuh). The single-table
+// hits, the uncached bitmaps and every fill run four lanes a point
+// (coop.cuh) and take only the helpers below.
 #pragma once
 #include "ge25519.cuh"
 
@@ -117,50 +115,6 @@ __device__ __forceinline__ void ge_split_lanes(ge &q, int lane, const int16_t *a
   for (int off = 1; off < split_lanes<S>::lanes; off <<= 1) {
     ge_shfl_xor<S>(e, q, off);
     ge_add(q, q, e, off < S);  // the last sum feeds no addition
-  }
-}
-
-// One cache entry's point, each coordinate canonical radix-2^8 (bytes
-// 0..255, inside the cache's |limb| < 2^9 contract).
-__device__ __forceinline__ void write_entry(int16_t *dst, const ge &p) {
-  const fe *c[4] = {&p.X, &p.Y, &p.Z, &p.T};
-  uint8_t b[32];
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    fe_tobytes(b, *c[k]);
-#pragma unroll
-    for (int l = 0; l < 32; l++) dst[k * 32 + l] = b[l];
-  }
-}
-
-// The cache entry of a decoded, negated key p at `splits` chunks of
-// c = 256/splits bits: the 16-multiples tables of p, [2^c]p, [2^2c]p, ...,
-// (splits, 16, 4, 32) int16 at dst; at splits = 1 the single table
-// (16, 4, 32). The reference's sequence (build_power_tables: c - 1
-// doublings without T and one with T per power, then repeated addition);
-// each entry is written as it is produced, so only the running point
-// stays live.
-__device__ __forceinline__ void write_power_tables(int16_t *dst, ge p, int splits) {
-  const int chunk_bits = 256 / splits;
-  ge acc;
-#pragma unroll 1
-  for (int c = 0; c < splits; c++) {
-    if (c > 0) {
-#pragma unroll 1
-      for (int d = 0; d < chunk_bits - 1; d++) ge_dbl(p, p, false);
-      ge_dbl(p, p, true);
-    }
-    int16_t *row = dst + (size_t)c * 16 * 128;
-    ge_identity(acc);
-    write_entry(row, acc);
-    write_entry(row + 128, p);
-    ge_add(acc, p, p, true);
-    write_entry(row + 2 * 128, acc);
-#pragma unroll 1
-    for (int j = 3; j < 16; j++) {
-      ge_add(acc, acc, p, true);
-      write_entry(row + j * 128, acc);
-    }
   }
 }
 

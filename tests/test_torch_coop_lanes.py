@@ -16,7 +16,9 @@ On top of those operations:
     then entries 0, P, P + P and 13 more register additions of P, each
     coordinate canonicalized by its lane; the tables must equal the JAX
     build_sr_tables_split's after canonicalization (the bytes the kernel
-    writes) at S = 2, 4 and 8, and the decode bits must equal;
+    writes) at S = 2, 4 and 8, and at S = 1 (row 10, csrc/sr_tables_single.cu,
+    the same body) the JAX build_sr_tables's, and the decode bits must
+    equal (test_torch_fill_quads.py models row 10's quad-split decode);
   - row 1's two-step schedule (csrc/verify.cu): step 1 decodes A and R and
     stores -A and -R; step 2 builds -A's multiples 0, 2, ..., 15 by quad
     register additions, runs the quad ladder, 63 windows of 4 doublings,
@@ -30,7 +32,8 @@ On top of those operations:
     decoding (the kernels share coop_fill and differ only in the decoder);
     its tables must equal the JAX build_pk_tables_split's after
     canonicalization at S = 2, 4 and 8 on chip_smoke.edge_batch's keys
-    (small-order, y >= p, x = 0 with the sign bit, a non-point), and the
+    (small-order, y >= p, x = 0 with the sign bit, a non-point), at S = 1
+    (row 5, csrc/pk_tables_single.cu) the JAX build_pk_tables's, and the
     decode bits must equal;
   - row 9's two-step schedule (csrc/verify_sr.cu): step 1 ristretto-decodes
     A and R and stores -A and R; step 2 runs row 1's quad ladder
@@ -212,13 +215,25 @@ def fill_model(a_enc, splits, decode=R.decode):
     return tabs.permute(4, 0, 1, 2, 3).to(torch.int16).contiguous(), ok
 
 
-@pytest.mark.parametrize("splits", [2, 4, 8])
+def _jax_fill(monkeypatch, single, split, a, splits):
+    """The JAX fill's tables, canonicalized, as (B, S, 16, 4, 32) int16, and
+    its decode bits: at S = 1 the single-table program (row 5's or row
+    10's), else the split program at PK_SPLITS = S."""
+    if splits == 1:
+        jt, jo = jax.jit(single)(a)
+        jt = jt[:, None]
+    else:
+        monkeypatch.setattr(JV, "PK_SPLITS", splits)
+        jt, jo = jax.jit(lambda x: split(x))(a)
+    jt = torch.from_numpy(np.asarray(jt).astype(np.int32))
+    return F.fe_canonical(jt.movedim(-1, 0)).movedim(0, -1).to(torch.int16), jo
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
 def test_sr_fill_model_matches_jax(monkeypatch, splits):
     a, *_ = JVS.prepare_batch(*TVS.edge_jobs())
-    monkeypatch.setattr(JV, "PK_SPLITS", splits)
-    jt, jo = jax.jit(lambda x: JVS.build_sr_tables_split_impl(x))(a)
-    jt = torch.from_numpy(np.asarray(jt).astype(np.int32))
-    want = F.fe_canonical(jt.movedim(-1, 0)).movedim(0, -1).to(torch.int16)
+    want, jo = _jax_fill(monkeypatch, JVS.build_sr_tables_impl, JVS.build_sr_tables_split_impl,
+                         a, splits)
     got, ok = fill_model(torch.from_numpy(np.array(a)), splits)
     assert tuple(got.shape) == (8, splits, 16, 4, 32)
     assert torch.equal(got, want)
@@ -228,14 +243,12 @@ def test_sr_fill_model_matches_jax(monkeypatch, splits):
 # -- row 2: the ed25519 split fill --------------------------------------------------
 
 
-@pytest.mark.parametrize("splits", [2, 4, 8])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
 def test_pk_fill_model_matches_jax(monkeypatch, splits):
     pks, _, _ = chip_smoke.edge_batch(np.random.default_rng(73), 12)
     a = np.frombuffer(b"".join(pks), np.uint8).reshape(-1, 32)
-    monkeypatch.setattr(JV, "PK_SPLITS", splits)
-    jt, jo = jax.jit(lambda x: JV.build_pk_tables_split_impl(x))(a)
-    jt = torch.from_numpy(np.asarray(jt).astype(np.int32))
-    want = F.fe_canonical(jt.movedim(-1, 0)).movedim(0, -1).to(torch.int16)
+    want, jo = _jax_fill(monkeypatch, JV.build_pk_tables_impl, JV.build_pk_tables_split_impl, a,
+                         splits)
     got, ok = fill_model(torch.from_numpy(a.copy()), splits, decode=C.decompress)
     assert tuple(got.shape) == (12, splits, 16, 4, 32)
     assert torch.equal(got, want)
