@@ -6,7 +6,8 @@
 Both signature planes run the same phases, each fatal on failure:
   1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
      print each kernel function's registers and spills as ptxas reports
-     them, and the card's name and power limit;
+     them, and the card's name and power limit; build the native host prep
+     (native/prep.c, with cc) and print its cc line;
   2. hold each kernel against its plain PyTorch version on the card on an
      edge batch (exact equality: the arithmetic is integer): tampered
      rows, the ZIP-215 edge encodings for ed25519 (small-order, undecodable
@@ -35,10 +36,15 @@ Both signature planes run the same phases, each fatal on failure:
      tampered row alone invalid; the same calls timed with CUDA events
      beside the plain version, the bound and the launches, the RLC's
      device time by step (tables, windows, reduce, tail: torch.profiler
-     by kernel name) and each uncached bitmap's (tables, ladder), the
-     host prep of the 10,000-validator commits, and the end-to-end
-     verify_commit wall times; with --ab-parent DIR (a git archive of
-     another commit, unpacked inside the repo), the RLC kernels, the
+     by kernel name) and each uncached bitmap's (tables, ladder); the
+     host prep of the 1,000- and 10,000-validator commits on both routes,
+     the native C and the Python that TM_TPU_NATIVE=0 selects, which must
+     give the same rows, precheck and RLC scalars, timed by part at 10,000
+     in turns; the valid 10,000-validator verify_commit split into the
+     commit loop, the host prep, the copies and the kernel with its sync,
+     on both routes in turns, each call held to its one RLC launch; and
+     the end-to-end verify_commit wall times; with --ab-parent DIR (a git
+     archive of another commit, unpacked inside the repo), the RLC kernels, the
      uncached bitmaps (8, 2,560, 10,240 and 16,384 rows, with their
      steps), the split fills (1,024 keys at S = 2, 4, 8 and 10,240 at S =
      4) and the single-table fills (1,024, 4,096 and 10,240 keys), whose
@@ -98,6 +104,8 @@ there is no CUDA device or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import re
@@ -633,7 +641,7 @@ def check_kernels(rng, dev, P):
         bp, bm, bs = [pks[i] for i in idx], [msgs[i] for i in idx], [sigs[i] for i in idx]
         a2, r2, s2, k2, pre2 = P.prepare(bp, bm, bs)
         z_raw = rng.bytes(16 * len(idx))
-        zk, z, zs = M._rlc_scalars_py(s2, k2, len(idx), z_raw)
+        zk, z, zs = M._rlc_scalars(s2, k2, len(idx), z_raw)
         rows = cuda(*V.pad_pow2_rows([a2, r2, zk, z], len(idx)), zs)
         got = P.rlc(*rows)
         want = P.rlc_plain(*rows)
@@ -708,7 +716,7 @@ def check_rlc_cached(rng, dev, P, caches, pks, msgs, sigs, oracle, pre, errs):
         for verdict, idx in (("valid", keep), ("tampered", keep[:-1] + [bad])):
             _, r2, s2, k2, _ = P.prepare([pks[i] for i in idx], [msgs[i] for i in idx],
                                          [sigs[i] for i in idx])
-            zk, z, zs = M._rlc_scalars_py(s2, k2, len(idx), rng.bytes(16 * len(idx)))
+            zk, z, zs = M._rlc_scalars(s2, k2, len(idx), rng.bytes(16 * len(idx)))
             r2, zk, z = V.pad_pow2_rows([r2, zk, z], len(idx))
             sl = slots[torch.tensor(idx + [idx[-1]] * (len(r2) - len(idx)), device=dev)]
             rows = V._to_device([r2, zk, z, zs], dev)
@@ -972,29 +980,166 @@ def commit_jobs(commit_entry, chain_id, bad=None):
             [commit.vote_sign_bytes(chain_id, i) for i in range(len(sigs))], sigs)
 
 
-def host_prep(P, jobs, n, z_raw):
-    """One plane's host prep of a commit, timed by part: the challenges
-    alone (a separate call), prepare_batch (challenges included) and the
-    RLC scalars."""
+@contextlib.contextmanager
+def native_setting(python: bool):
+    """TM_TPU_NATIVE=0 (the Python host prep) inside the block when python
+    is true, unset (the native C) otherwise; restored after."""
+    before = os.environ.pop("TM_TPU_NATIVE", None)
+    if python:
+        os.environ["TM_TPU_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("TM_TPU_NATIVE", None)
+        if before is not None:
+            os.environ["TM_TPU_NATIVE"] = before
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+HOST_PREP_TURNS = ("python", "native", "native", "python")
+
+
+def host_prep_route(P, jobs, n, z_raw, python: bool):
+    """One plane's host prep of a commit on one route, timed by part:
+    prepare_batch and the RLC scalars; on the Python route also the
+    challenges alone (a separate call), on the native one (ed25519) the
+    C call alone, on buffers joined before it (challenges, s < L and
+    shaping, threaded)."""
+    import ctypes
     import hashlib
 
+    import numpy as np
+
+    from tendermint_tpu_torch import native
     from tendermint_tpu_torch.crypto import sr25519 as sr
     from tendermint_tpu_torch.ops import msm as M
 
     pks, msgs, sigs = jobs
-    t0 = time.perf_counter()
-    if P.kind == "sr25519":
-        sr.challenges_batch(pks, msgs, [g[:32] for g in sigs])
-    else:
-        for p, m, g in zip(pks, msgs, sigs):
-            hashlib.sha512(g[:32] + p + m).digest()
-    t1 = time.perf_counter()
-    a, r, s_rows, k_rows, pre = P.prepare(*jobs)
-    t2 = time.perf_counter()
-    zk, z, zs = M._rlc_scalars_py(s_rows, k_rows, n, z_raw)
-    t3 = time.perf_counter()
-    split = {"challenges_s": t1 - t0, "prepare_batch_s": t2 - t1, "rlc_scalars_s": t3 - t2}
+    split = {}
+    with native_setting(python):
+        if python:
+            t0 = time.perf_counter()
+            if P.kind == "sr25519":
+                sr.challenges_batch(pks, msgs, [g[:32] for g in sigs])
+            else:
+                for p, m, g in zip(pks, msgs, sigs):
+                    hashlib.sha512(g[:32] + p + m).digest()
+            split["challenges_s"] = time.perf_counter() - t0
+        elif P.kind == "ed25519":
+            lib = native.load_prep()
+            blobs = [b"".join(x) for x in jobs]
+            offsets = native.offsets_of(msgs)
+            rows = np.zeros((4, n, 32), np.uint8)
+            pre = np.zeros(n, np.uint8)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            t0 = time.perf_counter()
+            rc = lib.prepare_batch(*blobs, offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+                                   *(x.ctypes.data_as(u8p) for x in rows), pre.ctypes.data_as(ctypes.c_char_p))
+            split["c_prepare_s"] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"native prepare_batch returned {rc}")
+        t0 = time.perf_counter()
+        a, r, s_rows, k_rows, pre = P.prepare(*jobs)
+        t1 = time.perf_counter()
+        zk, z, zs = M._rlc_scalars(s_rows, k_rows, n, z_raw)
+        t2 = time.perf_counter()
+    split.update(prepare_batch_s=t1 - t0, rlc_scalars_s=t2 - t1)
+    return (a, r, s_rows, k_rows, pre, zk, z, zs), split
+
+
+def host_prep(P, jobs, n, z_raw, timed_turns: bool):
+    """One plane's host prep of a commit on both routes, the native C and
+    the Python that TM_TPU_NATIVE=0 selects, which must give the same rows,
+    precheck and scalars byte for byte. With timed_turns, in turns
+    HOST_PREP_TURNS, the mean of each route's turns by part; else one turn
+    each. Returns the native route's (a, r, zk, z, zs, pre) and the split."""
+    import numpy as np
+
+    outs, turns = {}, {"python": [], "native": []}
+    for route in HOST_PREP_TURNS if timed_turns else ("python", "native"):
+        out, split = host_prep_route(P, jobs, n, z_raw, route == "python")
+        turns[route].append(split)
+        outs.setdefault(route, out)
+    names = ("a", "r", "s", "k", "precheck", "zk", "z", "zs")
+    diff = [name for name, x, y in zip(names, outs["python"], outs["native"])
+            if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y)]
+    if diff:
+        raise AssertionError(f"{P.kind} host prep of {n} rows: the native route differs from the Python "
+                             f"route in {diff}")
+    split = {}
+    for route, splits in turns.items():
+        for key in splits[0]:
+            split[f"{route}_{key}"] = sum(sp[key] for sp in splits) / len(splits)
+    a, r, _, _, pre, zk, z, zs = outs["native"]
     return (a, r, zk, z, zs, pre), split
+
+
+VALID_CALL_TURNS = ("python", "native", "native", "python", "python", "native")
+
+
+def valid_call_split(P, chain_id, commit_entry, kind):
+    """The valid 10,000-validator verify_commit split into the commit loop
+    (sign bytes and bv.add, up to the host prep), the host prep
+    (prepare_batch, RLC scalars), the copies to the device (synchronized)
+    and the kernel with its sync (launch to collect_rlc's end), each call
+    with the launch counts set to 0 just before it and held to one RLC
+    launch; in turns VALID_CALL_TURNS, on both host-prep routes. Returns
+    the mean split of each route."""
+    import torch
+
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    vals, bid, commit = commit_entry
+    n = SIZES[-1]
+    prep_name = "prepare_batch" if kind == "ed25519" else "prepare_batch_sr"
+    marks = {}
+
+    def wrap(name, sync=False):
+        fn = getattr(M, name)
+
+        def timed_fn(*args, **kwargs):
+            marks[f"{name}_start"] = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            marks[f"{name}_end"] = time.perf_counter()
+            return out
+        return fn, timed_fn
+
+    wrapped = {name: wrap(name, sync) for name, sync in ((prep_name, False), ("_rlc_scalars", False),
+                                                         ("_to_device", True), ("collect_rlc", False))}
+    splits = {"python": [], "native": []}
+    try:
+        for name, (_, timed_fn) in wrapped.items():
+            setattr(M, name, timed_fn)
+        for route in VALID_CALL_TURNS:
+            marks.clear()
+            with native_setting(route == "python"):
+                t0 = time.perf_counter()
+                _, t = drive(f"{kind} valid call on {n} validators ({route} host prep)",
+                             lambda: verify_commit(chain_id, vals, bid, commit.height, commit),
+                             {P.rlc.__name__: 1}, {})
+            m = {k: v - t0 for k, v in marks.items()}
+            sp = {"s": t, "commit_loop_s": m[f"{prep_name}_start"],
+                  "prepare_batch_s": m[f"{prep_name}_end"] - m[f"{prep_name}_start"],
+                  "rlc_scalars_s": m["_rlc_scalars_end"] - m["_rlc_scalars_start"],
+                  "h2d_s": m["_to_device_end"] - m["_to_device_start"],
+                  "kernel_sync_s": m["collect_rlc_end"] - m["_to_device_end"]}
+            sp["rest_s"] = sp["s"] - sum(v for k, v in sp.items() if k != "s")
+            splits[route].append(sp)
+            log(f"phase 4: {kind} valid {n}-validator call, {route} host prep, seconds: {json.dumps(sp)} "
+                f"on {card()}")
+    finally:
+        for name, (fn, _) in wrapped.items():
+            setattr(M, name, fn)
+    return {route: {key: sum(sp[key] for sp in v) / len(v) for key in v[0]} for route, v in splits.items()}
 
 
 def make_record(fn, splits, n, ms, p_ms, err, ops, nbytes, launches, int32_rate, name=None,
@@ -1106,10 +1251,14 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
         z_raw = M._ensure_z_raw(n, rng.bytes(16 * n))
         verdicts = {}
         for verdict, bad in (("valid", None), ("tampered", bad_index[n])):
-            (a, r, zk, z, zs, pre), split = host_prep(P, commit_jobs(commits[n], chain_id, bad), n, z_raw)
-            if n == SIZES[-1] and bad is None:
-                runs.append({"plane": P.kind, "commit": n, "run": "host prep of the RLC",
-                             "s": split["prepare_batch_s"] + split["rlc_scalars_s"], **split})
+            timed_prep = n == SIZES[-1] and bad is None
+            (a, r, zk, z, zs, pre), split = host_prep(P, commit_jobs(commits[n], chain_id, bad), n, z_raw,
+                                                      timed_prep)
+            if timed_prep:
+                runs.append({"plane": P.kind, "commit": n, "run": "host prep of the RLC, native route",
+                             "s": split["native_prepare_batch_s"] + split["native_rlc_scalars_s"], **split})
+                log(f"phase 4: {P.kind} host prep of the valid {n}-validator commit, the same bytes on both "
+                    f"routes, seconds (means of the turns {HOST_PREP_TURNS}): {json.dumps(split)} on {card()}")
             if not pre.all():
                 raise AssertionError(f"{P.rlc.__name__}: the {verdict} {n}-validator commit fails the precheck")
             rows = cuda(V.pad_pow2_rows([a, r, zk, z], n) + [zs])
@@ -1129,6 +1278,12 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
         log(f"phase 4: {P.rlc.__name__} verdicts at {m} rows, same z_raw: {json.dumps(verdicts)}")
         rec = make_record(P.rlc, None, m, ms, p_ms, errs[P.rlc.__name__], P.ops_rlc(m, M._streams(m)),
                           m * (32 + 32 + 32 + 16) + 32 + 1, counts[P.rlc.__name__], int32_rate)
+
+    # the valid 10,000-validator call, split, on both host-prep routes
+    n = SIZES[-1]
+    for route, sp in valid_call_split(P, chain_id, commits[n], P.kind).items():
+        runs.append({"plane": P.kind, "commit": n, "run": f"verify_commit valid, split, {route} host prep, "
+                     f"mean of {VALID_CALL_TURNS.count(route)}", **sp})
     return records + [rec]
 
 
@@ -1801,7 +1956,7 @@ def rlc_cache_path(P, dev, rng, chain_id, commits, bad_index, errs, int32_rate, 
         verdicts = {}
         for verdict, bad in (("valid", None), ("tampered", bad_index[mid])):
             _, r, s_rows, k_rows, pre = P.prepare(*commit_jobs(commits[mid], chain_id, bad))
-            zk, z, zs = M._rlc_scalars_py(s_rows, k_rows, mid, z_raw)
+            zk, z, zs = M._rlc_scalars(s_rows, k_rows, mid, z_raw)
             r, zk, z = V.pad_pow2_rows([r, zk, z], mid)
             m = len(r)
             args = V._to_device([np.pad(slots, (0, m - mid), mode="edge"), r, zk, z, zs], dev)
@@ -2159,7 +2314,7 @@ def kernels_at_sharded_shapes(planes, dev, rng, chain_id, commits, bad_index, co
         verdicts = {}
         for verdict, b in (("valid", None), ("tampered", bad)):
             a, r, s, k, _ = P.prepare(*commit_jobs(commits["ed25519"][n], chain_id, b))
-            zk, z, zs = M._rlc_scalars_py(s[lo:hi], k[lo:hi], hi - lo, z_raw[16 * lo:16 * hi])
+            zk, z, zs = M._rlc_scalars(s[lo:hi], k[lo:hi], hi - lo, z_raw[16 * lo:16 * hi])
             args = V._to_device(SV._pad_rows([a[lo:hi], r[lo:hi], zk, z], rows_n) + [zs], dev)
             if b is None:
                 got, ms = event_ms(lambda: P.rlc(*args), 5)
@@ -2317,8 +2472,11 @@ def main() -> int:
     # the exact-launch phases run with the cutovers fixed: the autotune's
     # probe launches from a thread at an unknown time (phase 8 runs it)
     os.environ["TM_TPU_AUTOTUNE"] = "off"
+    # the main path's host prep is the native one; phase 4 times both routes
+    os.environ.pop("TM_TPU_NATIVE", None)
     sys.path.insert(0, ROOT)
     try:
+        from tendermint_tpu_torch import native
         from tendermint_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
@@ -2333,9 +2491,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    card_line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card_line = card()
     clock_mhz = float(nvidia_smi("clocks.max.sm"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
@@ -2348,6 +2504,11 @@ def main() -> int:
     for name, rep in reports.items():
         for fn, regs, spills in ptxas_functions(rep):
             log(f"phase 1: {name}: {fn}: {regs} registers, {spills}")
+    t0 = time.perf_counter()
+    cmd = native.build()
+    log(f"phase 1: native host prep: `{' '.join(cmd or native.command(native.target()))}` "
+        + (f"built in {time.perf_counter() - t0:.1f} s" if cmd else "(already built)"))
+    native.load_prep()
 
     rng = np.random.default_rng(args.seed)
     planes = {kind: plane(kind) for kind in PLANES}
@@ -2398,13 +2559,12 @@ def main() -> int:
         autotune_phase(tmp)
     log(f"phase 8: the autotune in {time.perf_counter() - t0:.1f} s")
     for r in runs:
-        extra = {k: round(r[k], 4) for k in ("challenges_s", "prepare_batch_s", "rlc_scalars_s",
-                                               "uncached_s", "fill_s", "single_s", "mesh4_s") if k in r}
+        extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"
             + (f" at S={r['splits']}" if "splits" in r else "")
             + (f", mesh of {r['mesh']}" if "mesh" in r else "") + f": {r['s'] * 1e3:.1f} ms"
             + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else "")
-            + (f" {json.dumps(extra)}" if extra else ""))
+            + (f" {json.dumps(extra)}" if extra else "") + f" on {card()}")
     names = {k["name"].split("[")[0] for k in kernels}
     if names != set(KERNEL_SOURCES):
         raise AssertionError(f"kernels without a main-path record: {sorted(set(KERNEL_SOURCES) - names)}")

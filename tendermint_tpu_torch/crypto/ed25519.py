@@ -163,13 +163,21 @@ def _single_verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
     """ZIP-215 single verification. OpenSSL verifies the cofactorless
     equation over a stricter encoding set, so whatever it accepts is
     ZIP-215-valid; its rejections go to the pure-Python ZIP-215 oracle so
-    acceptance stays byte-exact (ed25519.go:24-31)."""
+    acceptance stays byte-exact (ed25519.go:24-31). Without the
+    `cryptography` package, the native library's libcrypto loop gives the
+    same OpenSSL check."""
     if _OsslPubKey is not None:
         try:
             _OsslPubKey.from_public_bytes(pub).verify(sig, msg)
             return True
         except (_InvalidSignature, ValueError):
             pass  # may still be ZIP-215-acceptable
+    elif len(pub) == 32 and len(sig) == 64:
+        from ..native import host_verify_batch
+
+        bitmap = host_verify_batch([pub], [msg], [sig])
+        if bitmap is not None and bitmap[0]:
+            return True
     return ref.verify(pub, msg, sig, zip215=True)
 
 

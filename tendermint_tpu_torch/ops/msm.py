@@ -35,6 +35,7 @@ import os
 import numpy as np
 import torch
 
+from .. import native
 from . import _build
 from . import curve as C
 from . import ristretto as R
@@ -319,7 +320,8 @@ msm_verify_sr_kernel.launches = 0
 
 
 def _rlc_scalars_py(s_rows, k_rows, n, z_raw):
-    """Randomizer math: per-signature zk = z*h mod L rows, the z rows, and
+    """Randomizer math in Python (the TM_TPU_NATIVE=0 path and the native
+    path's oracle): per-signature zk = z*h mod L rows, the z rows, and
     zs = sum z*s mod L."""
     zk = np.zeros((len(k_rows), 32), np.uint8)
     z_out = np.zeros((len(k_rows), 16), np.uint8)
@@ -333,6 +335,27 @@ def _rlc_scalars_py(s_rows, k_rows, n, z_raw):
         z_out[i] = np.frombuffer(z.to_bytes(16, "little"), np.uint8)
         zs = (zs + z * s) % L
     zs_row = np.frombuffer(zs.to_bytes(32, "little"), np.uint8).reshape(1, 32)
+    return zk, z_out, zs_row
+
+
+def _rlc_scalars(s_rows, k_rows, n, z_raw):
+    """The randomizer math, in C (native/prep.c tm_rlc_scalars) unless
+    TM_TPU_NATIVE=0; the same bytes as _rlc_scalars_py. s_rows and k_rows
+    are (B, 32) uint8 rows of which the first n are real jobs."""
+    if native.native_disabled():
+        return _rlc_scalars_py(s_rows, k_rows, n, z_raw)
+    import ctypes
+
+    lib = native.load_prep()
+    zk = np.zeros((len(k_rows), 32), np.uint8)
+    zs_row = np.zeros((1, 32), np.uint8)
+    s_c = np.ascontiguousarray(s_rows[:n])
+    k_c = np.ascontiguousarray(k_rows[:n])
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.tm_rlc_scalars(bytes(z_raw[:16 * n]), s_c.ctypes.data_as(u8p), k_c.ctypes.data_as(u8p), n,
+                       zk.ctypes.data_as(u8p), zs_row.ctypes.data_as(u8p))
+    z_out = np.zeros((len(k_rows), 16), np.uint8)
+    z_out[:n] = np.frombuffer(z_raw[:16 * n], np.uint8).reshape(n, 16)
     return zk, z_out, zs_row
 
 
@@ -362,7 +385,7 @@ def _dispatch_rlc(prepare, kernel, pubkeys, msgs, sigs, z_raw, device):
     if not precheck.all():
         return None
     z_raw = _ensure_z_raw(n, z_raw)
-    return _launch_rlc(kernel, a_enc, r_enc, *_rlc_scalars_py(s_rows, k_rows, n, z_raw), n, dev)
+    return _launch_rlc(kernel, a_enc, r_enc, *_rlc_scalars(s_rows, k_rows, n, z_raw), n, dev)
 
 
 def _launch_rlc(kernel, a_enc, r_enc, zk, z_out, zs_row, n, dev):
@@ -397,7 +420,7 @@ def verify_batch_rlc_cached_async(pubkeys, msgs, sigs, z_raw: bytes | None = Non
         return None
     slots, tables, oks = cache.ensure_snapshot(pubkeys)  # all 32 bytes: the precheck passed
     z_raw = _ensure_z_raw(n, z_raw)
-    zk, z_out, zs_row = _rlc_scalars_py(s_rows, k_rows, n, z_raw)
+    zk, z_out, zs_row = _rlc_scalars(s_rows, k_rows, n, z_raw)
     if slots is None:
         return _launch_rlc(msm_verify_kernel, a_enc, r_enc, zk, z_out, zs_row, n, cache.device)
     r_enc, zk, z_out = pad_pow2_rows([r_enc, zk, z_out], n)

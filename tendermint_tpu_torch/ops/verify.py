@@ -33,8 +33,9 @@ returns, because PyTorch's caching allocator hands that memory only to
 work queued after the kernel on the same stream.
 
 Split of labor: the host computes the SHA-512 challenges, checks s < L
-and the lengths, and pads the batch to a power of two; the device decodes
-the points, runs the ladders and the cofactored equality.
+and the lengths (native/prep.c unless TM_TPU_NATIVE=0), and pads the
+batch to a power of two; the device decodes the points, runs the ladders
+and the cofactored equality.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import native
 from . import _build
 from . import curve as C
 
@@ -592,11 +594,9 @@ def pad_pow2_rows(arrays, n: int):
     return [np.pad(a, ((0, size - n), (0, 0))) for a in arrays]
 
 
-def prepare_batch(pubkeys, msgs, sigs):
-    """Host-side shaping: (a_enc, r_enc, s_bytes, k_bytes, precheck) as
-    numpy uint8 (B, 32) rows and a (B,) bool precheck. Malformed lengths
-    and s >= L fail the precheck (their rows stay zero) instead of
-    raising."""
+def _prepare_batch_py(pubkeys, msgs, sigs):
+    """Pure-Python prep: the TM_TPU_NATIVE=0 path, the route for
+    non-standard lengths, and the oracle of the native path."""
     n = len(sigs)
     raw = np.zeros((4, n, 32), np.uint8)  # a, r, s, k rows
     precheck = np.zeros((n,), bool)
@@ -616,6 +616,49 @@ def prepare_batch(pubkeys, msgs, sigs):
         raw[3, i] = np.frombuffer(k.to_bytes(32, "little"), np.uint8)
         precheck[i] = True
     return raw[0], raw[1], raw[2], raw[3], precheck
+
+
+def _prepare_batch_native(lib, pubkeys, msgs, sigs):
+    """The C path (native/prep.c prepare_batch): one call hashes, reduces
+    and shapes the whole batch, on up to 8 threads. Keys must be 32 bytes
+    and signatures 64."""
+    import ctypes
+
+    n = len(sigs)
+    offsets = native.offsets_of(msgs)
+    rows = np.zeros((4, n, 32), np.uint8)  # a, r, s, k rows
+    pre = np.zeros(n, np.uint8)
+    as_u8 = lambda arr: arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))  # noqa: E731
+    rc = lib.prepare_batch(
+        b"".join(pubkeys), b"".join(sigs), b"".join(msgs),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+        as_u8(rows[0]), as_u8(rows[1]), as_u8(rows[2]), as_u8(rows[3]),
+        pre.ctypes.data_as(ctypes.c_char_p),
+    )
+    if rc != 0:
+        raise MemoryError(f"native prepare_batch failed (status {rc}): a message buffer "
+                          "could not be allocated")
+    return rows[0], rows[1], rows[2], rows[3], pre.astype(bool)
+
+
+def prepare_batch(pubkeys, msgs, sigs):
+    """Host-side shaping: (a_enc, r_enc, s_bytes, k_bytes, precheck) as
+    numpy uint8 (B, 32) rows and a (B,) bool precheck. Malformed lengths
+    and s >= L fail the precheck (their rows stay zero) instead of
+    raising. The native library runs it unless TM_TPU_NATIVE=0; a batch
+    with a key or signature of another length takes the Python path (the
+    C ABI packs 32-byte keys and 64-byte signatures)."""
+    n = len(sigs)
+    if (
+        n
+        and len(pubkeys) == n
+        and len(msgs) == n
+        and all(len(pk) == 32 for pk in pubkeys)
+        and all(len(sg) == 64 for sg in sigs)
+        and not native.native_disabled()
+    ):
+        return _prepare_batch_native(native.load_prep(), pubkeys, msgs, sigs)
+    return _prepare_batch_py(pubkeys, msgs, sigs)
 
 
 def _to_device(arrays, device):

@@ -27,6 +27,8 @@ versions over a mesh of n and how one card rehearses a mesh of n cards.
 from __future__ import annotations
 
 import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,6 +47,23 @@ _PLANES = {
     "sr25519": (VS.prepare_batch, VS.verify_sr_kernel, VS.sr_pubkey_cache,
                 VS.verify_sr_kernel_cached_split, VS.verify_sr_kernel_cached),
 }
+
+
+_SCALAR_POOL = None
+_SCALAR_POOL_LOCK = threading.Lock()
+
+
+def _scalar_pool() -> ThreadPoolExecutor:
+    """The shared executor of the sharded RLC's per-shard scalars (the
+    reference's): a commit check must not pay for creating threads, so
+    the pool lives for the process; the lock keeps concurrent first
+    callers from each building one."""
+    global _SCALAR_POOL
+    if _SCALAR_POOL is None:
+        with _SCALAR_POOL_LOCK:
+            if _SCALAR_POOL is None:
+                _SCALAR_POOL = ThreadPoolExecutor(max_workers=8, thread_name_prefix="ThreadPoolExecutor-rlc")
+    return _SCALAR_POOL
 
 
 def _plane(key_type: str):
@@ -287,18 +306,22 @@ def verify_batch_sharded_rlc(mesh: Mesh, pubkeys, msgs, sigs, z_raw: bytes | Non
     size = per * mesh.size
     # Each shard's scalars, its zs partial sum included, come from its own
     # slice; a shard of padding only keeps zero scalars and zs = 0. The
-    # shards are prepared in order: the reference runs them on a thread
-    # pool because its native scalar code releases the GIL, which Python
-    # integers do not; the pool returns with the port's native host prep
-    # (ROADMAP).
+    # shards run on the scalar pool: the native call releases the GIL, so
+    # they spread across cores.
     zk = np.zeros((size, 32), np.uint8)
     z = np.zeros((size, 16), np.uint8)
     zs = np.zeros((mesh.size, 1, 32), np.uint8)
-    for d in range(mesh.size):
+
+    def shard_scalars(d):
         lo, hi = d * per, min((d + 1) * per, n)
-        if lo < hi:
-            zk[lo:hi], z[lo:hi], zs[d] = M._rlc_scalars_py(
-                s_rows[lo:hi], k_rows[lo:hi], hi - lo, z_raw[16 * lo:16 * hi])
+        zk[lo:hi], z[lo:hi], zs[d] = M._rlc_scalars(
+            s_rows[lo:hi], k_rows[lo:hi], hi - lo, z_raw[16 * lo:16 * hi])
+
+    live = [d for d in range(mesh.size) if d * per < n]
+    if len(live) > 1:
+        list(_scalar_pool().map(shard_scalars, live))  # raises a shard's exception
+    else:
+        shard_scalars(0)
 
     def launch(d, dev, shard):
         (zs_d,) = V._to_device([zs[d]], dev)

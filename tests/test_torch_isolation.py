@@ -1,6 +1,7 @@
 """The port stands alone and runs on the card unless told otherwise:
 importing every module of tendermint_tpu_torch (the sr25519 plane's
-included) loads no JAX and nothing of tendermint_tpu, a default-device
+included) loads no JAX and nothing of tendermint_tpu, the native host prep
+loads the port's own library (never the reference's prep.so), a default-device
 verifier raises without CUDA instead of running on the host, and the
 cases the port does not cover yet raise."""
 
@@ -29,7 +30,7 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import tendermint_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "ops.engine",
+for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native", "ops.engine",
              "ops.ristretto", "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
@@ -40,6 +41,11 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
+from tendermint_tpu_torch import native
+native.load_prep()
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert str(native.target()) in maps and "tendermint_tpu/native/" not in maps, "prep library"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tendermint_tpu" or m.startswith("tendermint_tpu."))

@@ -5,16 +5,20 @@ the port on make_mesh(n, device="cpu"), which runs the plain versions once
 a shard. The bitmap plane on both key types at mesh sizes 1, 3 and 8,
 bitmaps and verdicts compared exactly; fail_count's plain version against
 the reference's `jnp.sum(jnp.where(ok, 0, 1))`; make_mesh's refusals; the
-shard schedule; and the launches a call makes a shard, on all three entry
-points. The cached plane and the RLC are in test_torch_sharded_cached.py."""
+shard schedule; the sharded RLC's per-shard scalars on the scalar pool at
+mesh sizes 1, 3 and 8; and the launches a call makes a shard, on all three
+entry points. The cached plane and the rest of the RLC's cases are in
+test_torch_sharded_cached.py."""
 
 import collections
+import threading
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tendermint_tpu.ops import msm as JM
 from tendermint_tpu.ops import verify as JV
 from tendermint_tpu.ops import verify_sr as JVS
 from tendermint_tpu.parallel import sharded_verify as jsv
@@ -186,6 +190,43 @@ def test_shard_rows_is_the_reference_schedule(n, shards, per):
     assert sv.shard_rows(n, shards) == per
     p = -(-n // shards)  # the reference's inline schedule
     assert per == (JV._pad_pow2(p, floor=8) if p <= 256 else -(-p // 256) * 256)
+
+
+# -- the sharded RLC's scalars ------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh_size", [1, 3, 8])
+def test_sharded_rlc_scalar_pool_matches_jax(monkeypatch, mesh_size):
+    """verify_batch_sharded_rlc with its scalars on the pool: the verdict
+    equals the JAX program's, each shard's zk, z and zs partial sum equal
+    the reference's Python scalars of its own rows (zeros on a shard of
+    padding only), and with more than one live shard every shard's
+    scalars ran on a pool thread."""
+    n = 19
+    job = seeded_jobs(148, n)
+    z_raw = np.random.default_rng(mesh_size).bytes(16 * n)
+    scalar_threads, shards = [], []
+    scalars, kernel = M._rlc_scalars, M.msm_verify_kernel
+    monkeypatch.setattr(M, "_rlc_scalars", lambda *a: scalar_threads.append(
+        threading.current_thread().name) or scalars(*a))
+    monkeypatch.setattr(M, "msm_verify_kernel", lambda *a: shards.append(
+        [x.numpy().copy() for x in a[2:]]) or kernel(*a))
+    got = sv.verify_batch_sharded_rlc(sv.make_mesh(mesh_size, device="cpu"), *job, z_raw=z_raw)
+    assert got is jsv.verify_batch_sharded_rlc(jsv.make_mesh(mesh_size), *job, z_raw=z_raw) is True
+    per = sv.shard_rows(n, mesh_size)
+    _, _, s_rows, k_rows, _ = JV._prepare_batch_py(*job)
+    assert len(shards) == mesh_size
+    for d, (zk, z, zs) in enumerate(shards):
+        lo, hi = min(d * per, n), min((d + 1) * per, n)
+        zk_w, z_w, zs_w = JM._rlc_scalars_py(s_rows[lo:hi], k_rows[lo:hi], hi - lo, z_raw[16 * lo:16 * hi])
+        pad = ((0, per - (hi - lo)), (0, 0))
+        np.testing.assert_array_equal(zk, np.pad(zk_w, pad), err_msg=f"shard {d} zk")
+        np.testing.assert_array_equal(z, np.pad(z_w, pad), err_msg=f"shard {d} z")
+        np.testing.assert_array_equal(zs, zs_w, err_msg=f"shard {d} zs")
+    live = -(-n // per)
+    assert len(scalar_threads) == live
+    pooled = [name.startswith("ThreadPoolExecutor-rlc") for name in scalar_threads]
+    assert all(pooled) if live > 1 else not any(pooled)
 
 
 # -- launches a shard ---------------------------------------------------------------
