@@ -43,7 +43,8 @@ Both signature planes run the same phases, each fatal on failure:
      in turns; the valid 10,000-validator verify_commit split into the
      commit loop, the host prep, the copies and the kernel with its sync,
      on both routes in turns, each call held to its one RLC launch; and
-     the end-to-end verify_commit wall times; with --ab-parent DIR (a git
+     the end-to-end verify_commit wall times; that call through the engine
+     against direct dispatch, in turns; with --ab-parent DIR (a git
      archive of another commit, unpacked inside the repo), the RLC kernels, the
      uncached bitmaps (8, 2,560, 10,240 and 16,384 rows, with their
      steps), the split fills (1,024 keys at S = 2, 4, 8 and 10,240 at S =
@@ -88,13 +89,33 @@ Both signature planes run the same phases, each fatal on failure:
      cutovers unpinned: a 4-signature batch verify starts the probe on
      the card, its thread is joined, and its cutovers must follow the
      reference's formula from its two timings, with no recorded
-     exception and exactly its 4 bitmap launches.
+     exception and exactly its 4 bitmap launches;
+  9. the coalescing engine (ops/engine.py) on the card: (a) on each plane,
+     three 67-validator commits, then four 1,000-validator ones with one
+     tampered, each set verified by concurrent verify_commit callers
+     queued behind a first job that holds the dispatch worker, so they
+     form one group (coalesced_group_size must show it): every caller's
+     verdict and tampered index equal direct dispatch's
+     (TM_TPU_ENGINE=off), and the launches exactly those of one call over
+     the combined rows; (b) three 20-signature jobs, 60 rows, one host
+     group, no launch; (c) in a fresh process with TM_TPU_DEVOBS=1, a valid
+     1,000-validator call copies to the card exactly its inputs' bytes,
+     residency is above zero after a cache fill, and the build events are
+     one load of each library loaded and one nvcc run and load of the one
+     kernel built; (d) wall times, engine against direct dispatch in turns,
+     beside the card's name and power limit: 8 threads x 150-validator
+     ed25519 commits (a light-client server), 4 threads x 1,000-validator
+     ones (blocksync's verify-ahead) and one 10,000-validator call, with
+     the launches a commit and the engine's overlap_ratio.
 
 Phases 3, 5, 6 and 7 are each a main path: every call in them runs with
 the launch counters set to 0 just before it and read just after, and each
-phase fails if one of its kernels never launched. They run with
+phase fails if one of its kernels never launched. They run at the
+defaults, so through the engine (TM_TPU_ENGINE unset), but with
 TM_TPU_AUTOTUNE=off, so the probe's launches, which land from a thread at
-an unknown time, stay out of their counts.
+an unknown time, stay out of their counts. Phase 4's split of the valid
+10,000-validator call instruments direct dispatch (TM_TPU_ENGINE=off) and
+then times the same call through the engine against it.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -1089,8 +1110,11 @@ def valid_call_split(P, chain_id, commit_entry, kind):
     (prepare_batch, RLC scalars), the copies to the device (synchronized)
     and the kernel with its sync (launch to collect_rlc's end), each call
     with the launch counts set to 0 just before it and held to one RLC
-    launch; in turns VALID_CALL_TURNS, on both host-prep routes. Returns
-    the mean split of each route."""
+    launch; in turns VALID_CALL_TURNS, on both host-prep routes, under
+    TM_TPU_ENGINE=off: the split instruments direct dispatch. Then the same
+    call, native route, through the engine against direct dispatch in the
+    turns ENGINE_TURNS. Returns the mean split of each route and the mean
+    wall seconds of each mode."""
     import torch
 
     from tendermint_tpu_torch.ops import msm as M
@@ -1114,14 +1138,14 @@ def valid_call_split(P, chain_id, commit_entry, kind):
         return fn, timed_fn
 
     wrapped = {name: wrap(name, sync) for name, sync in ((prep_name, False), ("_rlc_scalars", False),
-                                                         ("_to_device", True), ("collect_rlc", False))}
+                                                         ("_h2d", True), ("collect_rlc", False))}
     splits = {"python": [], "native": []}
     try:
         for name, (_, timed_fn) in wrapped.items():
             setattr(M, name, timed_fn)
         for route in VALID_CALL_TURNS:
             marks.clear()
-            with native_setting(route == "python"):
+            with native_setting(route == "python"), env_setting("TM_TPU_ENGINE", "off"):
                 t0 = time.perf_counter()
                 _, t = drive(f"{kind} valid call on {n} validators ({route} host prep)",
                              lambda: verify_commit(chain_id, vals, bid, commit.height, commit),
@@ -1130,8 +1154,8 @@ def valid_call_split(P, chain_id, commit_entry, kind):
             sp = {"s": t, "commit_loop_s": m[f"{prep_name}_start"],
                   "prepare_batch_s": m[f"{prep_name}_end"] - m[f"{prep_name}_start"],
                   "rlc_scalars_s": m["_rlc_scalars_end"] - m["_rlc_scalars_start"],
-                  "h2d_s": m["_to_device_end"] - m["_to_device_start"],
-                  "kernel_sync_s": m["collect_rlc_end"] - m["_to_device_end"]}
+                  "h2d_s": m["_h2d_end"] - m["_h2d_start"],
+                  "kernel_sync_s": m["collect_rlc_end"] - m["_h2d_end"]}
             sp["rest_s"] = sp["s"] - sum(v for k, v in sp.items() if k != "s")
             splits[route].append(sp)
             log(f"phase 4: {kind} valid {n}-validator call, {route} host prep, seconds: {json.dumps(sp)} "
@@ -1139,7 +1163,19 @@ def valid_call_split(P, chain_id, commit_entry, kind):
     finally:
         for name, (fn, _) in wrapped.items():
             setattr(M, name, fn)
-    return {route: {key: sum(sp[key] for sp in v) / len(v) for key in v[0]} for route, v in splits.items()}
+    # the same call through the engine (the default) against direct dispatch
+    walls = {"direct": [], "engine": []}
+    for mode in ENGINE_TURNS:
+        with env_setting("TM_TPU_ENGINE", "off" if mode == "direct" else None):
+            _, t = drive(f"{kind} valid call on {n} validators ({mode})",
+                         lambda: verify_commit(chain_id, vals, bid, commit.height, commit),
+                         {P.rlc.__name__: 1}, {})
+        walls[mode].append(t)
+    log(f"phase 4: {kind} valid {n}-validator call, native host prep, engine against direct dispatch "
+        f"in the turns {ENGINE_TURNS}, ms: {json.dumps({m: [round(x * 1e3, 2) for x in v] for m, v in walls.items()})} "
+        f"on {card()}")
+    return ({route: {key: sum(sp[key] for sp in v) / len(v) for key in v[0]} for route, v in splits.items()},
+            {mode: sum(v) / len(v) for mode, v in walls.items()})
 
 
 def make_record(fn, splits, n, ms, p_ms, err, ops, nbytes, launches, int32_rate, name=None,
@@ -1281,9 +1317,13 @@ def kernels_at_main_path(P, dev, rng, chain_id, commits, bad_index, counts, errs
 
     # the valid 10,000-validator call, split, on both host-prep routes
     n = SIZES[-1]
-    for route, sp in valid_call_split(P, chain_id, commits[n], P.kind).items():
+    splits, walls = valid_call_split(P, chain_id, commits[n], P.kind)
+    for route, sp in splits.items():
         runs.append({"plane": P.kind, "commit": n, "run": f"verify_commit valid, split, {route} host prep, "
                      f"mean of {VALID_CALL_TURNS.count(route)}", **sp})
+    for mode, t in walls.items():
+        runs.append({"plane": P.kind, "commit": n, "run": f"verify_commit valid, native host prep, {mode}, "
+                     f"mean of {ENGINE_TURNS.count(mode)}", "s": t})
     return records + [rec]
 
 
@@ -2454,6 +2494,368 @@ def autotune_phase(tmp):
     return rec
 
 
+# -- phase 9: the engine on the card ------------------------------------------------
+
+ENGINE_TURNS = ("direct", "engine", "engine", "direct")
+# phase 9 (a)'s groups: (validators, commits, the tampered commit or None)
+COALESCE_GROUPS = ((67, 3, None), (1000, 4, 2))
+# phase 9 (d)'s concurrent callers: (validators, threads), ed25519
+CALLER_MIXES = ((150, 8), (1000, 4))
+
+
+@contextlib.contextmanager
+def env_setting(name: str, value):
+    """os.environ[name] = value inside the block (None: unset), restored
+    after."""
+    before = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+        if before is not None:
+            os.environ[name] = before
+
+
+def engine_commits(pool, rng, keys, chain_id):
+    """Phase 9's commits, signed at set-up: each plane's groups of
+    COALESCE_GROUPS and ed25519's eight 150-validator commits; each commit
+    of one size is signed by the same validators at its own height."""
+    out = {}
+    height = 500
+    sizes = {(n, count) for n, count, _ in COALESCE_GROUPS}
+    for kind in PLANES:
+        seeds, pubs = keys[kind]
+        for n, count in sorted(sizes | ({(150, 8)} if kind == "ed25519" else set())):
+            out[kind, n] = [build_commit(pool, kind, seeds, pubs, rng, n, chain_id, height + i)
+                            for i in range(count)]
+            height += count
+    return out
+
+
+def commit_outcome(chain_id, entry):
+    """verify_commit's verdict: "accepted", or its error up to the
+    signature's hex."""
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    vals, bid, commit = entry
+    try:
+        verify_commit(chain_id, vals, bid, commit.height, commit)
+    except ValueError as e:
+        return str(e).split(":")[0]
+    return "accepted"
+
+
+def one_launch(P, pks, rows: int, valid: bool):
+    """The launches one direct call over `rows` rows of these keys makes
+    now: none below the device cutover; the cache hit (and the fill, when a
+    key is not in the cache) below the RLC cutover; the RLC, and on a bad
+    row the cache hit (and fill) after it, above."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    if rows < ed.DEVICE_BATCH_CUTOVER:
+        return {}
+    cache = P.cache()
+    bitmap = {P.hit.__name__: 1}
+    if any(pk not in cache._lru for pk in set(pks)):
+        bitmap[P.fill.__name__] = 1
+    if rows < ed.MSM_BATCH_CUTOVER:
+        return bitmap
+    return {P.rlc.__name__: 1, **({} if valid else bitmap)}
+
+
+def coalesced_on_card(kind, calls):
+    """Each call in a thread of its own while the engine's dispatch worker
+    is held by a first, one-row job, so that the calls' jobs all queue
+    before the worker takes its next group. Launch counts are set to 0 just
+    before the release and read after the last call returns. Returns (each
+    call's output, the launches, the groups the release formed as
+    (observations, jobs) of coalesced_group_size)."""
+    import threading
+
+    import torch
+
+    from tendermint_tpu_torch.metrics import engine_metrics
+    from tendermint_tpu_torch.ops import engine as E
+
+    eng = E.get_engine()
+    gate, held = threading.Event(), threading.Event()
+    dispatch_group = eng._dispatch_group
+
+    def hold(group, seq=0):
+        del eng._dispatch_group  # only this first group waits
+        held.set()
+        if not gate.wait(120):
+            raise AssertionError("phase 9: the held group was never released")
+        return dispatch_group(group, seq)
+
+    eng._dispatch_group = hold
+    blocker = eng.submit(kind, [bytes(32)], [b"hold"], [bytes(64)])  # one host row
+    if not held.wait(60):
+        raise AssertionError("phase 9: the dispatch worker never took the first job")
+    outs, errors = {}, []
+
+    def run(i, fn):
+        try:
+            outs[i] = fn()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn)) for i, fn in enumerate(calls)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    while len(eng._pending) < len(calls) and not errors:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 9: {len(eng._pending)} of {len(calls)} jobs queued")
+        time.sleep(0.001)
+    groups = engine_metrics().coalesced_group_size
+    (_, jobs0, n0), = groups.totals()  # the holding group is observed already
+    reset_counts()
+    gate.set()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"phase 9: a caller failed or hung: {errors}")
+    torch.cuda.synchronize()
+    launches = {name: c for name, c in read_counts().items() if c}
+    (_, jobs1, n1), = groups.totals()
+    blocker.result(timeout=60)
+    return [outs[i] for i in range(len(calls))], launches, (int(n1 - n0), int(jobs1 - jobs0))
+
+
+def coalescing_phase(planes, chain_id, commits9):
+    """Phase 9 (a) and (b) on each plane: the groups of COALESCE_GROUPS, each
+    submitted behind a held worker, must form one group, give each caller
+    the verdict and tampered index that direct dispatch gives it and launch
+    exactly what one direct call over the combined rows launches; three
+    20-signature jobs (60 rows, below the cutover) form one host group and
+    launch nothing."""
+    from tendermint_tpu_torch.crypto.batch import create_batch_verifier
+    from tendermint_tpu_torch.metrics import engine_metrics
+
+    for kind, P in planes.items():
+        for n, count, bad_commit in COALESCE_GROUPS:
+            entries = commits9[kind, n]
+            bad = (n * 5) // 12
+            good = entries[bad_commit][2].signatures[bad].signature if bad_commit is not None else None
+            if bad_commit is not None:
+                entries[bad_commit][2].signatures[bad].signature = tamper(good)
+            try:
+                with env_setting("TM_TPU_ENGINE", "off"):
+                    want = [commit_outcome(chain_id, e) for e in entries]
+                expect = one_launch(P, [v.pub_key.bytes() for v in entries[0][0].validators],
+                                    n * count, bad_commit is None)
+                got, launches, groups = coalesced_on_card(
+                    kind, [functools.partial(commit_outcome, chain_id, e) for e in entries])
+            finally:
+                if bad_commit is not None:
+                    entries[bad_commit][2].signatures[bad].signature = good
+            verdicts = ["accepted"] * count
+            if bad_commit is not None:
+                verdicts[bad_commit] = f"wrong signature (#{bad})"
+            if got != want or want != verdicts:
+                raise AssertionError(f"phase 9: {kind} {count} x {n}: engine {got}, direct {want}, "
+                                     f"expected {verdicts}")
+            if groups != (1, count) or launches != expect:
+                raise AssertionError(f"phase 9: {kind} {count} x {n}: groups {groups}, launched "
+                                     f"{launches}, one launch over {n * count} rows makes {expect}")
+            log(f"phase 9: {kind} {count} x {n}-validator commits as one group of {n * count} rows: "
+                f"verdicts {got} (direct dispatch's), launches {json.dumps(launches)}")
+
+        vals, _, commit = commits9[kind, COALESCE_GROUPS[0][0]][0]
+        calls = []
+        for j in range(3):
+            bv = create_batch_verifier(vals.validators[0].pub_key)
+            for i in range(20 * j, 20 * j + 20):
+                bv.add(vals.validators[i].pub_key, commit.vote_sign_bytes(chain_id, i),
+                       commit.signatures[i].signature)
+            calls.append(bv.verify)
+        def host_groups():
+            samples = engine_metrics().launches.samples()
+            return {tuple(lb.values()): v for _, lb, v in samples}.get((kind, "host"), 0)
+
+        before = host_groups()
+        got, launches, groups = coalesced_on_card(kind, calls)
+        deadline = time.monotonic() + 5  # a group is counted after its callers wake
+        while host_groups() - before < 2 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        after = host_groups()
+        if got != [(True, [True] * 20)] * 3 or launches or groups != (1, 3) or after - before != 2:
+            raise AssertionError(f"phase 9: {kind} 3 x 20 signatures: {groups} groups, launched "
+                                 f"{launches}, host groups {after - before} (with the holding one)")
+        log(f"phase 9: {kind} 3 x 20 signatures as one host group of 60 rows, no launch")
+
+
+# A fresh process with TM_TPU_DEVOBS=1: the valid 1,000-validator ed25519
+# commit's rows (argv[2], hex JSON) through the engine, a pubkey-cache fill
+# of 150 keys, a residency sample, then a build of fail_count into an empty
+# build directory (argv[4]); writes devobs' status, the sample and the
+# libraries loaded as JSON to argv[3].
+DEVOBS_SCRIPT = r"""
+import json
+import os
+import sys
+from pathlib import Path
+
+root, jobs_path, out, build_dir = sys.argv[1:5]
+os.environ["TM_TPU_DEVOBS"] = "1"
+sys.path.insert(0, root)
+from tendermint_tpu_torch import devobs
+from tendermint_tpu_torch.crypto import ed25519 as ed
+from tendermint_tpu_torch.metrics import global_registry
+from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.ops import verify as V
+
+with open(jobs_path) as f:
+    pks, msgs, sigs = ([bytes.fromhex(x) for x in col] for col in json.load(f))
+bv = ed.Ed25519BatchVerifier()
+for p, m, s in zip(pks, msgs, sigs):
+    bv.add(ed.Ed25519PubKey(p), m, s)
+before = devobs.status()
+ok, _ = bv.verify()
+call = devobs.status()
+V.pubkey_cache().ensure(pks[:150])
+sample = devobs.sample_residency()
+loaded = sorted(_build._LIBS)
+_build.BUILD_DIR = Path(build_dir)
+_build.load("fail_count")
+with open(out, "w") as f:
+    json.dump({"enabled": devobs.enabled(), "ok": ok, "before": before, "call": call,
+               "sample": sample, "loaded": loaded, "status": devobs.status(tail=256),
+               "gather": global_registry().gather()}, f)
+"""
+
+
+def devobs_phase(chain_id, entry, tmp):
+    """Phase 9 (c): devobs on the card in a fresh process. The 1,000-row
+    call's h2d bytes must equal its inputs' (the RLC's rows padded to 1,024:
+    a, r, zk of 32 bytes, z of 16, and zs, 32 bytes), its d2h the verdict's
+    byte; residency must be above zero after the cache fill, the cache
+    plane holding the cache's tables; the build events must be one load of
+    each library the process loaded and one nvcc run and one load of the
+    one kernel it built."""
+    pks, msgs, sigs = commit_jobs(entry, chain_id)
+    jobs, out = os.path.join(tmp, "devobs_jobs.json"), os.path.join(tmp, "devobs.json")
+    script, build_dir = os.path.join(tmp, "devobs.py"), os.path.join(tmp, "build")
+    os.makedirs(build_dir)
+    with open(jobs, "w") as f:
+        json.dump([[x.hex() for x in col] for col in (pks, msgs, sigs)], f)
+    with open(script, "w") as f:
+        f.write(DEVOBS_SCRIPT)
+    proc = subprocess.run([sys.executable, script, ROOT, jobs, out, build_dir], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 9 (c) failed (rc {proc.returncode}):\n{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    n = len(sigs)
+    rows = 1 << (n - 1).bit_length()
+    want_h2d = rows * (32 + 32 + 32 + 16) + 32
+    h2d = res["call"]["transfer_bytes"]["h2d"] - res["before"]["transfer_bytes"]["h2d"]
+    d2h = res["call"]["transfer_bytes"]["d2h"] - res["before"]["transfer_bytes"]["d2h"]
+    if not (res["enabled"] and res["ok"]) or (h2d, d2h) != (want_h2d, 1):
+        raise AssertionError(f"phase 9 (c): the {n}-row call copied {h2d} bytes in and {d2h} out, "
+                             f"its inputs take {want_h2d} and 1: {json.dumps(res['call'])}")
+    sample = res["sample"]
+    plane = sample["planes"].get("ed25519_pk", {})
+    if sample["live_buffer_bytes"] <= 0 or plane.get("entries", 0) < 150 or plane.get("bytes", 0) <= 0:
+        raise AssertionError(f"phase 9 (c): residency after the fill: {json.dumps(sample)}")
+    events = sorted((e["fn"], e["kind"]) for e in res["status"]["tail"])
+    want_events = sorted([(lib, "load") for lib in res["loaded"]] + [("fail_count", "nvcc"),
+                                                                     ("fail_count", "load")])
+    if events != want_events or res["status"]["compiles"] != len(want_events):
+        raise AssertionError(f"phase 9 (c): build events {events}, expected {want_events}")
+    log(f"phase 9: devobs: the valid {n}-validator call copied {h2d} bytes to the card (its inputs, "
+        f"{rows} rows) and {d2h} back; after a 150-key cache fill {sample['live_buffer_bytes']} bytes "
+        f"live, high water {sample['high_water_bytes']}, planes {json.dumps(sample['planes'])}; build "
+        f"events {json.dumps(events)} in "
+        f"{sum(e['dur_s'] for e in res['status']['tail']):.3f} s on {card()}")
+    return res
+
+
+def concurrent_turns(what, entries, chain_id, runs):
+    """Phase 9 (d): len(entries) verify_commit callers, one thread each,
+    released together, engine against direct dispatch in ENGINE_TURNS; the
+    wall time of a turn runs from the release to the last return (then a
+    synchronize). Logs and returns each mode's mean seconds and launches per
+    commit, and the engine's overlap_ratio; logs the engine turns' groups
+    and their mean queue wait, launch (dispatch stage) and collect latency
+    from EngineMetrics."""
+    import threading
+
+    import torch
+
+    from tendermint_tpu_torch.metrics import engine_metrics
+
+    m = engine_metrics()
+    stages = {"queue_wait": m.queue_wait, "launch": m.launch_latency, "collect": m.collect_latency}
+
+    def stage_totals():
+        return {k: tuple(sum(t[i] for t in h.totals()) for i in (1, 2)) for k, h in stages.items()}
+
+    times = {"direct": [], "engine": []}
+    launches = {"direct": [], "engine": []}
+    stage_sums = {k: [0.0, 0.0] for k in stages}
+    for mode in ENGINE_TURNS:
+        before = stage_totals()
+        with env_setting("TM_TPU_ENGINE", "off" if mode == "direct" else None):
+            start = threading.Barrier(len(entries) + 1)
+            outs = []
+
+            def call(entry, start=start, outs=outs):
+                start.wait(timeout=60)
+                outs.append(commit_outcome(chain_id, entry))
+
+            threads = [threading.Thread(target=call, args=(e,)) for e in entries]
+            for t in threads:
+                t.start()
+            torch.cuda.synchronize()
+            reset_counts()
+            start.wait(timeout=60)
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join(timeout=300)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or outs != ["accepted"] * len(entries):
+            raise AssertionError(f"phase 9: {what} ({mode}): {outs}")
+        times[mode].append(t)
+        launches[mode].append(sum(read_counts().values()) / len(entries))
+        if mode == "engine":
+            for k, (total, count) in stage_totals().items():
+                stage_sums[k][0] += total - before[k][0]
+                stage_sums[k][1] += count - before[k][1]
+    ratio = next((v for _, _, v in m.overlap_ratio.samples()), 0.0)
+    groups = int(stage_sums["launch"][1])
+    stage_ms = {k: round(total / count * 1e3, 3) if count else None
+                for k, (total, count) in stage_sums.items()}
+    mean = {mode: sum(v) / len(v) for mode, v in times.items()}
+    per = {mode: sum(v) / len(v) for mode, v in launches.items()}
+    log(f"phase 9: {what}: engine {mean['engine'] * 1e3:.2f} ms, direct {mean['direct'] * 1e3:.2f} ms "
+        f"(means of the turns {ENGINE_TURNS}; each turn "
+        f"{json.dumps({m: [round(x * 1e3, 2) for x in v] for m, v in times.items()})} ms), launches a "
+        f"commit engine {per['engine']:.3f} direct {per['direct']:.3f}, overlap_ratio {ratio:.4f}; "
+        f"the engine turns' {groups} groups, mean ms a group {json.dumps(stage_ms)} on {card()}")
+    for mode in times:
+        runs.append({"plane": "ed25519", "commit": len(entries[0][0].validators),
+                     "run": f"{what}, {mode}, mean of {ENGINE_TURNS.count(mode)}", "s": mean[mode],
+                     "launches_per_commit": per[mode]})
+    return mean, per, ratio
+
+
+def engine_phase(planes, chain_id, commits, commits9, runs, tmp):
+    """Phase 9: the engine on the card, (a) to (d)."""
+    coalescing_phase(planes, chain_id, commits9)
+    devobs_phase(chain_id, commits["ed25519"][SIZES[1]], tmp)
+    for n, threads in CALLER_MIXES:
+        concurrent_turns(f"{threads} threads x {n}-validator ed25519 commits", commits9["ed25519", n][:threads],
+                         chain_id, runs)
+    n = SIZES[-1]
+    concurrent_turns(f"one {n}-validator ed25519 call", [commits["ed25519"][n]], chain_id, runs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -2531,6 +2933,9 @@ def main() -> int:
             keys[kind] = seeds, make_keys(pool, kind, seeds)
             log(f"phase 3: {len(seeds)} {kind} validator keys in {time.perf_counter() - t0:.1f} s")
         commits, bad_index, counts, runs = main_path(pool, rng, keys, chain_id)
+        t0 = time.perf_counter()
+        commits9 = engine_commits(pool, rng, keys, chain_id)
+        log(f"phase 9: its commits signed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
@@ -2558,6 +2963,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         autotune_phase(tmp)
     log(f"phase 8: the autotune in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        engine_phase(planes, chain_id, commits, commits9, runs, tmp)
+    log(f"phase 9: the engine in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

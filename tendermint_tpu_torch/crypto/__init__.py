@@ -65,6 +65,12 @@ class BatchVerifier(ABC):
     """Accumulate (pubkey, msg, sig) triples, then verify all at once
     (ref: crypto/crypto.go:69-80)."""
 
+    # optional journey tag (trace.journey_key string): a caller that
+    # verifies on behalf of one chain event (a commit at a height) sets it,
+    # so the engine's coalesced dispatch and collect spans stay attributable
+    # to that event even when its job shares a launch with others
+    journey: str | None = None
+
     @abstractmethod
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
         """Queue a verification job. Raises on malformed inputs."""

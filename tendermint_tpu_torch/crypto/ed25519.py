@@ -6,8 +6,13 @@ SHA256(pubkey)[:20]. Single verification uses ZIP-215 semantics
 (ed25519.go:24-31); batch verification runs the port's device plane with
 identical acceptance.
 
-Routing of a batch of n signatures (direct dispatch):
-  - n < DEVICE_BATCH_CUTOVER, or TM_TPU_CRYPTO=off: serial host checks;
+TM_TPU_ENGINE=auto (the default), unset or on sends each batch to the
+coalescing engine (ops/engine.py), which merges concurrent callers' batches
+into one launch; off runs the direct dispatch below, per caller. Both route
+a batch (the engine: a coalesced group) of n signatures the same way, with
+the same device branch (`device_dispatch`):
+  - n < DEVICE_BATCH_CUTOVER, or TM_TPU_CRYPTO=off: on the host (direct:
+    serial checks; the engine: its threaded host plane);
   - n >= MSM_BATCH_CUTOVER (with TM_TPU_MSM on): the RLC all-valid check
     first, and the bitmap plane only when it fails; with TM_TPU_MSM_CACHE=on
     (default off) and the pubkey cache on, the RLC reads A from the cache;
@@ -15,15 +20,15 @@ Routing of a batch of n signatures (direct dispatch):
     (TM_TPU_PK_CACHE, default on), which falls back to the uncached kernel
     when a batch has more distinct keys than the cache holds.
 TM_TPU_CRYPTO=auto (the default) and on both mean the card: with no card
-the verifier raises instead of running on the host. TM_TPU_ENGINE=auto (the
-default) or unset is this direct dispatch; an explicit TM_TPU_ENGINE=on
-raises, since the coalescing engine comes with a later slice of the port.
+the verifier raises instead of running on the host. Verdicts are the same
+on both schedules.
 """
 
 from __future__ import annotations
 
 import os
 
+from .. import trace as _trace
 from . import BatchVerifier, PrivKey, PubKey, address_hash
 from . import ed25519_ref as ref
 
@@ -137,19 +142,6 @@ def _msm_cache_enabled() -> bool:
     return _flag("TM_TPU_MSM_CACHE", "off", False)
 
 
-def _engine_setting() -> None:
-    """TM_TPU_ENGINE: auto (the default) or unset runs the direct dispatch
-    below, which is what the reference's engine computes, scheduled per
-    caller; off asks for direct dispatch by name. An explicit on asks for
-    the coalescing engine (tendermint_tpu/ops/engine.py), which this slice
-    does not cover, so it raises instead of quietly running direct."""
-    if _flag("TM_TPU_ENGINE", "auto", False):
-        raise NotImplementedError(
-            "TM_TPU_ENGINE=on: the coalescing verify engine (ops/engine.py) comes "
-            "with the port's engine slice; unset it or use auto for direct dispatch"
-        )
-
-
 try:  # native (OpenSSL) fast path for single verification
     from cryptography.exceptions import InvalidSignature as _InvalidSignature
     from cryptography.hazmat.primitives.asymmetric.ed25519 import (
@@ -212,67 +204,110 @@ class Ed25519BatchVerifier(BatchVerifier):
         return self.verify_async()()
 
     def verify_async(self):
-        """Launch now, return a completion callable: callers overlap the
-        kernels with host work. The host path completes eagerly."""
-        from ..ops import msm, verify
-
-        def rlc_async(pks, msgs, sigs, device):
-            if _pk_cache_enabled() and _msm_cache_enabled():
-                return msm.verify_batch_rlc_cached_async(pks, msgs, sigs, device=device)
-            return msm.verify_batch_rlc_async(pks, msgs, sigs, device=device)
-
-        return dispatch_batch(self._pks, self._msgs, self._sigs, self.device, verify, rlc_async,
-                              _single_verify)
+        """Dispatch now, return a completion callable yielding (all_ok,
+        bools): callers overlap the kernels with host work. Through the
+        engine unless TM_TPU_ENGINE=off; the direct host path completes
+        eagerly."""
+        return dispatch_batch(KEY_TYPE, self._pks, self._msgs, self._sigs, self.device,
+                              self.journey)
 
 
-def dispatch_batch(pks, msgs, sigs, device, bitmap, rlc_async, host_verify):
-    """The direct two-phase dispatch of one batch, shared by the ed25519 and
-    sr25519 verifiers: `bitmap` is the plane's bitmap module (ops/verify.py
-    or ops/verify_sr.py), `rlc_async(pks, msgs, sigs, device=...)` its RLC
-    dispatch (None on precheck refusal), `host_verify(pk, msg, sig)` its
-    serial check. Returns the completion callable."""
+def _rlc_async(pks, msgs, sigs, device):
+    """The ed25519 RLC dispatch: through the pubkey cache with
+    TM_TPU_MSM_CACHE=on (and the cache on), else uncached."""
+    from ..ops import msm
+
+    if _pk_cache_enabled() and _msm_cache_enabled():
+        return msm.verify_batch_rlc_cached_async(pks, msgs, sigs, device=device)
+    return msm.verify_batch_rlc_async(pks, msgs, sigs, device=device)
+
+
+def plane_ops(plane: str):
+    """(bitmap module, RLC dispatch, serial host check) of a signature
+    plane: ops/verify.py or ops/verify_sr.py, `rlc_async(pks, msgs, sigs,
+    device)` (None on precheck refusal), `host_verify(pk, msg, sig)`."""
+    if plane == KEY_TYPE:
+        from ..ops import verify
+
+        return verify, _rlc_async, _single_verify
+    from ..ops import msm, verify_sr
+    from . import sr25519
+
+    return verify_sr, msm.verify_batch_rlc_sr_async, sr25519.verify
+
+
+def device_dispatch(pks, msgs, sigs, device, bitmap, rlc_async):
+    """The device branch of one batch on a resolved device, shared by the
+    direct dispatch and the engine (ops/engine.py): the RLC all-valid check
+    first at MSM_BATCH_CUTOVER and above (a precheck refusal dispatches the
+    bitmap at once), else the bitmap plane, through the pubkey cache unless
+    TM_TPU_PK_CACHE=off. Launches now; returns (collect, path): collect()
+    blocks and gives the (n,) bools, path is "two_phase_msm" or "bitmap"."""
+    n = len(sigs)
+
+    def bitmap_async():
+        if _pk_cache_enabled():
+            return bitmap.verify_batch_cached_async(pks, msgs, sigs, device)
+        return bitmap.verify_batch_async(pks, msgs, sigs, device)
+
+    if _msm_enabled() and n >= MSM_BATCH_CUTOVER:
+        # Phase 1: the RLC all-valid check; phase 2 localizes with the
+        # bitmap plane on failure or precheck refusal.
+        from ..ops import msm
+
+        handle = rlc_async(pks, msgs, sigs, device=device)
+        # a refusal makes phase 2 certain: dispatch it now
+        dispatched = bitmap_async() if handle is None else None
+
+        def collect_two_phase():
+            if handle is not None and msm.collect_rlc(handle):
+                return [True] * n
+            pending = dispatched if dispatched is not None else bitmap_async()
+            return [bool(b) for b in bitmap.collect(pending)]
+
+        return collect_two_phase, "two_phase_msm"
+
+    dispatched = bitmap_async()
+    return (lambda: [bool(b) for b in bitmap.collect(dispatched)]), "bitmap"
+
+
+def dispatch_batch(plane: str, pks, msgs, sigs, device=None, journey=None):
+    """One batch of either signature plane: to the engine
+    (ops/engine.verify_async_via_engine) unless TM_TPU_ENGINE=off, else the
+    direct dispatch, which routes it by size and reports the path to
+    EngineMetrics as direct_*. Returns the completion callable."""
     n = len(sigs)
     if n == 0:
         return lambda: (False, [])
-    _engine_setting()
-    # the cutovers below deserve the one-shot launch-latency probe (a no-op
-    # after the first call, and without a card)
     from ..ops import engine
 
+    if engine.engine_enabled():
+        return engine.verify_async_via_engine(plane, pks, msgs, sigs, journey=journey,
+                                              device=device)
+    # the cutovers below deserve the one-shot launch-latency probe (a no-op
+    # after the first call, and without a card)
     engine.maybe_autotune()
+    bitmap, rlc_async, host_verify = plane_ops(plane)
     if _use_device() and n >= DEVICE_BATCH_CUTOVER:
-        device = bitmap.resolve_device(device)
-
-        def bitmap_async():
-            if _pk_cache_enabled():
-                return bitmap.verify_batch_cached_async(pks, msgs, sigs, device)
-            return bitmap.verify_batch_async(pks, msgs, sigs, device)
-
-        if _msm_enabled() and n >= MSM_BATCH_CUTOVER:
-            # Phase 1: the RLC all-valid check; phase 2 localizes with the
-            # bitmap plane on failure or precheck refusal.
-            from ..ops import msm
-
-            handle = rlc_async(pks, msgs, sigs, device=device)
-            # a refusal makes phase 2 certain: dispatch it now
-            dispatched = bitmap_async() if handle is None else None
-
-            def complete_msm():
-                if handle is not None and msm.collect_rlc(handle):
-                    return True, [True] * n
-                pending = dispatched if dispatched is not None else bitmap_async()
-                bools = [bool(b) for b in bitmap.collect(pending)]
-                return all(bools), bools
-
-            return complete_msm
-
-        dispatched = bitmap_async()
+        collect, path = device_dispatch(pks, msgs, sigs, bitmap.resolve_device(device), bitmap,
+                                        rlc_async)
 
         def complete():
-            bools = [bool(b) for b in bitmap.collect(dispatched)]
+            bools = collect()
+            _observe_direct(plane, path, n, sum(bools))
             return all(bools), bools
 
         return complete
-    bools = [host_verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    with _trace.span("verify.direct_host", "crypto", plane=plane, rows=n):
+        bools = [host_verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    _observe_direct(plane, "host", n, sum(bools))
     result = (all(bools), bools)
     return lambda: result
+
+
+def _observe_direct(plane: str, path: str, n: int, accepted: int) -> None:
+    """Fold a direct-dispatch (TM_TPU_ENGINE=off) batch into the engine's
+    path counters, labeled direct_* (EngineMetrics.observe_direct)."""
+    from ..metrics import engine_metrics
+
+    engine_metrics().observe_direct(plane, path, n, accepted)

@@ -351,10 +351,10 @@ class Sr25519BatchVerifier(BatchVerifier):
         return self.verify_async()()
 
     def verify_async(self):
-        """Launch now, return a completion callable: callers overlap the
-        kernels with host work. The host path completes eagerly."""
-        from ..ops import msm, verify_sr
+        """Dispatch now, return a completion callable yielding (all_ok,
+        bools), as the ed25519 verifier's: through the engine unless
+        TM_TPU_ENGINE=off; the direct host path completes eagerly."""
         from .ed25519 import dispatch_batch
 
-        return dispatch_batch(self._pks, self._msgs, self._sigs, self.device, verify_sr,
-                              msm.verify_batch_rlc_sr_async, verify)
+        return dispatch_batch(KEY_TYPE, self._pks, self._msgs, self._sigs, self.device,
+                              self.journey)

@@ -12,7 +12,8 @@ named by a hash of the sources so an edited kernel is rebuilt. `build_all`
 starts one nvcc per source at once. A failed build raises with nvcc's
 output; `check` raises on a nonzero CUDA error code returned by an entry
 point, which each entry point reads with cudaGetLastError() right after
-its launch.
+its launch. Each nvcc run and each library load is reported to the device
+observatory (devobs.record_build, kind "nvcc" or "load").
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from .. import devobs as _devobs
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -86,6 +90,7 @@ def build_all(names=None) -> dict[str, str]:
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _target(name)
         if out.exists():
@@ -102,6 +107,8 @@ def build_all(names=None) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{log}")
             continue
+        # all started together: a build's wall time is when it was reaped
+        _devobs.record_build(name, time.perf_counter() - t0, "nvcc")
         os.replace(tmp, out)
         reports[name] = log
     if failed:
@@ -118,7 +125,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(_target(name)))
+            _devobs.record_build(name, time.perf_counter() - t0, "load")
             for fn, argtypes in KERNELS[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

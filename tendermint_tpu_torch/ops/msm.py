@@ -26,6 +26,11 @@ A read from the split pubkey cache (TM_TPU_MSM_CACHE=on, the reference's
 default off): no A decode and no A table, and A's 64 nibbles ride the S
 power tables of its cache entry in 64/S windows, so the Horner tail runs
 over max(32, 64/S) windows instead of 64.
+
+The dispatches write the reference's `ops.msm_dispatch` span (kernel "rlc"
+or "rlc_cached", annotated refused="precheck" or cache="overflow"),
+EngineMetrics `kernel_launches` by the same labels, and devobs spans over
+the h2d copies and the verdict's d2h read.
 """
 
 from __future__ import annotations
@@ -35,12 +40,15 @@ import os
 import numpy as np
 import torch
 
+from .. import devobs as _devobs
 from .. import native
+from .. import trace as _trace
+from ..metrics import engine_metrics as _engine_metrics
 from . import _build
 from . import curve as C
 from . import ristretto as R
 from .verify import (
-    L, SPLITS, _check_cache_args, _check_rows, _limb_major, _route, _to_device, cache_slots,
+    L, SPLITS, _check_cache_args, _check_rows, _h2d, _limb_major, _pad_pow2, _route, cache_slots,
     device_table, pad_pow2_rows, prepare_batch, pubkey_cache, resolve_device,
 )
 from .verify_sr import prepare_batch as prepare_batch_sr
@@ -381,17 +389,25 @@ def _dispatch_rlc(prepare, kernel, pubkeys, msgs, sigs, z_raw, device):
     if n == 0:
         return None
     dev = resolve_device(device)
-    a_enc, r_enc, s_rows, k_rows, precheck = prepare(pubkeys, msgs, sigs)
-    if not precheck.all():
-        return None
-    z_raw = _ensure_z_raw(n, z_raw)
-    return _launch_rlc(kernel, a_enc, r_enc, *_rlc_scalars(s_rows, k_rows, n, z_raw), n, dev)
+    fid = _devobs.next_flow() if _devobs.enabled() else 0
+    with _trace.span("ops.msm_dispatch", "ops", kernel="rlc", rows=n, flow=fid) as sp:
+        a_enc, r_enc, s_rows, k_rows, precheck = prepare(pubkeys, msgs, sigs)
+        if not precheck.all():
+            sp.annotate(refused="precheck")
+            return None
+        z_raw = _ensure_z_raw(n, z_raw)
+        handle = _launch_rlc(kernel, a_enc, r_enc, *_rlc_scalars(s_rows, k_rows, n, z_raw), n,
+                             dev, fid)
+    _engine_metrics().kernel_launches.add(1, "rlc")
+    return handle
 
 
-def _launch_rlc(kernel, a_enc, r_enc, zk, z_out, zs_row, n, dev):
+def _launch_rlc(kernel, a_enc, r_enc, zk, z_out, zs_row, n, dev, fid):
     """Pad the RLC rows with zero scalars, copy them to the device, launch."""
     rows = pad_pow2_rows([a_enc, r_enc, zk, z_out], n)
-    return kernel(*_to_device(rows + [zs_row], dev))
+    dev_rows = _h2d(rows + [zs_row], dev, fid)
+    with _devobs.attribution(fn="rlc", rows=_pad_pow2(n), flow=fid):
+        return kernel(*dev_rows)
 
 
 def verify_batch_rlc_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):
@@ -415,20 +431,30 @@ def verify_batch_rlc_cached_async(pubkeys, msgs, sigs, z_raw: bytes | None = Non
     cache = pubkey_cache(device)
     if cache.tables.ndim != 5:
         return verify_batch_rlc_async(pubkeys, msgs, sigs, z_raw, device)
-    a_enc, r_enc, s_rows, k_rows, precheck = prepare_batch(pubkeys, msgs, sigs)
-    if not precheck.all():
-        return None
-    slots, tables, oks = cache.ensure_snapshot(pubkeys)  # all 32 bytes: the precheck passed
-    z_raw = _ensure_z_raw(n, z_raw)
-    zk, z_out, zs_row = _rlc_scalars(s_rows, k_rows, n, z_raw)
-    if slots is None:
-        return _launch_rlc(msm_verify_kernel, a_enc, r_enc, zk, z_out, zs_row, n, cache.device)
-    r_enc, zk, z_out = pad_pow2_rows([r_enc, zk, z_out], n)
-    # padded rows carry zero scalars; their slot copies the edge slot, a
-    # key of this batch, so a stale entry never sinks the decode test
-    slots = np.pad(slots, (0, len(r_enc) - n), mode="edge")
-    dev_rows = _to_device([slots, r_enc, zk, z_out, zs_row], cache.device)
-    return msm_verify_kernel_cached(tables, oks, *dev_rows)
+    fid = _devobs.next_flow() if _devobs.enabled() else 0
+    with _trace.span("ops.msm_dispatch", "ops", kernel="rlc_cached", rows=n, flow=fid) as sp:
+        a_enc, r_enc, s_rows, k_rows, precheck = prepare_batch(pubkeys, msgs, sigs)
+        if not precheck.all():
+            sp.annotate(refused="precheck")
+            return None
+        slots, tables, oks = cache.ensure_snapshot(pubkeys)  # all 32 bytes: the precheck passed
+        z_raw = _ensure_z_raw(n, z_raw)
+        zk, z_out, zs_row = _rlc_scalars(s_rows, k_rows, n, z_raw)
+        if slots is None:
+            sp.annotate(cache="overflow")
+            handle = _launch_rlc(msm_verify_kernel, a_enc, r_enc, zk, z_out, zs_row, n,
+                                 cache.device, fid)
+            _engine_metrics().kernel_launches.add(1, "rlc")
+            return handle
+        r_enc, zk, z_out = pad_pow2_rows([r_enc, zk, z_out], n)
+        # padded rows carry zero scalars; their slot copies the edge slot, a
+        # key of this batch, so a stale entry never sinks the decode test
+        slots = np.pad(slots, (0, len(r_enc) - n), mode="edge")
+        dev_rows = _h2d([slots, r_enc, zk, z_out, zs_row], cache.device, fid)
+        with _devobs.attribution(fn="rlc_cached", rows=_pad_pow2(n), flow=fid):
+            handle = msm_verify_kernel_cached(tables, oks, *dev_rows)
+    _engine_metrics().kernel_launches.add(1, "rlc_cached")
+    return handle
 
 
 def verify_batch_rlc_sr_async(pubkeys, msgs, sigs, z_raw: bytes | None = None, device=None):
@@ -441,5 +467,6 @@ def collect_rlc(dispatched) -> bool:
     """Block on a verify_batch_rlc_async handle -> all-valid bool."""
     if dispatched is None:
         return False
-    return bool(dispatched.item())
+    with _devobs.transfer_span("d2h", dispatched.numel() * dispatched.element_size()):
+        return bool(dispatched.item())
 

@@ -36,6 +36,13 @@ Split of labor: the host computes the SHA-512 challenges, checks s < L
 and the lengths (native/prep.c unless TM_TPU_NATIVE=0), and pads the
 batch to a power of two; the device decodes the points, runs the ladders
 and the cofactored equality.
+
+Telemetry, at the reference's sites and under its names: the
+`ops.verify_dispatch` and `ops.pk_cache_fill` spans, EngineMetrics
+`kernel_launches` by the reference's labels ("bitmap", "bitmap_cached",
+"pk_table_build"), and devobs spans over each launch's h2d copies and
+each collect's d2h read. The per-wrapper `.launches` counts stay as they
+are.
 """
 
 from __future__ import annotations
@@ -48,7 +55,10 @@ import threading
 import numpy as np
 import torch
 
+from .. import devobs as _devobs
 from .. import native
+from .. import trace as _trace
+from ..metrics import engine_metrics as _engine_metrics
 from . import _build
 from . import curve as C
 
@@ -493,8 +503,13 @@ class PubkeyCache:
             try:
                 enc = np.frombuffer(b"".join(missing), np.uint8).reshape(-1, 32)
                 (enc_p,) = pad_pow2_rows([enc], len(missing))
-                (enc_dev,) = _to_device([enc_p], self.device)
-                new_tables, new_oks = self._build(enc_dev)
+                fid = _devobs.next_flow() if _devobs.enabled() else 0
+                with _trace.span("ops.pk_cache_fill", "ops", misses=len(missing), flow=fid):
+                    (enc_dev,) = _h2d([enc_p], self.device, fid)
+                    with _devobs.attribution(fn=f"{self.plane}_table_build",
+                                             rows=_pad_pow2(len(missing)), flow=fid):
+                        new_tables, new_oks = self._build(enc_dev)
+                _engine_metrics().kernel_launches.add(1, "pk_table_build")
             except BaseException:
                 with self._lock:
                     for pk in missing:
@@ -665,25 +680,40 @@ def _to_device(arrays, device):
     return [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device) for a in arrays]
 
 
+def _h2d(arrays, device, flow: int = 0):
+    """_to_device under one devobs h2d span of the arrays' bytes: a launch's
+    copies to the device."""
+    with _devobs.transfer_span("h2d", sum(a.nbytes for a in arrays), flow=flow):
+        return _to_device(arrays, device)
+
+
 def verify_batch_async(pubkeys, msgs, sigs, device=None):
     """Dispatch one batch without blocking: host prep, copy to the device,
-    kernel launch. Returns (device_bitmap, precheck, n) for `collect`."""
+    kernel launch. Returns (device_bitmap, precheck, n, flow) for
+    `collect`."""
     n = len(sigs)
     if n == 0:
-        return None, np.zeros((0,), bool), 0
+        return None, np.zeros((0,), bool), 0, 0
     dev = resolve_device(device)
-    a_enc, r_enc, s_bytes, k_bytes, precheck = prepare_batch(pubkeys, msgs, sigs)
-    rows = pad_pow2_rows([a_enc, r_enc, s_bytes, k_bytes], n)
-    ok_dev = verify_kernel(*_to_device(rows, dev))
-    return ok_dev, precheck, n
+    fid = _devobs.next_flow() if _devobs.enabled() else 0
+    with _trace.span("ops.verify_dispatch", "ops", kernel="bitmap", rows=n, flow=fid):
+        a_enc, r_enc, s_bytes, k_bytes, precheck = prepare_batch(pubkeys, msgs, sigs)
+        rows = pad_pow2_rows([a_enc, r_enc, s_bytes, k_bytes], n)
+        dev_rows = _h2d(rows, dev, fid)
+        with _devobs.attribution(fn="ed25519_bitmap", rows=_pad_pow2(n), flow=fid):
+            ok_dev = verify_kernel(*dev_rows)
+    _engine_metrics().kernel_launches.add(1, "bitmap")
+    return ok_dev, precheck, n, fid
 
 
 def collect(dispatched) -> np.ndarray:
     """Block on a dispatched bitmap and fold in the host precheck."""
-    ok_dev, precheck, n = dispatched
+    ok_dev, precheck, n = dispatched[:3]
     if n == 0:
         return np.zeros((0,), bool)
-    host = ok_dev.cpu().numpy()
+    fid = dispatched[3] if len(dispatched) > 3 else 0
+    with _devobs.transfer_span("d2h", ok_dev.numel() * ok_dev.element_size(), flow=fid):
+        host = ok_dev.cpu().numpy()
     return host[:n] & precheck
 
 
@@ -692,27 +722,33 @@ def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
     return collect(verify_batch_async(pubkeys, msgs, sigs, device))
 
 
-def dispatch_cached(cache: PubkeyCache, prepare, cached_kernel, uncached_async, pubkeys, msgs, sigs):
+def dispatch_cached(cache: PubkeyCache, prepare, cached_kernel, uncached_async, pubkeys, msgs, sigs,
+                    fn_label: str = "bitmap_cached"):
     """Bitmap through a pubkey cache, for either signature plane (its host
     prep, its cache-hit kernel, its uncached dispatch): slot lookup and
     fill (one consistent snapshot), the uncached dispatch when the batch
     has more distinct keys than the cache holds, padding, launch.
     Malformed pubkeys are keyed as zeros; they already fail the precheck,
-    which masks them at collect."""
+    which masks them at collect. `fn_label` names the site to devobs."""
     n = len(sigs)
     if n == 0:
-        return None, np.zeros((0,), bool), 0
-    keys = [pk if len(pk) == 32 else b"\x00" * 32 for pk in pubkeys]
-    slots, tables, oks = cache.ensure_snapshot(keys)
-    if slots is None:
-        return uncached_async(pubkeys, msgs, sigs, cache.device)
-    _, r_enc, s_bytes, k_bytes, precheck = prepare(pubkeys, msgs, sigs)
-    r_enc, s_bytes, k_bytes = pad_pow2_rows([r_enc, s_bytes, k_bytes], n)
-    # padded rows copy the edge slot: a valid key, never a stale one
-    slots = np.pad(slots, (0, len(r_enc) - n), mode="edge")
-    slots_dev, r_dev, s_dev, k_dev = _to_device([slots, r_enc, s_bytes, k_bytes], cache.device)
-    ok_dev = cached_kernel(tables, oks, slots_dev, r_dev, s_dev, k_dev)
-    return ok_dev, precheck, n
+        return None, np.zeros((0,), bool), 0, 0
+    fid = _devobs.next_flow() if _devobs.enabled() else 0
+    with _trace.span("ops.verify_dispatch", "ops", kernel="bitmap_cached", rows=n, flow=fid) as sp:
+        keys = [pk if len(pk) == 32 else b"\x00" * 32 for pk in pubkeys]
+        slots, tables, oks = cache.ensure_snapshot(keys)
+        if slots is None:
+            sp.annotate(cache="overflow")
+            return uncached_async(pubkeys, msgs, sigs, cache.device)
+        _, r_enc, s_bytes, k_bytes, precheck = prepare(pubkeys, msgs, sigs)
+        r_enc, s_bytes, k_bytes = pad_pow2_rows([r_enc, s_bytes, k_bytes], n)
+        # padded rows copy the edge slot: a valid key, never a stale one
+        slots = np.pad(slots, (0, len(r_enc) - n), mode="edge")
+        slots_dev, r_dev, s_dev, k_dev = _h2d([slots, r_enc, s_bytes, k_bytes], cache.device, fid)
+        with _devobs.attribution(fn=fn_label, rows=_pad_pow2(n), flow=fid):
+            ok_dev = cached_kernel(tables, oks, slots_dev, r_dev, s_dev, k_dev)
+    _engine_metrics().kernel_launches.add(1, "bitmap_cached")
+    return ok_dev, precheck, n, fid
 
 
 def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
@@ -721,5 +757,6 @@ def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
     from the cache's entry shape."""
     cache = pubkey_cache(device)
     kern = verify_kernel_cached_split if cache.tables.ndim == 5 else verify_kernel_cached
-    return dispatch_cached(cache, prepare_batch, kern, verify_batch_async, pubkeys, msgs, sigs)
+    return dispatch_cached(cache, prepare_batch, kern, verify_batch_async, pubkeys, msgs, sigs,
+                           fn_label="ed25519_bitmap_cached")
 

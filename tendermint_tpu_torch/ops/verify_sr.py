@@ -39,14 +39,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import devobs as _devobs
 from ..crypto.sr25519 import SIG_SIZE, challenges_batch
 from . import _build
 from . import curve as C
 from . import ristretto as R
 from .verify import (  # collect: the bitmap planes share it
-    L, PK_SPLITS, SPLITS, _cached_a_tables, _check_rows, _check_splits, _launch_fill, _launch_hit,
-    _limb_major, _power_tables_plain, _route, _to_device, cache_slots, collect, device_table,
-    dispatch_cached, pad_pow2_rows, plane_cache, resolve_device,
+    L, PK_SPLITS, SPLITS, _cached_a_tables, _check_rows, _check_splits, _h2d, _launch_fill,
+    _launch_hit, _limb_major, _pad_pow2, _power_tables_plain, _route, cache_slots, collect,
+    device_table, dispatch_cached, pad_pow2_rows, plane_cache, resolve_device,
 )
 
 
@@ -248,17 +249,22 @@ def prepare_batch(pubkeys, msgs, sigs):
 
 def verify_batch_async(pubkeys, msgs, sigs, device=None):
     """Dispatch one batch without blocking: host prep, copy to the device,
-    kernel launch. Returns (device_bitmap, precheck, n) for `collect`.
-    Padding rows are zero encodings, the ristretto identity: they decode
-    and are trimmed by `collect`."""
+    kernel launch. Returns (device_bitmap, precheck, n, flow) for
+    `collect`. Padding rows are zero encodings, the ristretto identity:
+    they decode and are trimmed by `collect`. As in the reference, this
+    dispatch writes no span and no kernel_launches; its copies and
+    collect report to devobs."""
     n = len(sigs)
     if n == 0:
-        return None, np.zeros((0,), bool), 0
+        return None, np.zeros((0,), bool), 0, 0
     dev = resolve_device(device)
+    fid = _devobs.next_flow() if _devobs.enabled() else 0
     a_enc, r_enc, s_bytes, k_bytes, precheck = prepare_batch(pubkeys, msgs, sigs)
     rows = pad_pow2_rows([a_enc, r_enc, s_bytes, k_bytes], n)
-    ok_dev = verify_sr_kernel(*_to_device(rows, dev))
-    return ok_dev, precheck, n
+    dev_rows = _h2d(rows, dev, fid)
+    with _devobs.attribution(fn="sr25519_bitmap", rows=_pad_pow2(n), flow=fid):
+        ok_dev = verify_sr_kernel(*dev_rows)
+    return ok_dev, precheck, n, fid
 
 
 def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
@@ -267,7 +273,8 @@ def verify_batch_cached_async(pubkeys, msgs, sigs, device=None):
     cache holds take the uncached kernel."""
     cache = sr_pubkey_cache(device)
     kern = verify_sr_kernel_cached_split if cache.tables.ndim == 5 else verify_sr_kernel_cached
-    return dispatch_cached(cache, prepare_batch, kern, verify_batch_async, pubkeys, msgs, sigs)
+    return dispatch_cached(cache, prepare_batch, kern, verify_batch_async, pubkeys, msgs, sigs,
+                           fn_label="sr25519_bitmap_cached")
 
 
 def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:

@@ -16,8 +16,9 @@ Every shard launches, a shard that holds only padding included, as under
 shard_map. The shards' counts are copied to the mesh's first device and
 summed there by fail_count's int32 mode (the psum of one controller); the
 host reads the bitmap and the verdict once a call. Each entry point counts
-its calls in `.launches`, under the reference's `sharded_launches` labels:
-bitmap, cached and rlc.
+its calls in `.launches` and in EngineMetrics `sharded_launches`, under the
+reference's labels (bitmap, cached and rlc), and writes the reference's
+`sharded.verify` span (path, rows, shards).
 
 A mesh may repeat one device (make_mesh(n, device=...)): its shards then
 run one after another there, which is how the host runs the plain
@@ -33,6 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import trace as _trace
+from ..metrics import engine_metrics as _engine_metrics
 from ..ops import _build
 from ..ops import msm as M
 from ..ops import verify as V
@@ -238,8 +241,10 @@ def verify_batch_sharded(mesh: Mesh, pubkeys, msgs, sigs, key_type: str = "ed255
         return np.zeros((0,), bool), False
     _plane(key_type)
     verify_batch_sharded.launches += 1
-    oks, counts, precheck = _bitmap_shards(mesh, pubkeys, msgs, sigs, key_type)
-    return _collect(mesh, oks, counts, precheck, n)
+    _engine_metrics().sharded_launches.add(1, "bitmap")
+    with _trace.span("sharded.verify", "parallel", path="bitmap", rows=n, shards=mesh.size):
+        oks, counts, precheck = _bitmap_shards(mesh, pubkeys, msgs, sigs, key_type)
+        return _collect(mesh, oks, counts, precheck, n)
 
 
 verify_batch_sharded.launches = 0  # label "bitmap"
@@ -265,24 +270,27 @@ def verify_batch_sharded_cached(mesh: Mesh, pubkeys, msgs, sigs, key_type: str =
             return verify_batch_sharded(mesh, pubkeys, msgs, sigs, key_type)
         snapshots[dev] = slots, tables, oks
     verify_batch_sharded_cached.launches += 1
-    _, r, s, k, precheck = prepare(pubkeys, msgs, sigs)
-    per = shard_rows(n, mesh.size)
-    size = per * mesh.size
-    # Pad slots with THIS batch's last slot, not slot 0: padded rows
-    # (s = k = 0) verify true against any VALID key's table, and if that
-    # key's encoding is invalid its own real row already fails the verdict,
-    # whereas slot 0 may hold an unrelated invalid key and fail the verdict
-    # of an all-valid batch.
-    slots = {dev: np.pad(snap[0], (0, size - n), mode="edge") for dev, snap in snapshots.items()}
+    _engine_metrics().sharded_launches.add(1, "cached")
+    with _trace.span("sharded.verify", "parallel", path="cached", rows=n, shards=mesh.size):
+        _, r, s, k, precheck = prepare(pubkeys, msgs, sigs)
+        per = shard_rows(n, mesh.size)
+        size = per * mesh.size
+        # Pad slots with THIS batch's last slot, not slot 0: padded rows
+        # (s = k = 0) verify true against any VALID key's table, and if
+        # that key's encoding is invalid its own real row already fails the
+        # verdict, whereas slot 0 may hold an unrelated invalid key and fail
+        # the verdict of an all-valid batch.
+        slots = {dev: np.pad(snap[0], (0, size - n), mode="edge")
+                 for dev, snap in snapshots.items()}
 
-    def launch(d, dev, shard):
-        _, tables, oks = snapshots[dev]
-        (sl,) = V._to_device([slots[dev][d * per:(d + 1) * per]], dev)
-        hit = split_hit if tables.ndim == 5 else single_hit
-        return hit(tables, oks, sl, *shard)
+        def launch(d, dev, shard):
+            _, tables, oks = snapshots[dev]
+            (sl,) = V._to_device([slots[dev][d * per:(d + 1) * per]], dev)
+            hit = split_hit if tables.ndim == 5 else single_hit
+            return hit(tables, oks, sl, *shard)
 
-    bitmaps, counts = _run_shards(mesh, per, _pad_rows([r, s, k], size), launch)
-    return _collect(mesh, bitmaps, counts, precheck, n)
+        bitmaps, counts = _run_shards(mesh, per, _pad_rows([r, s, k], size), launch)
+        return _collect(mesh, bitmaps, counts, precheck, n)
 
 
 verify_batch_sharded_cached.launches = 0  # label "cached"
@@ -301,6 +309,7 @@ def verify_batch_sharded_rlc(mesh: Mesh, pubkeys, msgs, sigs, z_raw: bytes | Non
     if not precheck.all():
         return False
     verify_batch_sharded_rlc.launches += 1
+    _engine_metrics().sharded_launches.add(1, "rlc")
     z_raw = M._ensure_z_raw(n, z_raw)
     per = shard_rows(n, mesh.size)
     size = per * mesh.size
@@ -327,9 +336,10 @@ def verify_batch_sharded_rlc(mesh: Mesh, pubkeys, msgs, sigs, z_raw: bytes | Non
         (zs_d,) = V._to_device([zs[d]], dev)
         return M.msm_verify_kernel(*shard, zs_d)
 
-    _, counts = _run_shards(mesh, per, _pad_rows([a, r], size) + [zk, z], launch)
-    with _on(mesh.devices[0]):
-        return int(fail_count(_gather(mesh, counts)).item()) == 0
+    with _trace.span("sharded.verify", "parallel", path="rlc", rows=n, shards=mesh.size):
+        _, counts = _run_shards(mesh, per, _pad_rows([a, r], size) + [zk, z], launch)
+        with _on(mesh.devices[0]):
+            return int(fail_count(_gather(mesh, counts)).item()) == 0
 
 
 verify_batch_sharded_rlc.launches = 0  # label "rlc"

@@ -19,7 +19,9 @@ unlike the reference no serial re-verification pass is needed to locate a
 bad signature.
 
 Every entry point takes `device`: where the batch verifier runs, the card
-by default, "cpu" for the plain PyTorch versions.
+by default, "cpu" for the plain PyTorch versions. The batch path writes the
+reference's verify.commit_dispatch and verify.commit_collect spans and, with
+tracing on, tags its batch with the commit's journey key (trace/).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+from .. import trace as _trace
 from ..crypto import batch as crypto_batch
 from .block import BlockID, Commit, CommitSig
 from .validator_set import NotEnoughVotingPowerError, ValidatorSet
@@ -159,6 +162,10 @@ def _verify_commit_batch(
     synchronous path would); host-side failures still raise immediately."""
     proposer = vals.get_proposer()
     bv = crypto_batch.create_batch_verifier(proposer.pub_key, device=device)
+    if _trace.enabled():
+        # the journey tag rides the engine submit, so the coalesced launch's
+        # dispatch and collect spans list this commit's height
+        bv.journey = _trace.journey_key(commit.height, commit.round, "verify", "")
     tallied = 0
     seen_vals: dict[int, int] = {}
     batch_sig_idxs: list[int] = []
@@ -201,10 +208,14 @@ def _verify_commit_batch(
     if tallied <= voting_power_needed:
         raise NotEnoughVotingPowerError(got=tallied, needed=voting_power_needed)
 
-    pending = bv.verify_async()
+    with _trace.span("verify.commit_dispatch", "verify",
+                     height=commit.height, nsigs=len(batch_sig_idxs)):
+        pending = bv.verify_async()
 
     def complete() -> None:
-        ok, valid_sigs = pending()
+        with _trace.span("verify.commit_collect", "verify",
+                         height=commit.height, nsigs=len(batch_sig_idxs)):
+            ok, valid_sigs = pending()
         if ok:
             return
         for i, sig_ok in enumerate(valid_sigs):

@@ -150,11 +150,18 @@ def test_raising_probe_keeps_defaults_and_records(probes, monkeypatch):
 
 def test_direct_dispatch_runs_the_autotune(monkeypatch):
     """A batch verify reaches maybe_autotune once, before routing by size
-    (here below the cutover: the host path, no card needed)."""
+    (here below the cutover: the host path, no card needed); with
+    TM_TPU_ENGINE unset it does so in the engine's submit, as the
+    reference's does."""
     monkeypatch.setattr(E, "_AUTOTUNE", {"done": False})
     monkeypatch.delenv("TM_TPU_ENGINE", raising=False)
+    submitted = []
+    submit = E.VerifyEngine.submit
+    monkeypatch.setattr(E.VerifyEngine, "submit",
+                        lambda self, *a, **k: submitted.append(a[0]) or submit(self, *a, **k))
     bv = ted.Ed25519BatchVerifier()
     priv = ref.gen_privkey(bytes(range(32)))
     bv.add(ted.Ed25519PubKey(priv[32:]), b"m", ref.sign(priv, b"m"))
     assert bv.verify() == (True, [True])
     assert E._AUTOTUNE == {"done": True}
+    assert submitted == ["ed25519"]

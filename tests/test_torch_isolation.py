@@ -1,9 +1,10 @@
 """The port stands alone and runs on the card unless told otherwise:
-importing every module of tendermint_tpu_torch (the sr25519 plane's
-included) loads no JAX and nothing of tendermint_tpu, the native host prep
-loads the port's own library (never the reference's prep.so), a default-device
-verifier raises without CUDA instead of running on the host, and the
-cases the port does not cover yet raise."""
+importing every module of tendermint_tpu_torch (the sr25519 plane's, the
+engine's and the telemetry's included) loads no JAX and nothing of
+tendermint_tpu, the native host prep loads the port's own library (never the
+reference's prep.so), a default-device verifier raises without CUDA instead
+of running on the host, and TM_TPU_ENGINE selects the engine or direct
+dispatch as the reference's does."""
 
 import os
 import subprocess
@@ -16,7 +17,9 @@ from tendermint_tpu_torch.crypto import batch as B
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.crypto import sr25519 as sr
+from tendermint_tpu_torch.metrics import engine_metrics
 from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.ops import engine as E
 from tendermint_tpu_torch.ops import msm as M
 from tendermint_tpu_torch.ops import verify as V
 
@@ -31,14 +34,20 @@ import importlib, pkgutil, sys
 import tendermint_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native", "ops.engine",
-             "ops.ristretto", "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost"):
+             "ops.ristretto", "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost",
+             "trace", "metrics", "devobs"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
-from tendermint_tpu_torch.ops import msm, verify, verify_sr
+from tendermint_tpu_torch import devobs, metrics, trace
+from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (verify_sr, ("build_sr_tables", "verify_sr_kernel_cached")),
-                 (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async"))):
+                 (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async")),
+                 (engine, ("get_engine", "verify_async_via_engine", "engine_enabled")),
+                 (trace, ("span", "export", "journey_key")),
+                 (metrics, ("engine_metrics", "device_metrics", "global_registry")),
+                 (devobs, ("install", "transfer_span", "sample_residency", "record_build"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 from tendermint_tpu_torch import native
@@ -117,11 +126,17 @@ def test_uncovered_settings_raise(monkeypatch):
         B.create_batch_verifier(ed.Ed25519PubKey(b"\x01" * 32)).add(sr_key, b"", b"\x00" * 64)
 
 
+def _counted(series, *labels):
+    """A metric child's value in the port's global registry (0 if unset)."""
+    return {tuple(s[1].values()): s[2] for s in series.samples()}.get(labels, 0)
+
+
 @pytest.mark.parametrize("setting", ["on", "auto", "off", None])
 def test_engine_setting(monkeypatch, setting):
-    """TM_TPU_ENGINE: the coalescing engine is a later slice, so an explicit
-    on raises in both batch verifiers; auto, off or unset is direct
-    dispatch."""
+    """TM_TPU_ENGINE, as the reference reads it: on, auto or unset submits
+    each batch of both verifiers to the coalescing engine (get_engine()
+    counts the job), off runs direct dispatch (counted as direct_host);
+    the verdicts are the same."""
     if setting is None:
         monkeypatch.delenv("TM_TPU_ENGINE", raising=False)
     else:
@@ -131,12 +146,16 @@ def test_engine_setting(monkeypatch, setting):
     priv = sr.Sr25519PrivKey(b"\x02" * 32)
     sr_bv = sr.Sr25519BatchVerifier(device="cpu")
     sr_bv.add(priv.pub_key(), msg, priv.sign(msg))
-    for bv in (_jobs(2), sr_bv):
-        if setting == "on":
-            with pytest.raises(NotImplementedError, match="engine slice"):
-                bv.verify()
+    m = engine_metrics()
+    for plane, bv in (("ed25519", _jobs(2)), ("sr25519", sr_bv)):
+        before = (_counted(m.submitted_jobs, plane), _counted(m.launches, plane, "direct_host"))
+        assert bv.verify() == (True, [True] * len(bv))
+        after = (_counted(m.submitted_jobs, plane), _counted(m.launches, plane, "direct_host"))
+        if setting == "off":
+            assert after == (before[0], before[1] + 1)
         else:
-            assert bv.verify()[0]
+            assert after == (before[0] + 1, before[1])
+    assert E.engine_enabled() == (setting != "off")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
