@@ -106,11 +106,35 @@ Both signature planes run the same phases, each fatal on failure:
      beside the card's name and power limit: 8 threads x 150-validator
      ed25519 commits (a light-client server), 4 threads x 1,000-validator
      ones (blocksync's verify-ahead) and one 10,000-validator call, with
-     the launches a commit and the engine's overlap_ratio.
+     the launches a commit and the engine's overlap_ratio;
+ 10. the light client and the hashes on the card: (a) on each plane, a
+     light chain of 16 heights over 150 validators of equal power (the
+     Cosmos Hub's active set), fully populated headers whose commits sign
+     header.hash(), the set changing once at height 9 (one key swapped
+     by update_with_change_set); verify_adjacent on every consecutive
+     pair, verify_non_adjacent and verify from 1 to 16 at the default trust
+     level of 1/3, each held to the launches its routing gives (the
+     101-signature commit check a cache fill on the first sight of a key,
+     then hits; the 51-signature trusting check below the device cutover,
+     none), and the rejections with the reference's error classes: a
+     data_hash forged after signing and the old set supplied
+     (ErrInvalidHeader), a tampered signature (ErrInvalidHeader naming its
+     index), an expired trusted header (ErrOldHeaderExpired) and a rival
+     set in which the trusted validators hold a third of their power
+     (ErrNewValSetCantBeTrusted); (b) the 10,000-validator set's hash()
+     cold and memoized, and its leaves' root, proofs and a 64-index
+     multiproof on the native route and under TM_TPU_NATIVE=0 in turns,
+     the same bytes on both, every proof verifying and a tampered one
+     failing; (c) BASELINE.json config 4, mixed key types: verify_commit
+     on 100 ed25519 and 50 secp256k1 validators under an ed25519 and a
+     secp256k1 proposer, the valid commit accepted and a tampered
+     secp256k1 and a tampered ed25519 signature reported at their index,
+     serially, so with no launch; the secp256k1 route ("cryptography" or
+     "softcrypto") printed beside the wall times.
 
-Phases 3, 5, 6 and 7 are each a main path: every call in them runs with
-the launch counters set to 0 just before it and read just after, and each
-phase fails if one of its kernels never launched. They run at the
+Phases 3, 5, 6, 7 and 10 are each a main path: every call in them runs
+with the launch counters set to 0 just before it and read just after, and
+each phase fails if one of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
 TM_TPU_AUTOTUNE=off, so the probe's launches, which land from a thread at
 an unknown time, stay out of their counts. Phase 4's split of the valid
@@ -366,6 +390,11 @@ def _sign_worker(job):
         from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
 
         priv = Sr25519PrivKey(seed)
+        return priv.pub_key().bytes(), [priv.sign(m) for m in msgs]
+    if kind == "secp256k1":
+        from tendermint_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+
+        priv = Secp256k1PrivKey.generate(seed)
         return priv.pub_key().bytes(), [priv.sign(m) for m in msgs]
     try:
         from cryptography.hazmat.primitives import serialization
@@ -2856,6 +2885,343 @@ def engine_phase(planes, chain_id, commits, commits9, runs, tmp):
     concurrent_turns(f"one {n}-validator ed25519 call", [commits["ed25519"][n]], chain_id, runs)
 
 
+# -- phase 10: the light client and the hashes on the card ---------------------------
+
+LIGHT_VALIDATORS = 150  # the Cosmos Hub's active set
+LIGHT_HEIGHTS = 16
+LIGHT_SWAP_AT = 9  # the first height the second set signs
+LIGHT_T0 = 1_700_000_000  # the first header's time, unix seconds
+LIGHT_DT = 6  # seconds between headers
+TRUSTING_PERIOD_NS = 14 * 24 * 3600 * 10**9
+MAX_CLOCK_DRIFT_NS = 10 * 10**9
+MIXED_SECP = 50  # BASELINE.json config 4's secp256k1 keys among 150
+MULTIPROOF_INDICES = 64
+HASH_TURNS = ("native", "python", "python", "native")
+
+
+def light_modules():
+    """The port's modules a light chain is built and verified with; the
+    builders below take such a namespace, so the CPU tests can hand them
+    the JAX package's instead."""
+    from tendermint_tpu_torch import light
+    from tendermint_tpu_torch.crypto import ed25519, merkle, secp256k1, sr25519
+    from tendermint_tpu_torch.types import block, light_block, validation, validator_set
+    from tendermint_tpu_torch.utils import tmtime
+
+    return SimpleNamespace(
+        light=light, block=block, light_block=light_block, validation=validation, vs=validator_set,
+        tmtime=tmtime, merkle=merkle,
+        keys={"ed25519": ed25519.Ed25519PubKey, "sr25519": sr25519.Sr25519PubKey,
+              "secp256k1": secp256k1.Secp256k1PubKey})
+
+
+def light_vals(m, members, proposer: int | None = None):
+    """A validator set over members [(kind, pub, secret)] of power 10 each,
+    the member at index `proposer` 11 (so that it proposes); returns the set
+    and each address's secret."""
+    vals, secrets = [], {}
+    for i, (kind, pub, secret) in enumerate(members):
+        v = m.vs.Validator.new(m.keys[kind](pub), 11 if i == proposer else 10)
+        vals.append(v)
+        secrets[v.address] = secret
+    return m.vs.ValidatorSet.new(vals), secrets
+
+
+def signed_commit(m, vals, secrets, sign, chain_id, height, block_id, time_s):
+    """A commit of every validator of vals for block_id, each signing its
+    canonical vote sign bytes through sign(secrets, msgs) -> sigs."""
+    commit = m.block.Commit(height=height, round=0, block_id=block_id, signatures=[
+        m.block.CommitSig.new_commit(v.address, m.tmtime.Time(time_s + 1, 1000 * i + 7), b"")
+        for i, v in enumerate(vals.validators)])
+    msgs = [commit.vote_sign_bytes(chain_id, i) for i in range(len(vals.validators))]
+    for cs, sig in zip(commit.signatures, sign([secrets[v.address] for v in vals.validators], msgs)):
+        cs.signature = sig
+    return commit
+
+
+def signed_header(m, vals, next_vals, secrets, sign, chain_id, height, last_block_id, last_commit_hash):
+    """A fully populated header at `height` signed by vals: its commit signs
+    header.hash()."""
+    import hashlib
+
+    sha = lambda tag: hashlib.sha256(b"%s-%d" % (tag, height)).digest()
+    time_s = LIGHT_T0 + LIGHT_DT * height
+    header = m.block.Header(
+        chain_id=chain_id, height=height, time=m.tmtime.Time(time_s, 1000 * height),
+        last_block_id=last_block_id, last_commit_hash=last_commit_hash,
+        data_hash=m.block.txs_hash([b"tx-%d-%d" % (height, i) for i in range(3)]),
+        validators_hash=vals.hash(), next_validators_hash=next_vals.hash(),
+        consensus_hash=sha(b"consensus"), app_hash=sha(b"app"), last_results_hash=sha(b"results"),
+        evidence_hash=m.merkle.hash_from_byte_slices([]),
+        proposer_address=vals.get_proposer().address)
+    block_id = m.block.BlockID(header.hash(), m.block.PartSetHeader(1, sha(b"parts")))
+    return m.light_block.SignedHeader(
+        header, signed_commit(m, vals, secrets, sign, chain_id, height, block_id, time_s))
+
+
+def light_chain(m, members, swap_in, untrusted, sign, chain_id, heights=LIGHT_HEIGHTS,
+                swap_at=LIGHT_SWAP_AT):
+    """A chain of `heights` light blocks over members' set A, from swap_at on
+    signed by set B, A with its first validator swapped for swap_in
+    (update_with_change_set, then the proposer rotation); and a rival block
+    at the last height signed by set C: a third of A's members and the
+    `untrusted` members, where A's validators hold a third of A's power.
+    Returns ({height: LightBlock}, the rival LightBlock)."""
+    a, secrets = light_vals(m, members)
+    gone = a.validators[0]
+    new = m.vs.Validator.new(m.keys[swap_in[0]](swap_in[1]), 10)
+    secrets[new.address] = swap_in[2]
+    b = a.copy()
+    b.update_with_change_set([m.vs.Validator(gone.address, gone.pub_key, 0), new])
+    b = b.copy_increment_proposer_priority(1)
+    blocks = {}
+    last_bid, last_commit_hash = m.block.BlockID(), b""
+    for h in range(1, heights + 1):
+        vals = a if h < swap_at else b
+        sh = signed_header(m, vals, a if h + 1 < swap_at else b, secrets, sign, chain_id, h,
+                           last_bid, last_commit_hash)
+        blocks[h] = m.light_block.LightBlock(sh, vals)
+        last_bid, last_commit_hash = sh.commit.block_id, sh.commit.hash()
+    c, c_secrets = light_vals(m, members[:len(members) // 3] + list(untrusted))
+    prev = blocks[heights - 1].signed_header.commit
+    rival = signed_header(m, c, c, c_secrets, sign, chain_id, heights, prev.block_id, prev.hash())
+    return blocks, m.light_block.LightBlock(rival, c)
+
+
+def tampered_commit(m, commit, idx):
+    """A copy of commit with signature #idx tampered."""
+    sigs = [m.block.CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                              tamper(cs.signature) if i == idx else cs.signature)
+            for i, cs in enumerate(commit.signatures)]
+    return m.block.Commit(commit.height, commit.round, commit.block_id, sigs)
+
+
+def light_cases(m, blocks, rival, chain_id, device=None):
+    """Phase 10 (a)'s calls: [(label, call, vals whose commit check it runs
+    or None, the trusting check's vals or None, expected outcome)]; an
+    outcome is ("accepted", "") or (error class, a fragment of its
+    message). `device` is passed on unless None (the JAX package's
+    verifier takes none)."""
+    import dataclasses
+
+    L = m.light
+    sh = {h: lb.signed_header for h, lb in blocks.items()}
+    vals = {h: lb.validator_set for h, lb in blocks.items()}
+    top = max(blocks)
+    now = m.tmtime.Time(LIGHT_T0 + LIGHT_DT * top + 60)
+    period, drift = TRUSTING_PERIOD_NS, MAX_CLOCK_DRIFT_NS
+    ok = ("accepted", "")
+    kw = {} if device is None else {"device": device}
+    cases = [(f"verify_adjacent {h} -> {h + 1}",
+              functools.partial(L.verify_adjacent, chain_id, sh[h], sh[h + 1], vals[h + 1], period,
+                                now, drift, **kw), vals[h + 1], None, ok)
+             for h in range(1, top)]
+    cases.append((f"verify_non_adjacent 1 -> {top}", functools.partial(
+        L.verify_non_adjacent, chain_id, sh[1], vals[1], sh[top], vals[top], period, now, drift,
+        **kw), vals[top], vals[1], ok))
+    cases.append((f"verify 1 -> {top}", functools.partial(
+        L.verify, chain_id, sh[1], vals[1], sh[top], vals[top], period, now, drift, **kw),
+        vals[top], vals[1], ok))
+    s = min(h for h in blocks if vals[h].hash() != vals[1].hash())  # the first height of the new set
+    forged = m.light_block.SignedHeader(dataclasses.replace(sh[s].header, data_hash=bytes(32)),
+                                        sh[s].commit)
+    cases.append((f"forged data_hash at {s}", functools.partial(
+        L.verify_adjacent, chain_id, sh[s - 1], forged, vals[s], period, now, drift, **kw),
+        None, None, ("ErrInvalidHeader", "commit signs block")))
+    cases.append((f"the old set supplied at {s}", functools.partial(
+        L.verify_adjacent, chain_id, sh[s - 1], sh[s], vals[s - 1], period, now, drift, **kw),
+        None, None, ("ErrInvalidHeader", "to match those that were supplied")))
+    bad = (len(vals[top].validators) * 5) // 12
+    tampered = m.light_block.SignedHeader(sh[top].header, tampered_commit(m, sh[top].commit, bad))
+    cases.append((f"signature #{bad} tampered at {top}", functools.partial(
+        L.verify_adjacent, chain_id, sh[top - 1], tampered, vals[top], period, now, drift,
+        **kw), vals[top], None, ("ErrInvalidHeader", f"wrong signature (#{bad})")))
+    late = now.add(TRUSTING_PERIOD_NS)
+    cases.append(("trusted header expired", functools.partial(
+        L.verify_adjacent, chain_id, sh[1], sh[2], vals[2], period, late, drift, **kw),
+        None, None, ("ErrOldHeaderExpired", "old header expired")))
+    cases.append((f"a third of the trusted power at {top}", functools.partial(
+        L.verify_non_adjacent, chain_id, sh[1], vals[1], rival.signed_header, rival.validator_set,
+        period, now, drift, **kw), None, vals[1], (
+            "ErrNewValSetCantBeTrusted", "insufficient voting power")))
+    return cases
+
+
+def outcome(call):
+    """("accepted", "") or (the error's class name, its message)."""
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 - the outcome is compared
+        return type(e).__name__, str(e)
+    return "accepted", ""
+
+
+def light_counted(vals, frac=(2, 3)):
+    """The keys a commit check of vals tallies before its power passes
+    frac of the total (every validator signed, in the set's order)."""
+    needed = vals.total_voting_power() * frac[0] // frac[1]
+    tallied, keys = 0, []
+    for v in vals.validators:
+        keys.append(v.pub_key.bytes())
+        tallied += v.voting_power
+        if tallied > needed:
+            break
+    return keys
+
+
+def light_setup(pool, rng, chain_id):
+    """Phase 10's chains and commits, signed at set-up: a light chain on each
+    plane, and the mixed-key sets of BASELINE.json config 4 with an ed25519
+    and with a secp256k1 proposer, each with its signed commit."""
+    m = light_modules()
+
+    def sign(secrets, msgs):
+        return [sigs[0] for _, sigs in pool.map(
+            _sign_worker, [(kind, seed, [msg]) for (kind, seed), msg in zip(secrets, msgs)],
+            chunksize=16)]
+
+    def members(kind, n):
+        seeds = [rng.bytes(32) for _ in range(n)]
+        pubs = make_keys(pool, kind, seeds)
+        return [(kind, pub, (kind, seed)) for pub, seed in zip(pubs, seeds)]
+
+    n = LIGHT_VALIDATORS
+    chains = {}
+    for kind in PLANES:
+        fresh = members(kind, n + 1 + n - n // 3)
+        chains[kind] = light_chain(m, fresh[:n], fresh[n], fresh[n + 1:], sign, chain_id)
+    mixed = members("ed25519", n - MIXED_SECP) + members("secp256k1", MIXED_SECP)
+    order = rng.permutation(n)
+    mixed = [mixed[i] for i in order]
+    sets = {}
+    for proposer_kind in ("ed25519", "secp256k1"):
+        vals, secrets = light_vals(m, mixed, [k for k, _, _ in mixed].index(proposer_kind))
+        bid = m.block.BlockID(rng.bytes(32), m.block.PartSetHeader(1, rng.bytes(32)))
+        sets[proposer_kind] = vals, bid, signed_commit(m, vals, secrets, sign, chain_id, 900, bid,
+                                                       LIGHT_T0)
+    return chains, sets
+
+
+def light_phase(planes, chain_id, chains, runs):
+    """Phase 10 (a) on each plane: every call of light_cases with its launch
+    counters zeroed just before it and read just after, held to the
+    launches its routing gives; returns the launches summed."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    m = light_modules()
+    totals = {}
+    for kind, P in planes.items():
+        blocks, rival = chains[kind]
+        seen = set()
+        plane_totals = {}
+        for label, call, checked, trusted, want in light_cases(m, blocks, rival, chain_id):
+            if trusted is not None and len(light_counted(trusted, (1, 3))) >= ed.DEVICE_BATCH_CUTOVER:
+                raise AssertionError(f"phase 10: {label}: the trusting check would reach the card")
+            expect = {}
+            if checked is not None:
+                keys = light_counted(checked)
+                if len(keys) >= ed.DEVICE_BATCH_CUTOVER:
+                    expect = {P.hit.__name__: 1}
+                    if not seen.issuperset(keys):
+                        expect[P.fill.__name__] = 1
+                    seen.update(keys)
+            got, t = drive(f"phase 10: {kind} {label}", lambda: outcome(call), expect, plane_totals)
+            if got[0] != want[0] or want[1] not in got[1]:
+                raise AssertionError(f"phase 10: {kind} {label}: {got}, expected {want}")
+            runs.append({"plane": kind, "commit": len(blocks[1].validator_set.validators),
+                         "run": f"light {label}", "s": t})
+            log(f"phase 10: {kind} {label}: {got[0]}{' (' + got[1][:60] + ')' if got[1] else ''}, "
+                f"launches {json.dumps(expect)}, {t * 1e3:.2f} ms on {card()}")
+        fills, hits = plane_totals.get(P.fill.__name__, 0), plane_totals.get(P.hit.__name__, 0)
+        if not fills or not hits:
+            raise AssertionError(f"phase 10: {kind} launched {plane_totals}: a fill and a hit expected")
+        for name, c in plane_totals.items():
+            totals[name] = totals.get(name, 0) + c
+    check_path("phase 10", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()])
+    return totals
+
+
+def hash_phase(vals, runs):
+    """Phase 10 (b): a 10,000-validator set's hash() cold (a copy without the
+    leaf memo) and memoized; its leaves' root, proofs and a 64-index
+    multiproof on the native route and under TM_TPU_NATIVE=0 in turns
+    HASH_TURNS, the same bytes on both, each proof verifying and a tampered
+    one failing. No call launches a kernel."""
+    import numpy as np
+
+    m = light_modules()
+    n = len(vals.validators)
+    cold = m.vs.ValidatorSet(
+        validators=[m.vs.Validator(v.address, v.pub_key, v.voting_power, v.proposer_priority)
+                    for v in vals.validators], proposer=vals.proposer)
+    totals = {}
+    root, t_cold = drive("phase 10: cold hash()", cold.hash, {}, totals)
+    again, t_memo = drive("phase 10: memoized hash()", cold.hash, {}, totals)
+    leaves = [v.bytes() for v in cold.validators]
+    idx = sorted(np.random.default_rng(n).choice(n, MULTIPROOF_INDICES, replace=False).tolist())
+    got, times = {}, {route: {"root": [], "proofs": [], "multiproof": []} for route in HASH_TURNS}
+    for route in HASH_TURNS:
+        with native_setting(route == "python"):
+            r, t = drive("phase 10: root", lambda: m.merkle.hash_from_byte_slices(leaves), {}, totals)
+            times[route]["root"].append(t)
+            (pr, proofs), t = drive("phase 10: proofs",
+                                    lambda: m.merkle.proofs_from_byte_slices(leaves), {}, totals)
+            times[route]["proofs"].append(t)
+            (mr, mp), t = drive("phase 10: multiproof",
+                                lambda: m.merkle.multiproof_from_byte_slices(leaves, idx), {}, totals)
+            times[route]["multiproof"].append(t)
+        this = (r, pr, [(p.leaf_hash, p.aunts) for p in proofs], mr, mp.leaf_hashes, mp.nodes)
+        if got.setdefault(route, this) != this or got[HASH_TURNS[0]] != this:
+            raise AssertionError(f"phase 10: the {route} route's hashes differ")
+    if not (root == again == got["native"][0] and all(
+            p.verify(root, leaf) for p, leaf in zip(proofs, leaves)) and mp.verify(
+            root, [leaves[i] for i in idx])):
+        raise AssertionError("phase 10: the 10,000-validator hashes or proofs do not verify")
+    forged = m.merkle.Proof(n, 7, proofs[7].leaf_hash, [bytes(32)] + proofs[7].aunts[1:])
+    if forged.verify(root, leaves[7]) or mp.verify(root, [leaves[idx[0]] + b"x"] + [
+            leaves[i] for i in idx[1:]]):
+        raise AssertionError("phase 10: a tampered proof verified")
+    mean = {route: {k: float(np.mean(v)) for k, v in parts.items()} for route, parts in times.items()}
+    runs.append({"plane": "ed25519", "commit": n, "run": "validator-set hash() cold", "s": t_cold})
+    runs.append({"plane": "ed25519", "commit": n, "run": "validator-set hash() memoized", "s": t_memo})
+    log(f"phase 10: {n}-validator set hash() cold {t_cold * 1e3:.3f} ms (leaf encodes and a native "
+        f"root), memoized {t_memo * 1e6:.2f} us; root, {n} proofs, a {MULTIPROOF_INDICES}-index "
+        f"multiproof, ms (means of turns {'/'.join(HASH_TURNS)}): "
+        + json.dumps({r: {k: round(v * 1e3, 4) for k, v in parts.items()} for r, parts in mean.items()})
+        + f"; the same bytes on both routes, every proof verifies, on {card()}")
+
+
+def mixed_phase(chain_id, sets, runs):
+    """Phase 10 (c), BASELINE.json config 4: verify_commit on the mixed-key
+    commits (50 secp256k1 keys among 150) under each proposer: the valid
+    commit accepted, a tampered secp256k1 and a tampered ed25519 signature
+    reported at their index, by the reference's serial semantics, so no
+    call launches a kernel."""
+    from tendermint_tpu_torch.crypto import secp256k1
+
+    m = light_modules()
+    totals = {}
+    for proposer_kind, (vals, bid, commit) in sets.items():
+        kinds = [v.pub_key.type_name for v in vals.validators]
+        proposer = vals.get_proposer().pub_key.type_name
+        if proposer != proposer_kind or kinds.count("secp256k1") != MIXED_SECP:
+            raise AssertionError(f"phase 10: the mixed set has a {proposer} proposer, {kinds.count('secp256k1')} "
+                                 "secp256k1 keys")
+        for label, bad in (("valid", None), ("secp256k1 tampered", kinds.index("secp256k1", 1)),
+                           ("ed25519 tampered", kinds.index("ed25519", 1))):
+            c = commit if bad is None else tampered_commit(m, commit, bad)
+            got, t = drive(f"phase 10: mixed {label}", lambda: outcome(functools.partial(
+                m.validation.verify_commit, chain_id, vals, bid, c.height, c)), {}, totals)
+            want = "accepted" if bad is None else f"wrong signature (#{bad}):"
+            if not (got[0] if bad is None else got[1]).startswith(want):
+                raise AssertionError(f"phase 10: mixed {label} under a {proposer} proposer: {got}")
+            runs.append({"plane": "mixed", "commit": len(kinds), "run": f"verify_commit {label}, "
+                         f"{proposer} proposer", "s": t})
+            log(f"phase 10: mixed-key verify_commit ({len(kinds) - MIXED_SECP} ed25519 + {MIXED_SECP} "
+                f"secp256k1, {proposer} proposer) {label}: {got[0]}{' #' + str(bad) if bad is not None else ''}, "
+                f"no launch, {t * 1e3:.1f} ms, secp256k1 route {secp256k1.route()}, on {card()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -2936,6 +3302,9 @@ def main() -> int:
         t0 = time.perf_counter()
         commits9 = engine_commits(pool, rng, keys, chain_id)
         log(f"phase 9: its commits signed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        chains10, mixed10 = light_setup(pool, rng, chain_id)
+        log(f"phase 10: its light chains and mixed-key commits signed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
@@ -2967,6 +3336,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         engine_phase(planes, chain_id, commits, commits9, runs, tmp)
     log(f"phase 9: the engine in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    light_phase(planes, chain_id, chains10, runs)
+    hash_phase(commits["ed25519"][SIZES[-1]][0], runs)
+    mixed_phase(chain_id, mixed10, runs)
+    log(f"phase 10: the light client and the hashes in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

@@ -7,7 +7,10 @@ crypto/sr25519.py), and batch verification sharded over a mesh of devices
 (parallel/), to hand-written Hopper kernels (csrc/, built with nvcc at
 first use and bound with ctypes by ops/_build.py), each beside a plain
 PyTorch version (ops/verify.py, ops/verify_sr.py, ops/msm.py,
-parallel/sharded_verify.py).
+parallel/sharded_verify.py). Above that seam: the light client's stateless
+header verification (light/), the block and validator-set hashes it checks
+(types/, crypto/merkle.py on the native SHA-256 / merkle plane of
+native/prep.c) and the host-only secp256k1 key type (crypto/secp256k1.py).
 
 The package imports torch, never jax, and nothing of tendermint_tpu. Its
 entry points run on the card unless the caller passes device="cpu", which

@@ -4,7 +4,8 @@
 the ed25519 and sr25519 batch verifiers (crypto/ed25519.py,
 crypto/sr25519.py) run on the port's device plane (ops/), with the
 pure-Python verifiers (`ed25519_ref`, `sr25519.verify`) as the
-correctness reference.
+correctness reference; secp256k1 keys (crypto/secp256k1.py) verify on the
+host only, as in the reference.
 """
 
 from __future__ import annotations

@@ -3,12 +3,15 @@
 A trimmed copy of the JAX package's metrics module
 (tendermint_tpu/metrics/__init__.py): the Counter / Gauge / Histogram
 primitives with label support, the Registry that renders the Prometheus
-text exposition format (`gather()`), and the two process-wide metric
-groups of the verification plane, EngineMetrics (tendermint_engine_*: the
-coalescing engine of ops/engine.py, the direct dispatch of crypto/, the
-kernel launches of ops/ and the sharded launches of parallel/) and
-DeviceMetrics (tendermint_device_*: devobs/). Names, labels, help strings
-and buckets are the reference's, so one scrape reads both packages alike.
+text exposition format (`gather()`), the two process-wide metric groups of
+the verification plane, EngineMetrics (tendermint_engine_*: the coalescing
+engine of ops/engine.py, the direct dispatch of crypto/, the kernel
+launches of ops/ and the sharded launches of parallel/) and DeviceMetrics
+(tendermint_device_*: devobs/), and the two of the hash plane, HashMetrics
+(tendermint_hash_*: the merkle builds of crypto/merkle.py and the hash
+memos of types/) and ProofMetrics (tendermint_proofs_*: the multiproof
+builds and the tree cache). Names, labels, help strings and buckets are
+the reference's, so one scrape reads both packages alike.
 
 Metric writes never raise (`_never_raise`): a telemetry fault must not
 kill the engine's workers. Reads (`samples`, `gather`) stay loud.
@@ -474,11 +477,89 @@ class DeviceMetrics:
         )
 
 
-# Process-global registry: the engine and the device plane are
-# process-wide, so their groups register here.
+class HashMetrics:
+    """Telemetry for the structural-hash plane: the batched SHA-256 and
+    merkle builders (native/prep.c tm_merkle_root / tm_sha256_batch and
+    the iterative crypto/merkle.py fallback) and the memoized hashes of
+    the block types (ValidatorSet.hash, Header.hash, Commit.hash). Per-site
+    build counters show where hash work goes (header / txs / commit /
+    validator_set); the backend label says which plane served it (native
+    or python); the cache counters make memo hits and invalidations
+    visible. The reference's series; registered on the process-global
+    registry, as the types are process-wide."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_hash"
+        self.merkle_builds = reg.counter(
+            f"{ns}_merkle_builds_total",
+            "Merkle tree builds by call site and backend",
+            labels=("site", "backend"),
+        )
+        self.merkle_leaves = reg.histogram(
+            f"{ns}_merkle_leaves",
+            "Leaves per merkle build",
+            labels=("site",),
+            buckets=(1, 2, 4, 8, 16, 64, 256, 1024, 4096, 16384),
+        )
+        self.merkle_build_seconds = reg.histogram(
+            f"{ns}_merkle_build_seconds",
+            "Wall time per merkle build (leaf hashing included)",
+            labels=("backend",),
+            buckets=(0.000005, 0.00002, 0.0001, 0.0005, 0.002, 0.01, 0.05, 0.25, 1),
+        )
+        self.sha256_batches = reg.counter(
+            f"{ns}_sha256_batches_total",
+            "Batched leaf/tx SHA-256 calls by backend",
+            labels=("backend",),
+        )
+        self.cache_events = reg.counter(
+            f"{ns}_cache_events_total",
+            "Structural-hash memo events (hit/miss/invalidate) by site",
+            labels=("site", "event"),
+        )
+
+
+class ProofMetrics:
+    """Telemetry for the batched proof plane: the multiproof builders
+    (crypto/merkle.py, prep.c tm_merkle_multiproof) and the hot-tree LRU
+    (crypto/merkle.TreeCache). The reference's series, whose served and
+    serve-time families its proof gateway writes (the port has no gateway
+    yet, so they stay empty here); registered on the process-global
+    registry, as the merkle plane is process-wide."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_proofs"
+        self.served = reg.counter(
+            f"{ns}_served_total",
+            "Proofs served by gateway route and answering backend",
+            labels=("route", "backend"),
+        )
+        self.batch_size = reg.histogram(
+            f"{ns}_multiproof_batch_size",
+            "Indices proven per multiproof request",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096),
+        )
+        self.serve_seconds = reg.histogram(
+            f"{ns}_serve_seconds",
+            "Wall time serving one proof-gateway request",
+            labels=("route",),
+            buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                     0.025, 0.05, 0.1, 0.25, 0.5, 1.0),
+        )
+        self.tree_cache_events = reg.counter(
+            f"{ns}_tree_cache_events_total",
+            "Hot-tree LRU events (hit/miss/evict)",
+            labels=("event",),
+        )
+
+
+# Process-global registry: the engine, the device plane and the hash plane
+# are process-wide, so their groups register here.
 _GLOBAL_REGISTRY = Registry()
 _ENGINE_METRICS: EngineMetrics | None = None
 _DEVICE_METRICS: DeviceMetrics | None = None
+_HASH_METRICS: HashMetrics | None = None
+_PROOF_METRICS: ProofMetrics | None = None
 _ENGINE_LOCK = threading.Lock()
 
 
@@ -506,3 +587,25 @@ def device_metrics() -> DeviceMetrics:
             if _DEVICE_METRICS is None:
                 _DEVICE_METRICS = DeviceMetrics(_GLOBAL_REGISTRY)
     return _DEVICE_METRICS
+
+
+def hash_metrics() -> HashMetrics:
+    """Lazy process-wide HashMetrics singleton (the first merkle build or
+    hash-memo event registers the families)."""
+    global _HASH_METRICS
+    if _HASH_METRICS is None:
+        with _ENGINE_LOCK:
+            if _HASH_METRICS is None:
+                _HASH_METRICS = HashMetrics(_GLOBAL_REGISTRY)
+    return _HASH_METRICS
+
+
+def proof_metrics() -> ProofMetrics:
+    """Lazy process-wide ProofMetrics singleton (the first tree-cache event
+    registers the families)."""
+    global _PROOF_METRICS
+    if _PROOF_METRICS is None:
+        with _ENGINE_LOCK:
+            if _PROOF_METRICS is None:
+                _PROOF_METRICS = ProofMetrics(_GLOBAL_REGISTRY)
+    return _PROOF_METRICS

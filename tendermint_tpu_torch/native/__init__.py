@@ -4,10 +4,12 @@
 SHA-512 challenges mod L, the s < L precheck and the row shaping of the
 ed25519 bitmap and RLC planes (`prepare_batch`, called from
 ops/verify.py), the RLC scalars (`tm_rlc_scalars`, from ops/msm.py and
-the sharded RLC) and the libcrypto ed25519 host verify
-(`tm_host_verify`, through `host_verify_batch`). Each is one ctypes call
-that releases the GIL and threads across up to 8 cores inside C. The
-bytes equal the pure-Python paths' (`tests/test_torch_native_prep.py`).
+the sharded RLC), the libcrypto ed25519 host verify (`tm_host_verify`,
+through `host_verify_batch`) and the SHA-256 / RFC-6962 merkle plane of
+crypto/merkle.py (`sha256_batch`, `merkle_root`, `merkle_proofs`,
+`merkle_multiproof`). Each is one ctypes call that releases the GIL and
+threads across up to 8 cores inside C. The bytes equal the pure-Python
+paths' (`tests/test_torch_native_prep.py`, `tests/test_torch_merkle.py`).
 
 The library builds on first use with
 
@@ -16,7 +18,8 @@ The library builds on first use with
 into `tendermint_tpu_torch/_build/` (git-ignored), named by a hash of the
 source and the flags; concurrent builders (processes or threads) each
 write a file of their own and rename it into place. A failed build or
-load raises with the compiler's output: nothing falls back quietly.
+load raises with the compiler's output, and a failed allocation inside C
+raises MemoryError: nothing falls back quietly.
 
 `TM_TPU_NATIVE=0` (also `off`, `false`, `no`) is the explicit request for
 the pure-Python paths: every caller then takes its Python version and
@@ -57,6 +60,19 @@ ENTRY_POINTS = {
         ctypes.c_int,  # pks, sigs, msgs, offsets, n, out; 0: no libcrypto
     ),
     "tm_mod_l": ([ctypes.c_char_p, ctypes.c_char_p], None),  # digest (64), out (32)
+    # the merkle plane: 0, or -1 when a buffer could not be allocated
+    "tm_sha256_batch": ([ctypes.c_char_p, _i64p, ctypes.c_int64, _u8p], ctypes.c_int),
+    "tm_merkle_root": ([ctypes.c_char_p, _i64p, ctypes.c_int64, _u8p], ctypes.c_int),
+    "tm_merkle_proofs": (
+        [ctypes.c_char_p, _i64p, ctypes.c_int64, ctypes.c_int64,
+         _u8p, _u8p, _u8p, ctypes.POINTER(ctypes.c_int32)],  # items, offsets, n, stride,
+        ctypes.c_int,                                        # root, leaves, aunts, counts
+    ),
+    "tm_merkle_multiproof": (
+        [ctypes.c_char_p, _i64p, ctypes.c_int64, _i64p, ctypes.c_int64,
+         _u8p, _u8p, _u8p, _i64p],  # items, offsets, n, indices, k, root, leaves, nodes, n_nodes
+        ctypes.c_int,
+    ),
 }
 
 _lock = threading.Lock()
@@ -160,3 +176,87 @@ def host_verify_batch(pubkeys, msgs, sigs):
         raise RuntimeError("native prep: tm_host_verify found no libcrypto "
                            "(libcrypto.so.3, .so.1.1 or .so); set TM_TPU_NATIVE=0 for the Python path")
     return out.astype(bool)
+
+
+def _merkle_call(fn: str, items, *args) -> None:
+    """Call a merkle-plane entry point on the items (concatenated, with
+    their offsets) and the outputs in args; raises MemoryError when C
+    could not allocate a buffer."""
+    offsets = offsets_of(items)
+    rc = getattr(load_prep(), fn)(b"".join(items), offsets.ctypes.data_as(_i64p), len(items), *args)
+    if rc != 0:
+        raise MemoryError(f"native {fn} failed (status {rc}): a buffer could not be allocated")
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(_u8p)
+
+
+def _rows(buf: bytes, k: int, start: int = 0) -> list[bytes]:
+    """The k 32-byte rows of buf from byte `start` on."""
+    return [buf[start + 32 * i: start + 32 * i + 32] for i in range(k)]
+
+
+def sha256_batch(items) -> list[bytes] | None:
+    """SHA-256 of each item in one native call (threaded inside C for
+    large totals); None under TM_TPU_NATIVE=0."""
+    if native_disabled():
+        return None
+    n = len(items)
+    if n == 0:
+        return []
+    out = np.empty(n * 32, np.uint8)
+    _merkle_call("tm_sha256_batch", items, _u8(out))
+    return _rows(out.tobytes(), n)
+
+
+def merkle_root(items) -> bytes | None:
+    """RFC-6962 merkle root in one native call; None under TM_TPU_NATIVE=0."""
+    if native_disabled():
+        return None
+    out = np.empty(32, np.uint8)
+    _merkle_call("tm_merkle_root", items, _u8(out))
+    return out.tobytes()
+
+
+def merkle_proofs(items) -> tuple[bytes, list[bytes], list[list[bytes]]] | None:
+    """(root, per-item leaf hashes, per-item aunt lists) in one native
+    call; None under TM_TPU_NATIVE=0. Needs at least one item."""
+    if native_disabled():
+        return None
+    n = len(items)
+    if n == 0:
+        raise ValueError("merkle_proofs needs at least one item")
+    stride = max(1, (n - 1).bit_length())  # ceil(log2(n)) = the most aunts an item has
+    root = np.empty(32, np.uint8)
+    leaves = np.empty(n * 32, np.uint8)
+    aunts = np.empty(n * stride * 32, np.uint8)
+    counts = np.zeros(n, np.int32)
+    _merkle_call("tm_merkle_proofs", items, stride, _u8(root), _u8(leaves), _u8(aunts),
+                 counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    aunt_buf = aunts.tobytes()
+    aunt_lists = [_rows(aunt_buf, int(counts[i]), i * stride * 32) for i in range(n)]
+    return root.tobytes(), _rows(leaves.tobytes(), n), aunt_lists
+
+
+def merkle_multiproof(items, indices) -> tuple[bytes, list[bytes], list[bytes]] | None:
+    """(root, proven leaf hashes, deduplicated shared-node list) for k
+    sorted distinct indices against one tree, in one native call; None
+    under TM_TPU_NATIVE=0. At least one item and one index; the indices
+    strictly ascending in [0, n), as C indexes the tree with them."""
+    if native_disabled():
+        return None
+    n, k = len(items), len(indices)
+    if n == 0 or k == 0:
+        raise ValueError("merkle_multiproof needs at least one item and one index")
+    idx = np.asarray(indices, np.int64)
+    if idx[0] < 0 or idx[-1] >= n or np.any(np.diff(idx) <= 0):
+        raise ValueError(f"merkle_multiproof indices must ascend strictly within [0, {n})")
+    max_nodes = k * max(1, (n - 1).bit_length())  # at most one emission an ancestor a level
+    root = np.empty(32, np.uint8)
+    leaves = np.empty(k * 32, np.uint8)
+    nodes = np.empty(max_nodes * 32, np.uint8)
+    n_nodes = np.zeros(1, np.int64)
+    _merkle_call("tm_merkle_multiproof", items, idx.ctypes.data_as(_i64p), k, _u8(root),
+                 _u8(leaves), _u8(nodes), n_nodes.ctypes.data_as(_i64p))
+    return root.tobytes(), _rows(leaves.tobytes(), k), _rows(nodes.tobytes(), int(n_nodes[0]))

@@ -9,10 +9,13 @@
  *                   zk_i = z_i k_i mod L and zs = sum z_i s_i mod L;
  *   tm_host_verify  ed25519 through a dlopen'd libcrypto's EVP verify,
  *                   on up to 8 pthreads (serial below 16 rows);
- *   tm_mod_l        the 512-bit reduction, exported for tests.
+ *   tm_mod_l        the 512-bit reduction, exported for tests;
+ *   tm_sha256_batch, tm_merkle_root, tm_merkle_proofs, tm_merkle_multiproof
+ *                   the SHA-256 / RFC-6962 merkle plane of crypto/merkle.py
+ *                   (leaf hashing on up to 8 pthreads for big trees).
  *
- * Unlike the reference's copy, prepare_batch returns a status: a failed
- * allocation for a long message is reported to the caller, which raises.
+ * Unlike the reference's copy, prepare_batch and the merkle plane return a
+ * status: a failed allocation is reported to the caller, which raises.
  *
  * SHA-512 is implemented from FIPS 180-4 (constants generated from the
  * prime square/cube-root definitions); the mod-L reduction uses
@@ -80,13 +83,16 @@ static void sha512_compress(u64 st[8], const uint8_t blk[128]) {
     st[0]+=a; st[1]+=b; st[2]+=c; st[3]+=d; st[4]+=e; st[5]+=f; st[6]+=g; st[7]+=h;
 }
 
-/* OpenSSL's asm-optimized SHA512 when libcrypto is present (2-4x the
- * portable compression above); resolved once, thread-safe. Both give
- * the same digest, so which one runs changes no byte; sha512_local
- * serves where there is no libcrypto. */
+/* OpenSSL's asm-optimized SHA512 and SHA256 when libcrypto is present
+ * (2-4x the portable compressions); resolved once, thread-safe. Both give
+ * the same digests, so which one runs changes no byte; sha512_local and
+ * sha256_local serve where libcrypto or its SHA256 symbol is absent. */
 typedef unsigned char *(*ossl_sha512_fn)(const unsigned char *, size_t,
                                          unsigned char *);
+typedef unsigned char *(*ossl_sha256_fn)(const unsigned char *, size_t,
+                                         unsigned char *);
 static ossl_sha512_fn ossl_sha512;
+static ossl_sha256_fn ossl_sha256;
 static pthread_once_t ossl_once = PTHREAD_ONCE_INIT;
 
 static void ossl_resolve(void) {
@@ -95,8 +101,10 @@ static void ossl_resolve(void) {
         void *h = dlopen(names[i], RTLD_NOW | RTLD_LOCAL);
         if (h) {
             ossl_sha512 = (ossl_sha512_fn)dlsym(h, "SHA512");
-            if (ossl_sha512) return;
+            ossl_sha256 = (ossl_sha256_fn)dlsym(h, "SHA256");
+            if (ossl_sha512) return;  /* sha256 may be absent: local then */
             dlclose(h);
+            ossl_sha256 = 0;
         }
     }
 }
@@ -545,3 +553,312 @@ int tm_host_verify(const uint8_t *pks, const uint8_t *sigs,
     return 1;
 }
 
+
+/* --------------------- SHA-256 + RFC-6962 merkle plane ----------------
+ *
+ * The structural hashes of a block (the header's fields, the commit's
+ * signatures, the validator set, the txs) as one ctypes call a tree (GIL
+ * released throughout), one contiguous 32-byte-stride buffer a level, no
+ * recursion. SHA-256 is FIPS 180-4 (the local portable compression) with
+ * libcrypto's asm SHA256 used when it resolves, as SHA-512 above.
+ *
+ * Every entry point returns 0, or -1 when a buffer could not be
+ * allocated: the outputs are then incomplete and the caller raises. */
+
+static const uint32_t K256[64] = {
+0x428a2f98,0x71374491,0xb5c0fbcf,0xe9b5dba5,0x3956c25b,0x59f111f1,0x923f82a4,0xab1c5ed5,
+0xd807aa98,0x12835b01,0x243185be,0x550c7dc3,0x72be5d74,0x80deb1fe,0x9bdc06a7,0xc19bf174,
+0xe49b69c1,0xefbe4786,0x0fc19dc6,0x240ca1cc,0x2de92c6f,0x4a7484aa,0x5cb0a9dc,0x76f988da,
+0x983e5152,0xa831c66d,0xb00327c8,0xbf597fc7,0xc6e00bf3,0xd5a79147,0x06ca6351,0x14292967,
+0x27b70a85,0x2e1b2138,0x4d2c6dfc,0x53380d13,0x650a7354,0x766a0abb,0x81c2c92e,0x92722c85,
+0xa2bfe8a1,0xa81a664b,0xc24b8b70,0xc76c51a3,0xd192e819,0xd6990624,0xf40e3585,0x106aa070,
+0x19a4c116,0x1e376c08,0x2748774c,0x34b0bcb5,0x391c0cb3,0x4ed8aa4a,0x5b9cca4f,0x682e6ff3,
+0x748f82ee,0x78a5636f,0x84c87814,0x8cc70208,0x90befffa,0xa4506ceb,0xbef9a3f7,0xc67178f2};
+
+#define ROR32(x,n) (((x) >> (n)) | ((x) << (32-(n))))
+
+static void sha256_compress(uint32_t st[8], const uint8_t blk[64]) {
+    uint32_t w[64];
+    for (int i = 0; i < 16; i++) {
+        w[i] = ((uint32_t)blk[4*i] << 24) | ((uint32_t)blk[4*i+1] << 16) |
+               ((uint32_t)blk[4*i+2] << 8) | (uint32_t)blk[4*i+3];
+    }
+    for (int i = 16; i < 64; i++) {
+        uint32_t s0 = ROR32(w[i-15],7) ^ ROR32(w[i-15],18) ^ (w[i-15] >> 3);
+        uint32_t s1 = ROR32(w[i-2],17) ^ ROR32(w[i-2],19) ^ (w[i-2] >> 10);
+        w[i] = w[i-16] + s0 + w[i-7] + s1;
+    }
+    uint32_t a=st[0],b=st[1],c=st[2],d=st[3],e=st[4],f=st[5],g=st[6],h=st[7];
+    for (int i = 0; i < 64; i++) {
+        uint32_t S1 = ROR32(e,6) ^ ROR32(e,11) ^ ROR32(e,25);
+        uint32_t ch = (e & f) ^ (~e & g);
+        uint32_t t1 = h + S1 + ch + K256[i] + w[i];
+        uint32_t S0 = ROR32(a,2) ^ ROR32(a,13) ^ ROR32(a,22);
+        uint32_t mj = (a & b) ^ (a & c) ^ (b & c);
+        uint32_t t2 = S0 + mj;
+        h=g; g=f; f=e; e=d+t1; d=c; c=b; b=a; a=t1+t2;
+    }
+    st[0]+=a; st[1]+=b; st[2]+=c; st[3]+=d; st[4]+=e; st[5]+=f; st[6]+=g; st[7]+=h;
+}
+
+static void sha256_local(const uint8_t *data, u64 len, uint8_t out[32]) {
+    uint32_t st[8] = {0x6a09e667,0xbb67ae85,0x3c6ef372,0xa54ff53a,
+                      0x510e527f,0x9b05688c,0x1f83d9ab,0x5be0cd19};
+    u64 full = len / 64;
+    for (u64 i = 0; i < full; i++) sha256_compress(st, data + 64*i);
+    uint8_t tail[128];
+    u64 rem = len - 64*full;
+    memcpy(tail, data + 64*full, rem);
+    tail[rem] = 0x80;
+    u64 tail_len = (rem + 1 + 8 <= 64) ? 64 : 128;
+    memset(tail + rem + 1, 0, tail_len - rem - 1);
+    u64 bits = len * 8;
+    for (int i = 0; i < 8; i++) tail[tail_len-1-i] = (uint8_t)(bits >> (8*i));
+    sha256_compress(st, tail);
+    if (tail_len == 128) sha256_compress(st, tail + 64);
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 4; j++)
+            out[4*i+j] = (uint8_t)(st[i] >> (24 - 8*j));
+}
+
+static void sha256(const uint8_t *data, u64 len, uint8_t out[32]) {
+    if (ossl_sha256) {
+        ossl_sha256(data, len, out);
+    } else {
+        sha256_local(data, len, out);
+    }
+}
+
+/* SHA256(has_prefix ? prefix || item : item), the RFC-6962 leaf and inner
+ * domain separation. One-shot hashing needs contiguous input: a stack
+ * buffer for typical leaves (proto encodes, tx hashes), the heap for big
+ * ones (64 KiB block parts). Returns 0, or -1 when that buffer could not
+ * be allocated (out is then left unwritten). */
+static int sha256_prefixed(int has_prefix, uint8_t prefix,
+                           const uint8_t *item, int64_t len, uint8_t *out) {
+    if (!has_prefix) {
+        sha256(item, (u64)len, out);
+        return 0;
+    }
+    uint8_t buf[1 + 4096];
+    uint8_t *p = buf;
+    if (len > 4096) {
+        p = (uint8_t *)__builtin_malloc((u64)len + 1);
+        if (!p) return -1;
+    }
+    p[0] = prefix;
+    memcpy(p + 1, item, (u64)len);
+    sha256(p, (u64)len + 1, out);
+    if (p != buf) __builtin_free(p);
+    return 0;
+}
+
+typedef struct {
+    const uint8_t *items;
+    const int64_t *offsets;
+    int64_t lo, hi;
+    int has_prefix;
+    uint8_t prefix;
+    uint8_t *out; /* 32-byte stride */
+    int status;
+} hash_job;
+
+/* Items lo..hi-1; returns 0, or -1 at the first item whose buffer could
+ * not be allocated (the items from that one on are left unwritten). */
+static int hash_range(const uint8_t *items, const int64_t *offsets,
+                      int64_t lo, int64_t hi, int has_prefix,
+                      uint8_t prefix, uint8_t *out) {
+    for (int64_t i = lo; i < hi; i++)
+        if (sha256_prefixed(has_prefix, prefix, items + offsets[i],
+                            offsets[i+1] - offsets[i], out + 32*i))
+            return -1;
+    return 0;
+}
+
+static void *hash_worker(void *arg) {
+    hash_job *j = (hash_job *)arg;
+    j->status = hash_range(j->items, j->offsets, j->lo, j->hi, j->has_prefix,
+                           j->prefix, j->out);
+    return 0;
+}
+
+/* Hash n items (concatenated, offsets[n+1]) into out (n*32), threading
+ * across cores when there is enough total work to amortize the spawns
+ * (from 1 MiB or 4,096 items). A failed pthread_create hashes the rest on
+ * the calling thread: the same bytes. Returns 0 or -1 as hash_range. */
+static int sha256_batch_threaded(const uint8_t *items, const int64_t *offsets,
+                                 int64_t n, int has_prefix, uint8_t prefix,
+                                 uint8_t *out) {
+    long ncpu = sysconf(_SC_NPROCESSORS_ONLN);
+    int nthreads = (int)(ncpu < 1 ? 1 : (ncpu > 8 ? 8 : ncpu));
+    int64_t total_bytes = offsets[n] - offsets[0];
+    if (nthreads == 1 || n < 2 || (total_bytes < (1 << 20) && n < 4096))
+        return hash_range(items, offsets, 0, n, has_prefix, prefix, out);
+    pthread_t threads[8];
+    hash_job jobs[8];
+    int64_t chunk = (n + nthreads - 1) / nthreads;
+    int started = 0, status = 0;
+    for (int t = 0; t < nthreads; t++) {
+        int64_t lo = t * chunk, hi = lo + chunk > n ? n : lo + chunk;
+        if (lo >= hi) break;
+        jobs[t] = (hash_job){items, offsets, lo, hi, has_prefix, prefix, out, 0};
+        if (pthread_create(&threads[t], 0, hash_worker, &jobs[t]) != 0) {
+            status = hash_range(items, offsets, lo, n, has_prefix, prefix, out);
+            break;
+        }
+        started++;
+    }
+    for (int t = 0; t < started; t++) {
+        pthread_join(threads[t], 0);
+        if (jobs[t].status) status = jobs[t].status;
+    }
+    return status;
+}
+
+/* Plain SHA-256 of each item (types/tx.go Tx.Hash). */
+int tm_sha256_batch(const uint8_t *items, const int64_t *offsets, int64_t n,
+                    uint8_t *out) {
+    pthread_once(&ossl_once, ossl_resolve);
+    return sha256_batch_threaded(items, offsets, n, 0, 0, out);
+}
+
+/* One level-halving pass: pair adjacent nodes (inner prefix 0x01); an odd
+ * tail node is promoted unchanged. Bottom-up pairing with odd promotion
+ * builds exactly the reference's split-at-the-largest-power-of-two-below-n
+ * tree (crypto/merkle/tree.go getSplitPoint): both place 2^k leaves in
+ * every maximal left subtree. In place over one contiguous buffer: writes
+ * at index i/2 never pass unread reads. */
+static int64_t merkle_halve(uint8_t *level, int64_t count) {
+    uint8_t buf[65];
+    buf[0] = 0x01;
+    int64_t next = 0;
+    for (int64_t i = 0; i + 1 < count; i += 2) {
+        memcpy(buf + 1, level + 32*i, 32);
+        memcpy(buf + 33, level + 32*(i+1), 32);
+        sha256(buf, 65, level + 32*next);
+        next++;
+    }
+    if (count & 1) {
+        memmove(level + 32*next, level + 32*(count-1), 32);
+        next++;
+    }
+    return next;
+}
+
+/* RFC-6962 merkle root over n items (leaf prefix 0x00, inner 0x01, the
+ * empty list = SHA256("")), byte-identical to
+ * crypto/merkle.hash_from_byte_slices. */
+int tm_merkle_root(const uint8_t *items, const int64_t *offsets, int64_t n,
+                   uint8_t *out) {
+    pthread_once(&ossl_once, ossl_resolve);
+    if (n == 0) {
+        sha256((const uint8_t *)"", 0, out);
+        return 0;
+    }
+    uint8_t *level = (uint8_t *)__builtin_malloc((u64)n * 32);
+    if (!level) return -1;
+    int status = sha256_batch_threaded(items, offsets, n, 1, 0x00, level);
+    if (status == 0) {
+        int64_t count = n;
+        while (count > 1) count = merkle_halve(level, count);
+        memcpy(out, level, 32);
+    }
+    __builtin_free(level);
+    return status;
+}
+
+/* Root + one inclusion proof per item (crypto/merkle/proof.go
+ * ProofsFromByteSlices). Outputs: root_out[32]; leaves_out n*32 (the leaf
+ * hash each Proof carries); aunts_out n*stride*32 with item i's aunts
+ * bottom-up at aunts_out + i*stride*32; counts_out[i] = its aunt count.
+ * stride must be >= ceil(log2(n)) (the caller passes it so the buffer
+ * layout is agreed on both sides). Requires n >= 1. */
+int tm_merkle_proofs(const uint8_t *items, const int64_t *offsets, int64_t n,
+                     int64_t stride, uint8_t *root_out, uint8_t *leaves_out,
+                     uint8_t *aunts_out, int32_t *counts_out) {
+    pthread_once(&ossl_once, ossl_resolve);
+    if (sha256_batch_threaded(items, offsets, n, 1, 0x00, leaves_out)) return -1;
+    uint8_t *level = (uint8_t *)__builtin_malloc((u64)n * 32);
+    int64_t *idx = (int64_t *)__builtin_malloc((u64)n * sizeof(int64_t));
+    if (!level || !idx) {
+        __builtin_free(level);
+        __builtin_free(idx);
+        return -1;
+    }
+    memcpy(level, leaves_out, (u64)n * 32);
+    for (int64_t i = 0; i < n; i++) { idx[i] = i; counts_out[i] = 0; }
+    int64_t count = n;
+    while (count > 1) {
+        /* record each item's ancestor's sibling at this level, then halve.
+         * A promoted odd tail has no sibling: no aunt at this level. */
+        for (int64_t i = 0; i < n; i++) {
+            int64_t sib = idx[i] ^ 1;
+            if (sib < count)
+                memcpy(aunts_out + (i * stride + counts_out[i]++) * 32,
+                       level + 32*sib, 32);
+            idx[i] >>= 1;
+        }
+        count = merkle_halve(level, count);
+    }
+    memcpy(root_out, level, 32);
+    __builtin_free(level);
+    __builtin_free(idx);
+    return 0;
+}
+
+/* Batched multiproof: ONE call proving k sorted distinct indices against
+ * the tree over n items, emitting the deduplicated shared-node set instead
+ * of k aunt lists. Per level (bottom-up), each current ancestor index in
+ * ascending order either pairs with its sibling inside the ancestor set
+ * (shared: recomputed from the proven leaves at verify time, nothing
+ * emitted) or consumes one emitted sibling node; a promoted odd tail
+ * contributes nothing. Parent indices never collide outside the pair case
+ * (equal idx>>1 means siblings), so the ancestor set stays strictly
+ * ascending with no dedup pass.
+ *
+ * Outputs: root_out[32]; leaves_out k*32 (the proven leaf hashes in index
+ * order); nodes_out (caller-sized to k*ceil(log2 n) slots: at most one
+ * emission an ancestor a level); *n_nodes_out = the emitted count.
+ * Requires n >= 1 and indices strictly ascending in [0, n) (the caller
+ * validates them). */
+int tm_merkle_multiproof(const uint8_t *items, const int64_t *offsets, int64_t n,
+                         const int64_t *indices, int64_t k,
+                         uint8_t *root_out, uint8_t *leaves_out,
+                         uint8_t *nodes_out, int64_t *n_nodes_out) {
+    pthread_once(&ossl_once, ossl_resolve);
+    uint8_t *level = (uint8_t *)__builtin_malloc((u64)n * 32);
+    int64_t *cur = (int64_t *)__builtin_malloc((u64)(k > 0 ? k : 1) * sizeof(int64_t));
+    if (!level || !cur
+        || sha256_batch_threaded(items, offsets, n, 1, 0x00, level)) {
+        __builtin_free(level);
+        __builtin_free(cur);
+        return -1;
+    }
+    for (int64_t i = 0; i < k; i++) {
+        memcpy(leaves_out + 32 * i, level + 32 * indices[i], 32);
+        cur[i] = indices[i];
+    }
+    int64_t m = k, count = n, emitted = 0;
+    while (count > 1) {
+        int64_t w = 0;
+        for (int64_t i = 0; i < m; ) {
+            int64_t idx = cur[i];
+            if ((idx & 1) == 0 && i + 1 < m && cur[i + 1] == idx + 1) {
+                i += 2; /* both children proven: shared, nothing emitted */
+            } else {
+                int64_t sib = idx ^ 1;
+                if (sib < count)
+                    memcpy(nodes_out + 32 * emitted++, level + 32 * sib, 32);
+                i += 1;
+            }
+            cur[w++] = idx >> 1;
+        }
+        m = w;
+        count = merkle_halve(level, count);
+    }
+    *n_nodes_out = emitted;
+    memcpy(root_out, level, 32);
+    __builtin_free(level);
+    __builtin_free(cur);
+    return 0;
+}

@@ -207,6 +207,15 @@ class Message:
     def copy(self):
         return type(self).decode(self.encode())
 
+    def which(self) -> str | None:
+        """For oneof-shaped messages: the name of the (single) set
+        message field, or None. Usable by any envelope whose fields are
+        mutually exclusive submessages."""
+        for f in type(self).fields:
+            if f.ftype == "message" and getattr(self, f.name) is not None:
+                return f.name
+        return None
+
 
 def _decode_scalar(ftype: str, buf: bytes, pos: int):
     if ftype in _VARINT_TYPES:

@@ -1,5 +1,7 @@
-"""Wire message schemas for canonical vote sign bytes and commit hashing (ref:
-proto/tendermint/types/types.proto, canonical.proto).
+"""Wire message schemas for canonical vote sign bytes, commit and header
+hashing, validator sets and light blocks (ref: proto/tendermint/types/types.proto,
+canonical.proto, validator.proto, proto/tendermint/crypto/keys.proto,
+proof.proto, proto/tendermint/version/types.proto).
 
 Field numbers and nullability mirror the reference schemas exactly; the
 encodings are byte-identical.
@@ -29,6 +31,78 @@ class Timestamp(Message):
     ]
 
 
+class Consensus(Message):
+    """tendermint.version.Consensus (proto/tendermint/version/types.proto)."""
+
+    fields = [
+        Field(1, "uint64", "block"),
+        Field(2, "uint64", "app"),
+    ]
+
+
+class Proof(Message):
+    fields = [
+        Field(1, "int64", "total"),
+        Field(2, "int64", "index"),
+        Field(3, "bytes", "leaf_hash"),
+        Field(4, "bytes", "aunts", repeated=True),
+    ]
+
+
+class PublicKey(Message):
+    """tendermint.crypto.PublicKey: oneof {ed25519, secp256k1, sr25519}."""
+
+    fields = [
+        Field(1, "bytes", "ed25519"),
+        Field(2, "bytes", "secp256k1"),
+        Field(3, "bytes", "sr25519"),
+    ]
+
+    def __init__(self, **kwargs):
+        self.ed25519 = kwargs.pop("ed25519", None)
+        self.secp256k1 = kwargs.pop("secp256k1", None)
+        self.sr25519 = kwargs.pop("sr25519", None)
+        if kwargs:
+            raise TypeError(f"PublicKey: unknown fields {sorted(kwargs)}")
+
+    def encode(self) -> bytes:
+        from . import wire
+
+        # oneof: emit whichever arm is set, even if empty bytes.
+        for num, name in ((1, "ed25519"), (2, "secp256k1"), (3, "sr25519")):
+            v = getattr(self, name)
+            if v is not None:
+                return wire.encode_tag(num, wire.WIRE_BYTES) + wire.encode_bytes(bytes(v))
+        return b""
+
+    @classmethod
+    def decode(cls, buf: bytes):
+        from . import wire
+
+        msg = cls()
+        pos = 0
+        while pos < len(buf):
+            num, wt, pos = wire.decode_tag(buf, pos)
+            if wt != wire.WIRE_BYTES:
+                raise ValueError("PublicKey: bad wire type")
+            val, pos = wire.decode_bytes(buf, pos)
+            if num == 1:
+                msg.ed25519 = val
+            elif num == 2:
+                msg.secp256k1 = val
+            elif num == 3:
+                msg.sr25519 = val
+        return msg
+
+    @property
+    def sum(self):
+        for name in ("ed25519", "secp256k1", "sr25519"):
+            v = getattr(self, name)
+            if v is not None:
+                return name, v
+        return None, None
+
+
 class PartSetHeader(Message):
     fields = [
         Field(1, "uint32", "total"),
@@ -40,6 +114,25 @@ class BlockID(Message):
     fields = [
         Field(1, "bytes", "hash"),
         Field(2, "message", "part_set_header", always_emit=True, msg_cls=PartSetHeader),
+    ]
+
+
+class Header(Message):
+    fields = [
+        Field(1, "message", "version", always_emit=True, msg_cls=Consensus),
+        Field(2, "string", "chain_id"),
+        Field(3, "int64", "height"),
+        Field(4, "message", "time", always_emit=True, msg_cls=Timestamp),
+        Field(5, "message", "last_block_id", always_emit=True, msg_cls=BlockID),
+        Field(6, "bytes", "last_commit_hash"),
+        Field(7, "bytes", "data_hash"),
+        Field(8, "bytes", "validators_hash"),
+        Field(9, "bytes", "next_validators_hash"),
+        Field(10, "bytes", "consensus_hash"),
+        Field(11, "bytes", "app_hash"),
+        Field(12, "bytes", "last_results_hash"),
+        Field(13, "bytes", "evidence_hash"),
+        Field(14, "bytes", "proposer_address"),
     ]
 
 
@@ -64,6 +157,53 @@ class CommitSig(Message):
         Field(2, "bytes", "validator_address"),
         Field(3, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
         Field(4, "bytes", "signature"),
+    ]
+
+
+class Commit(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "message", "block_id", always_emit=True, msg_cls=BlockID),
+        Field(4, "message", "signatures", repeated=True, msg_cls=CommitSig),
+    ]
+
+
+class Validator(Message):
+    fields = [
+        Field(1, "bytes", "address"),
+        Field(2, "message", "pub_key", always_emit=True, msg_cls=PublicKey),
+        Field(3, "int64", "voting_power"),
+        Field(4, "int64", "proposer_priority"),
+    ]
+
+
+class ValidatorSet(Message):
+    fields = [
+        Field(1, "message", "validators", repeated=True, msg_cls=Validator),
+        Field(2, "message", "proposer", msg_cls=Validator),
+        Field(3, "int64", "total_voting_power"),
+    ]
+
+
+class SimpleValidator(Message):
+    fields = [
+        Field(1, "message", "pub_key", msg_cls=PublicKey),
+        Field(2, "int64", "voting_power"),
+    ]
+
+
+class SignedHeader(Message):
+    fields = [
+        Field(1, "message", "header", msg_cls=Header),
+        Field(2, "message", "commit", msg_cls=Commit),
+    ]
+
+
+class LightBlock(Message):
+    fields = [
+        Field(1, "message", "signed_header", msg_cls=SignedHeader),
+        Field(2, "message", "validator_set", msg_cls=ValidatorSet),
     ]
 
 

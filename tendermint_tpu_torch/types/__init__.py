@@ -1,1 +1,1 @@
-"""Core types the commit-verification slice needs (ref: types/)."""
+"""Core types the commit and light-header verification slices need (ref: types/)."""

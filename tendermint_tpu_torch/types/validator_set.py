@@ -1,6 +1,7 @@
 """Validator and ValidatorSet (ref: types/validator.go, types/validator_set.go),
-trimmed to what commit verification needs: construction, proposer
-rotation, the deterministic update algorithm and lookups.
+the JAX package's types/validator_set.py: construction, proposer rotation,
+the deterministic update algorithm, lookups, the set's merkle hash over the
+SimpleValidator leaves (memoized) and the proto codec.
 
 The proposer-priority rotation and the deterministic update algorithm are
 consensus-critical: every node must compute the identical proposer for
@@ -13,7 +14,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from ..crypto import PubKey
+from ..crypto import PubKey, encoding
+from ..crypto.merkle import hash_from_byte_slices
+from ..metrics import hash_metrics
+from ..proto import messages as pb
 
 # ref: types/validator_set.go:25 — cap so priority arithmetic can't overflow.
 MAX_TOTAL_VOTING_POWER = (2**63 - 1) // 8
@@ -51,13 +55,30 @@ class Validator:
     pub_key: PubKey
     voting_power: int
     proposer_priority: int = 0
+    # Guarded memo of the SimpleValidator leaf encoding: the cached
+    # tuple re-checks (pub_key identity, voting_power) on every read,
+    # so direct field writes can never serve a stale encode. Carried
+    # through copy(): priorities change every height but the leaf
+    # encoding does not.
+    _bytes_cache: tuple | None = field(default=None, compare=False, repr=False)
 
     @classmethod
     def new(cls, pub_key: PubKey, voting_power: int) -> "Validator":
         return cls(address=pub_key.address(), pub_key=pub_key, voting_power=voting_power)
 
     def copy(self) -> "Validator":
-        return Validator(self.address, self.pub_key, self.voting_power, self.proposer_priority)
+        return Validator(
+            self.address, self.pub_key, self.voting_power, self.proposer_priority,
+            self._bytes_cache,
+        )
+
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValueError("validator does not have a public key")
+        if self.voting_power < 0:
+            raise ValueError("validator has negative voting power")
+        if len(self.address) != 20:
+            raise ValueError("validator address is the wrong size")
 
     def compare_proposer_priority(self, other: "Validator") -> "Validator":
         """Higher priority wins; ties break toward the lower address
@@ -71,6 +92,36 @@ class Validator:
         if self.address > other.address:
             return other
         raise ValueError("cannot compare identical validators")
+
+    def bytes(self) -> bytes:
+        """SimpleValidator proto encoding — the merkle leaf for
+        ValidatorSet.Hash (ref: types/validator.go:154). Memoized with
+        an input guard (see _bytes_cache)."""
+        c = self._bytes_cache
+        if c is not None and c[0] is self.pub_key and c[1] == self.voting_power:
+            return c[2]
+        enc = pb.SimpleValidator(
+            pub_key=encoding.pubkey_to_proto(self.pub_key), voting_power=self.voting_power
+        ).encode()
+        self._bytes_cache = (self.pub_key, self.voting_power, enc)
+        return enc
+
+    def to_proto(self) -> pb.Validator:
+        return pb.Validator(
+            address=self.address,
+            pub_key=encoding.pubkey_to_proto(self.pub_key),
+            voting_power=self.voting_power,
+            proposer_priority=self.proposer_priority,
+        )
+
+    @classmethod
+    def from_proto(cls, p: pb.Validator) -> "Validator":
+        return cls(
+            address=p.address or b"",
+            pub_key=encoding.pubkey_from_proto(p.pub_key),
+            voting_power=p.voting_power or 0,
+            proposer_priority=p.proposer_priority or 0,
+        )
 
 
 def _sorted_by_address(vals: list[Validator]) -> list[Validator]:
@@ -88,6 +139,14 @@ class ValidatorSet:
     validators: list[Validator] = field(default_factory=list)
     proposer: Validator | None = None
     _total_voting_power: int = 0
+    # Memoized merkle root of the SimpleValidator encodings: a light
+    # client hashes the same set for every header it signs, and a cold
+    # hash of 10,000 validators is 10,000 proto encodes. Cleared by EVERY
+    # mutating method below (update / priority rotation / rescale), and
+    # never carried across copy(): each copy rehashes once. Direct
+    # mutation of Validator objects bypasses the memo, as in the
+    # reference.
+    _hash_cache: bytes | None = field(default=None, compare=False, repr=False)
 
     @classmethod
     def new(cls, vals: list[Validator]) -> "ValidatorSet":
@@ -127,6 +186,12 @@ class ValidatorSet:
                 return idx, v.copy()
         return -1, None
 
+    def get_by_index(self, index: int) -> tuple[bytes | None, Validator | None]:
+        if index < 0 or index >= len(self.validators):
+            return None, None
+        v = self.validators[index]
+        return v.address, v.copy()
+
     def total_voting_power(self) -> int:
         if self._total_voting_power == 0:
             self._update_total_voting_power()
@@ -153,6 +218,34 @@ class ValidatorSet:
             result = v if result is None else result.compare_proposer_priority(v)
         return result
 
+    def _invalidate_hash(self) -> None:
+        if self._hash_cache is not None:
+            self._hash_cache = None
+            hash_metrics().cache_events.add(1, "validator_set", "invalidate")
+
+    def hash(self) -> bytes:
+        """Merkle root of SimpleValidator encodings (ref: types/validator_set.go:344).
+        Memoized; every mutating method clears the cache."""
+        h = self._hash_cache
+        if h is not None:
+            hash_metrics().cache_events.add(1, "validator_set", "hit")
+            return h
+        h = hash_from_byte_slices([v.bytes() for v in self.validators], site="validator_set")
+        self._hash_cache = h
+        hash_metrics().cache_events.add(1, "validator_set", "miss")
+        return h
+
+    def validate_basic(self) -> None:
+        if not self.validators:
+            raise ValueError("validator set is nil or empty")
+        if len(self.validators) > MAX_VOTES_COUNT:
+            raise ValueError(f"validator set is too large: {len(self.validators)} > {MAX_VOTES_COUNT}")
+        for v in self.validators:
+            v.validate_basic()
+        if self.proposer is None:
+            raise ValueError("proposer failed validate basic, proposer is nil")
+        self.proposer.validate_basic()
+
     # -- proposer rotation ------------------------------------------------
 
     def increment_proposer_priority(self, times: int) -> None:
@@ -161,6 +254,10 @@ class ValidatorSet:
             raise ValueError("empty validator set")
         if times <= 0:
             raise ValueError("cannot call increment_proposer_priority with non-positive times")
+        # priorities are not part of the leaf encoding, but the memo is
+        # cleared on every mutation path by contract (cheap vs auditing
+        # which mutations are hash-neutral)
+        self._invalidate_hash()
         diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
         self.rescale_priorities(diff_max)
         self._shift_by_avg_proposer_priority()
@@ -168,6 +265,11 @@ class ValidatorSet:
         for _ in range(times):
             proposer = self._increment_proposer_priority()
         self.proposer = proposer
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        c = self.copy()
+        c.increment_proposer_priority(times)
+        return c
 
     def _increment_proposer_priority(self) -> Validator:
         for v in self.validators:
@@ -183,6 +285,7 @@ class ValidatorSet:
             raise ValueError("empty validator set")
         if diff_max <= 0:
             return
+        self._invalidate_hash()
         diff = self._max_min_priority_diff()
         ratio = (diff + diff_max - 1) // diff_max
         if diff > diff_max:
@@ -212,9 +315,13 @@ class ValidatorSet:
 
     # -- deterministic updates (ref: updateWithChangeSet, :584) -----------
 
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        self._update_with_change_set(changes, allow_deletes=True)
+
     def _update_with_change_set(self, changes: list[Validator], allow_deletes: bool) -> None:
         if not changes:
             return
+        self._invalidate_hash()
         updates, deletes = _process_changes(changes)
         if not allow_deletes and deletes:
             raise ValueError(f"cannot process validators with voting power 0: {deletes}")
@@ -292,6 +399,22 @@ class ValidatorSet:
             return
         delete_addrs = {d.address for d in deletes}
         self.validators = [v for v in self.validators if v.address not in delete_addrs]
+
+    # -- serialization ----------------------------------------------------
+
+    def to_proto(self) -> pb.ValidatorSet:
+        return pb.ValidatorSet(
+            validators=[v.to_proto() for v in self.validators],
+            proposer=self.proposer.to_proto() if self.proposer else None,
+            total_voting_power=self.total_voting_power() if self.validators else 0,
+        )
+
+    @classmethod
+    def from_proto(cls, p: pb.ValidatorSet) -> "ValidatorSet":
+        vs = cls(validators=[Validator.from_proto(v) for v in (p.validators or [])])
+        if p.proposer is not None:
+            vs.proposer = Validator.from_proto(p.proposer)
+        return vs
 
 
 def _process_changes(orig_changes: list[Validator]) -> tuple[list[Validator], list[Validator]]:

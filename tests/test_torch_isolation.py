@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise:
 importing every module of tendermint_tpu_torch (the sr25519 plane's, the
-engine's and the telemetry's included) loads no JAX and nothing of
-tendermint_tpu, the native host prep loads the port's own library (never the
+engine's, the telemetry's, the secp256k1 key type's, the merkle plane's and
+the light client's included) loads no JAX and nothing of tendermint_tpu, the
+native host prep and merkle plane load the port's own library (never the
 reference's prep.so), a default-device verifier raises without CUDA instead
 of running on the host, and TM_TPU_ENGINE selects the engine or direct
 dispatch as the reference's does."""
@@ -35,11 +36,13 @@ import tendermint_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native", "ops.engine",
              "ops.ristretto", "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost",
-             "trace", "metrics", "devobs"):
+             "trace", "metrics", "devobs", "crypto.secp256k1", "crypto.encoding", "crypto.softcrypto",
+             "crypto.merkle", "types.light_block", "light", "light.verifier"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
-from tendermint_tpu_torch import devobs, metrics, trace
+from tendermint_tpu_torch import devobs, light, metrics, native, trace
+from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (verify_sr, ("build_sr_tables", "verify_sr_kernel_cached")),
@@ -47,11 +50,17 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (engine, ("get_engine", "verify_async_via_engine", "engine_enabled")),
                  (trace, ("span", "export", "journey_key")),
                  (metrics, ("engine_metrics", "device_metrics", "global_registry")),
-                 (devobs, ("install", "transfer_span", "sample_residency", "record_build"))):
+                 (devobs, ("install", "transfer_span", "sample_residency", "record_build")),
+                 (metrics, ("hash_metrics", "proof_metrics")),
+                 (native, ("sha256_batch", "merkle_root", "merkle_proofs", "merkle_multiproof")),
+                 (merkle, ("hash_from_byte_slices", "proofs_from_byte_slices",
+                           "multiproof_from_byte_slices", "sha256_batch")),
+                 (secp256k1, ("route",)), (encoding, ("pubkey_to_proto", "pubkey_from_proto")),
+                 (light, ("verify", "verify_adjacent", "verify_non_adjacent", "header_expired"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
-from tendermint_tpu_torch import native
 native.load_prep()
+assert merkle.hash_from_byte_slices([b"x"] * 16) == native.merkle_root([b"x"] * 16)
 with open("/proc/self/maps") as f:
     maps = f.read()
 assert str(native.target()) in maps and "tendermint_tpu/native/" not in maps, "prep library"
