@@ -130,9 +130,32 @@ Both signature planes run the same phases, each fatal on failure:
      secp256k1 proposer, the valid commit accepted and a tampered
      secp256k1 and a tampered ed25519 signature reported at their index,
      serially, so with no launch; the secp256k1 route ("cryptography" or
-     "softcrypto") printed beside the wall times.
+     "softcrypto") printed beside the wall times;
+ 11. the light client (light/client.py), its stores and providers, and
+     evidence verification (evidence/verify.py) on the card: on each plane
+     a chain of 32 heights over 150 validators of which a third (50) is
+     swapped out at heights 9, 17 and 25, served by LocalProvider over
+     stand-in stores (ChainStore); from trust at height 1 a LightClient
+     verifies to 32 skipping (the bisection 1 -> 32 failing the trusting
+     check, 1 -> 16, 16 -> 32 failing at exactly a third, 16 -> 24,
+     24 -> 32, as bisection_model works out from the sets), sequentially
+     (31 adjacent checks) and backwards from 32 to 20 (a hash-chain walk),
+     over a MemLightStore and over DBLightStore(MemDB()), each held to the
+     heights it fetches and persists; then with an honest, a lunatic (the
+     common set re-signs height 32 with a forged app_hash) and an
+     equivocating (the same set signs another data_hash) witness: each
+     lying one raises ErrLightClientAttack, leaves only the trust root
+     persisted and reports its evidence to both providers; then a full
+     node's verify_evidence accepts both pieces of evidence and a
+     duplicate vote, and refuses a tampered total power (accepted after
+     regenerate()), a header rewritten after signing, an unknown common
+     height, a forged vote signature and a forged commit signature. Each
+     call is held to its outcome and its launches (the 101-signature checks
+     on the card, the 51-signature trusting checks on the host); each
+     sync's verifier calls, the detections and the evidence checks are
+     timed beside the card's name and power limit.
 
-Phases 3, 5, 6, 7 and 10 are each a main path: every call in them runs
+Phases 3, 5, 6, 7, 10 and 11 are each a main path: every call in them runs
 with the launch counters set to 0 just before it and read just after, and
 each phase fails if one of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
@@ -2905,12 +2928,15 @@ def light_modules():
     the JAX package's instead."""
     from tendermint_tpu_torch import light
     from tendermint_tpu_torch.crypto import ed25519, merkle, secp256k1, sr25519
-    from tendermint_tpu_torch.types import block, light_block, validation, validator_set
+    from tendermint_tpu_torch.evidence import verify as ev
+    from tendermint_tpu_torch.light import client
+    from tendermint_tpu_torch.store import kv
+    from tendermint_tpu_torch.types import block, evidence, light_block, validation, validator_set, vote
     from tendermint_tpu_torch.utils import tmtime
 
     return SimpleNamespace(
         light=light, block=block, light_block=light_block, validation=validation, vs=validator_set,
-        tmtime=tmtime, merkle=merkle,
+        tmtime=tmtime, merkle=merkle, client=client, kv=kv, vote=vote, evidence=evidence, ev=ev,
         keys={"ed25519": ed25519.Ed25519PubKey, "sr25519": sr25519.Sr25519PubKey,
               "secp256k1": secp256k1.Secp256k1PubKey})
 
@@ -2939,12 +2965,17 @@ def signed_commit(m, vals, secrets, sign, chain_id, height, block_id, time_s):
     return commit
 
 
+def tagged(tag: bytes, height: int) -> bytes:
+    """A made-up 32-byte hash for a header field."""
+    import hashlib
+
+    return hashlib.sha256(b"%s-%d" % (tag, height)).digest()
+
+
 def signed_header(m, vals, next_vals, secrets, sign, chain_id, height, last_block_id, last_commit_hash):
     """A fully populated header at `height` signed by vals: its commit signs
     header.hash()."""
-    import hashlib
-
-    sha = lambda tag: hashlib.sha256(b"%s-%d" % (tag, height)).digest()
+    sha = lambda tag: tagged(tag, height)
     time_s = LIGHT_T0 + LIGHT_DT * height
     header = m.block.Header(
         chain_id=chain_id, height=height, time=m.tmtime.Time(time_s, 1000 * height),
@@ -2960,28 +2991,42 @@ def signed_header(m, vals, next_vals, secrets, sign, chain_id, height, last_bloc
 
 
 def light_chain(m, members, swap_in, untrusted, sign, chain_id, heights=LIGHT_HEIGHTS,
-                swap_at=LIGHT_SWAP_AT):
-    """A chain of `heights` light blocks over members' set A, from swap_at on
-    signed by set B, A with its first validator swapped for swap_in
-    (update_with_change_set, then the proposer rotation); and a rival block
-    at the last height signed by set C: a third of A's members and the
-    `untrusted` members, where A's validators hold a third of A's power.
-    Returns ({height: LightBlock}, the rival LightBlock)."""
+                swap_at=(LIGHT_SWAP_AT,)):
+    """A chain of `heights` light blocks over members' set A whose set changes
+    at each height of swap_at: at the i-th, the next k = len(swap_in) //
+    len(swap_at) of A's validators (in A's order) leave and the next k of
+    swap_in join (update_with_change_set, then the proposer rotation). With
+    `untrusted` given, also a rival block at the last height signed by set C:
+    a third of A's members and the `untrusted` members, where A's validators
+    hold a third of A's power. Returns ({height: LightBlock}, the rival
+    LightBlock or None)."""
     a, secrets = light_vals(m, members)
-    gone = a.validators[0]
-    new = m.vs.Validator.new(m.keys[swap_in[0]](swap_in[1]), 10)
-    secrets[new.address] = swap_in[2]
-    b = a.copy()
-    b.update_with_change_set([m.vs.Validator(gone.address, gone.pub_key, 0), new])
-    b = b.copy_increment_proposer_priority(1)
+    k = len(swap_in) // len(swap_at)
+    sets, current = [], a
+    for i in range(len(swap_at)):
+        changes = [m.vs.Validator(v.address, v.pub_key, 0) for v in a.validators[i * k:(i + 1) * k]]
+        for kind, pub, secret in swap_in[i * k:(i + 1) * k]:
+            new = m.vs.Validator.new(m.keys[kind](pub), 10)
+            secrets[new.address] = secret
+            changes.append(new)
+        current = current.copy()
+        current.update_with_change_set(changes)
+        current = current.copy_increment_proposer_priority(1)
+        sets.append(current)
+
+    def vals_at(h):
+        passed = [i for i, at in enumerate(swap_at) if h >= at]
+        return sets[passed[-1]] if passed else a
+
     blocks = {}
     last_bid, last_commit_hash = m.block.BlockID(), b""
     for h in range(1, heights + 1):
-        vals = a if h < swap_at else b
-        sh = signed_header(m, vals, a if h + 1 < swap_at else b, secrets, sign, chain_id, h,
-                           last_bid, last_commit_hash)
+        vals = vals_at(h)
+        sh = signed_header(m, vals, vals_at(h + 1), secrets, sign, chain_id, h, last_bid, last_commit_hash)
         blocks[h] = m.light_block.LightBlock(sh, vals)
         last_bid, last_commit_hash = sh.commit.block_id, sh.commit.hash()
+    if untrusted is None:
+        return blocks, None
     c, c_secrets = light_vals(m, members[:len(members) // 3] + list(untrusted))
     prev = blocks[heights - 1].signed_header.commit
     rival = signed_header(m, c, c, c_secrets, sign, chain_id, heights, prev.block_id, prev.hash())
@@ -3089,7 +3134,7 @@ def light_setup(pool, rng, chain_id):
     chains = {}
     for kind in PLANES:
         fresh = members(kind, n + 1 + n - n // 3)
-        chains[kind] = light_chain(m, fresh[:n], fresh[n], fresh[n + 1:], sign, chain_id)
+        chains[kind] = light_chain(m, fresh[:n], [fresh[n]], fresh[n + 1:], sign, chain_id)
     mixed = members("ed25519", n - MIXED_SECP) + members("secp256k1", MIXED_SECP)
     order = rng.permutation(n)
     mixed = [mixed[i] for i in order]
@@ -3222,6 +3267,454 @@ def mixed_phase(chain_id, sets, runs):
                 f"no launch, {t * 1e3:.1f} ms, secp256k1 route {secp256k1.route()}, on {card()}")
 
 
+# -- phase 11: the light client, its store and providers, and evidence ---------------
+
+ROTATION_HEIGHTS = 32
+ROTATION_SWAPS = (9, 17, 25)  # a third of the set leaves at each: none of it signs 32
+BACKWARDS_TO = 20
+# the reference's EvidenceParams defaults (types/params.py:48-51)
+EVIDENCE_PARAMS = {"max_age_num_blocks": 100000, "max_age_duration": 48 * 3600 * 10**9,
+                   "max_bytes": 1048576}
+FORGED_APP_HASH = b"\x66" * 32
+
+
+def member_secrets(m, members):
+    """Each member's address and secret."""
+    return {m.keys[kind](pub).address(): secret for kind, pub, secret in members}
+
+
+def resign(m, vals, secrets, sign, chain_id, header, **changes):
+    """A LightBlock of vals over a copy of header with `changes`, its commit
+    signed by every validator of vals."""
+    import dataclasses
+
+    header = dataclasses.replace(header, **changes)
+    bid = m.block.BlockID(header.hash(), m.block.PartSetHeader(1, tagged(b"forged parts", header.height)))
+    commit = signed_commit(m, vals, secrets, sign, chain_id, header.height, bid,
+                           LIGHT_T0 + LIGHT_DT * header.height)
+    return m.light_block.LightBlock(m.light_block.SignedHeader(header, commit), vals)
+
+
+def rotation_chain(m, members, swap_in, sign, chain_id, heights=ROTATION_HEIGHTS, swap_at=ROTATION_SWAPS):
+    """Phase 11's chain: light_chain with a third of the set swapped at each
+    height of swap_at; the lunatic witness's block at the last height (the
+    set of height 1, the common set, re-signs the header with a forged
+    app_hash and itself as the validators), the equivocating witness's (the
+    height's own set signs it again, same round, with another data_hash),
+    and two precommits of one validator at the last height for two block
+    IDs."""
+    blocks, _ = light_chain(m, members, swap_in, None, sign, chain_id, heights, swap_at)
+    secrets = member_secrets(m, list(members) + list(swap_in))
+    header = blocks[heights].signed_header.header
+    common, last = blocks[1].validator_set, blocks[heights].validator_set
+    lunatic = resign(m, common, secrets, sign, chain_id, header, app_hash=FORGED_APP_HASH,
+                     validators_hash=common.hash(), next_validators_hash=common.hash(),
+                     proposer_address=common.get_proposer().address)
+    equivocation = resign(m, last, secrets, sign, chain_id, header,
+                          data_hash=tagged(b"other data", heights))
+    val = last.validators[0]
+    votes = []
+    for tag in (b"vote a", b"vote b"):
+        v = m.vote.Vote(type=m.vote.PRECOMMIT, height=heights, round=0,
+                        block_id=m.block.BlockID(tagged(tag, heights),
+                                                 m.block.PartSetHeader(1, tagged(tag + b" parts", heights))),
+                        timestamp=header.time, validator_address=val.address, validator_index=0)
+        v.signature = sign([secrets[val.address]], [v.sign_bytes(chain_id)])[0]
+        votes.append(v)
+    return SimpleNamespace(blocks=blocks, lunatic=lunatic, equivocation=equivocation, votes=votes)
+
+
+class ChainStore:
+    """A stand-in for a node's block store and state store over {height:
+    LightBlock}: what LocalProvider and verify_evidence read. A height's
+    canonical commit is the next block's last commit, so the tip has only
+    its seen commit."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+
+    def height(self):
+        return max(self.blocks)
+
+    def load_block_meta(self, h):
+        lb = self.blocks.get(h)
+        return None if lb is None else SimpleNamespace(header=lb.signed_header.header)
+
+    def load_block_commit(self, h):
+        return self.blocks[h].signed_header.commit if h in self.blocks and h < self.height() else None
+
+    def load_seen_commit(self, h):
+        lb = self.blocks.get(h)
+        return None if lb is None else lb.signed_header.commit
+
+    def load_validators(self, h):
+        lb = self.blocks.get(h)
+        return None if lb is None else lb.validator_set
+
+
+def chain_provider(m, chain_id, blocks, name):
+    """A LocalProvider of m's package over ChainStore(blocks), recording the
+    heights it is asked for in `.fetched`."""
+
+    class ChainProvider(m.light.LocalProvider):
+        def light_block(self, height):
+            self.fetched.append(height)
+            return super().light_block(height)
+
+    store = ChainStore(blocks)
+    provider = ChainProvider(chain_id, store, store, name)
+    provider.fetched = []
+    return provider
+
+
+def chain_state(blocks, chain_id):
+    """A stand-in for a full node's state at the chain's tip."""
+    top = blocks[max(blocks)].signed_header.header
+    return SimpleNamespace(chain_id=chain_id, last_block_height=top.height, last_block_time=top.time,
+                           consensus_params=SimpleNamespace(evidence=SimpleNamespace(**EVIDENCE_PARAMS)))
+
+
+def trust_passes(trusted, target, frac=(1, 3)):
+    """Whether the validators of `trusted` in `target` (every one of which
+    signs) hold more than frac of trusted's power."""
+    addrs = {v.address for v in target.validators}
+    held = sum(v.voting_power for v in trusted.validators if v.address in addrs)
+    return held > trusted.total_voting_power() * frac[0] // frac[1]
+
+
+def bisection_model(blocks, lo, hi):
+    """Skipping verification from lo to hi worked out from the sets alone:
+    ([(trusted height, target height, passes)], the midpoints fetched)."""
+    steps, mids, verified, pending = [], [], [lo], [hi]
+    while pending:
+        cur, cand = verified[-1], pending[-1]
+        ok = cand == cur + 1 or trust_passes(blocks[cur].validator_set, blocks[cand].validator_set)
+        steps.append((cur, cand, ok))
+        if ok:
+            verified.append(cand)
+            pending.pop()
+        else:
+            mids.append((cur + cand) // 2)
+            pending.append(mids[-1])
+    return steps, mids
+
+
+@contextlib.contextmanager
+def traced_client(m, counts=None):
+    """Routes m's light client's verifier calls through a recorder: each
+    verify_adjacent / verify_non_adjacent call appends [name, trusted
+    height, target height, outcome class, seconds, launches] to the yielded
+    list (launches: the change of counts(), or None)."""
+    real = m.client.vf
+    trace = []
+
+    def recorded(fn, trusted_at, target_at):
+        def call(*a, **k):
+            before = counts() if counts else None
+            got = "accepted"
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            except Exception as e:
+                got = type(e).__name__
+                raise
+            finally:
+                t = time.perf_counter() - t0
+                launched = None if before is None else {
+                    n: c - before.get(n, 0) for n, c in counts().items() if c != before.get(n, 0)}
+                trace.append([fn.__name__, a[trusted_at].header.height, a[target_at].header.height, got, t,
+                              launched])
+        return call
+
+    proxy = SimpleNamespace(**{k: getattr(real, k) for k in dir(real) if not k.startswith("__")})
+    proxy.verify_adjacent = recorded(real.verify_adjacent, 1, 2)
+    proxy.verify_non_adjacent = recorded(real.verify_non_adjacent, 1, 3)
+    m.client.vf = proxy
+    try:
+        yield trace
+    finally:
+        m.client.vf = real
+
+
+def stored_heights(store):
+    """The heights a MemLightStore or DBLightStore holds, ascending (from its
+    keys, without decoding a block)."""
+    return sorted(store._blocks) if hasattr(store, "_blocks") else sorted(store._heights())
+
+
+def client_script(m, chain, chain_id, stores=("mem", "db"), backwards_to=BACKWARDS_TO, device=None,
+                  counts=None):
+    """Phase 11's calls on m's package, in order, as a generator: it yields
+    (label, call, the validator sets whose 2/3 commit checks the call runs,
+    the expected outcome) and is sent each call's outcome ("accepted", "")
+    or (error class, message); it checks what each call fetched, persisted,
+    reported and built, and returns {"facts": what the CPU tests compare
+    across packages, "trace": the verifier calls [name, from, to, outcome,
+    seconds, launches], "times": {the detections' seconds}}.
+
+    (a) From trust at height 1, verify to the last height skipping (the
+    bisection worked out by bisection_model), sequentially, and backwards
+    from the last height to backwards_to (a hash-chain walk, no commit
+    check), once over a MemLightStore and once over DBLightStore(MemDB());
+    (b) skipping with an honest, a lunatic and an equivocating witness:
+    each lying witness raises ErrLightClientAttack, leaves only the trust
+    root persisted and reports its evidence to both providers; (c) the full
+    node's verify_evidence over ChainStore and chain_state: both pieces of
+    evidence and a duplicate vote accepted, then the refusals."""
+    import copy
+
+    L, blocks = m.light, chain.blocks
+    top = max(blocks)
+    kw = {} if device is None else {"device": device}
+    now = m.tmtime.Time(LIGHT_T0 + LIGHT_DT * top + 60)
+    ok = ("accepted", "")
+    facts, times, held = {}, {}, {}
+    steps, mids = bisection_model(blocks, 1, top)
+    skipped = [blocks[to].validator_set for _, to, passes in steps if passes]
+    sequential = [blocks[h].validator_set for h in range(2, top + 1)]
+    want_trace = {"skipping": [["verify_adjacent" if to == cur + 1 else "verify_non_adjacent", cur, to,
+                                "accepted" if passes else "ErrNewValSetCantBeTrusted"]
+                               for cur, to, passes in steps],
+                  "sequential": [["verify_adjacent", h - 1, h, "accepted"] for h in range(2, top + 1)]}
+    want_heights = {"skipping": [1] + [to for _, to, passes in steps if passes],
+                    "sequential": list(range(1, top + 1)), "backwards": [backwards_to, top]}
+    want_fetched = {"skipping": [1, top] + mids, "sequential": [1, top] + list(range(2, top)),
+                    "backwards": list(range(top, backwards_to - 1, -1))}
+
+    def expect(what, got, want):
+        if got != want:
+            raise AssertionError(f"phase 11: {what}: {got}, expected {want}")
+
+    def client(name, trusted_at, store, mode=m.client.SKIPPING, witnesses=()):
+        primary = chain_provider(m, chain_id, blocks, "primary")
+        options = L.TrustOptions(period_ns=TRUSTING_PERIOD_NS, height=trusted_at,
+                                 hash=blocks[trusted_at].signed_header.hash())
+
+        def call():
+            held[name] = L.LightClient(chain_id, options, primary, witnesses=list(witnesses),
+                                       trusted_store=store, verification_mode=mode, clock=lambda: now, **kw)
+        return primary, call
+
+    with traced_client(m, counts) as trace:
+        # (a) the three modes, over each store
+        for kind in stores:
+            for mode in ("skipping", "sequential", "backwards"):
+                db = m.kv.MemDB() if kind == "db" else None
+                store = L.MemLightStore() if db is None else L.DBLightStore(db)
+                trusted_at = top if mode == "backwards" else 1
+                primary, make = client(mode, trusted_at, store,
+                                       m.client.SEQUENTIAL if mode == "sequential" else m.client.SKIPPING)
+                yield (f"{kind} store, {mode}: trust height {trusted_at}", make,
+                       [blocks[trusted_at].validator_set], ok)
+                target = backwards_to if mode == "backwards" else top
+                first = len(trace)
+                yield (f"{kind} store, {mode}: verify to {target}",
+                       functools.partial(held[mode].verify_light_block_at_height, target),
+                       {"skipping": skipped, "sequential": sequential, "backwards": []}[mode], ok)
+                expect(f"{kind} {mode} verifier calls", [t[:4] for t in trace[first:]], want_trace.get(mode, []))
+                expect(f"{kind} {mode} persisted", stored_heights(store), want_heights[mode])
+                expect(f"{kind} {mode} fetched", primary.fetched, want_fetched[mode])
+                facts[f"{kind} {mode}"] = (stored_heights(store), primary.fetched,
+                                           [t[:4] for t in trace[first:]])
+                if db is not None:
+                    facts[f"{kind} {mode} kv"] = list(db.iterator())
+
+        # (b) witnesses
+        evidence = {}
+        for name, forged in (("honest", None), ("lunatic", chain.lunatic), ("equivocation", chain.equivocation)):
+            served = blocks if forged is None else {**blocks, top: forged}
+            witness = chain_provider(m, chain_id, served, f"{name} witness")
+            store = L.MemLightStore()
+            primary, make = client(name, 1, store, witnesses=[witness])
+            yield f"{name} witness: trust height 1", make, [blocks[1].validator_set], ok
+            c = held[name]
+            detect = c._detect_divergence
+
+            def timed_detect(*a, _detect=detect, _name=name):
+                t0 = time.perf_counter()
+                try:
+                    return _detect(*a)
+                finally:
+                    times[f"detection, {_name} witness"] = time.perf_counter() - t0
+
+            c._detect_divergence = timed_detect
+            want = ok if forged is None else ("ErrLightClientAttack", f"witness {name} witness has a different header")
+            yield (f"{name} witness: verify to {top}", functools.partial(c.verify_light_block_at_height, top),
+                   skipped, want)
+            ev = c.latest_attack_evidence
+            if forged is None:
+                expect("honest witness: evidence", ev, None)
+                expect("honest witness: persisted", stored_heights(store), want_heights["skipping"])
+                continue
+            expect(f"{name} witness: persisted", stored_heights(store), [1])
+            expect(f"{name} witness: reports", (primary.evidence, witness.evidence), ([ev], [ev]))
+            common = 1 if name == "lunatic" else top
+            byzantine = blocks[common].validator_set if name == "lunatic" else blocks[top].validator_set
+            expect(f"{name} evidence", (ev.common_height, ev.total_voting_power, sorted(
+                v.address for v in ev.byzantine_validators)), (common, byzantine.total_voting_power(), sorted(
+                    v.address for v in byzantine.validators)))
+            facts[f"{name} evidence"] = (ev.to_proto().encode(), ev.hash(), stored_heights(store))
+            evidence[name] = ev
+
+        # (c) the full node's side
+        node, state = ChainStore(blocks), chain_state(blocks, chain_id)
+        V = m.ev
+        verify = lambda e: functools.partial(V.verify_evidence, e, state, node, node, **kw)
+        last = blocks[top].validator_set
+        dup = m.evidence.DuplicateVoteEvidence.new(*chain.votes, blocks[top].signed_header.header.time, last)
+        facts["duplicate vote evidence"] = (dup.to_proto().encode(), dup.hash())
+        yield "verify_evidence: lunatic", verify(evidence["lunatic"]), [], ok
+        yield "verify_evidence: equivocation", verify(evidence["equivocation"]), [last], ok
+        yield "verify_evidence: duplicate vote", verify(dup), [], ok
+        bad = copy.deepcopy(evidence["lunatic"])
+        bad.total_voting_power += 7
+
+        def tampered():
+            try:
+                V.verify_evidence(bad, state, node, node, **kw)
+            except V.EvidenceABCIError as e:
+                held["regenerate"] = e.regenerate
+                raise
+
+        yield "verify_evidence: lunatic, total power tampered", tampered, [], (
+            "EvidenceABCIError", "total voting power from the evidence and our validator set does not match")
+
+        def regenerated():
+            held["regenerate"]()
+            V.verify_evidence(bad, state, node, node, **kw)
+
+        yield "verify_evidence: lunatic, regenerated", regenerated, [], ok
+        expect("regenerated evidence", bad.to_proto().encode(), evidence["lunatic"].to_proto().encode())
+        rewritten = copy.deepcopy(evidence["lunatic"])
+        rewritten.conflicting_block.signed_header.header.proposer_address = b"\x01" * 20
+        yield "verify_evidence: conflicting header rewritten after signing", verify(rewritten), [], (
+            "EvidenceVerifyError", "invalid evidence: invalid conflicting light block")
+        unknown = copy.deepcopy(evidence["lunatic"])
+        unknown.common_height = top + 100
+        yield f"verify_evidence: common height {top + 100}", verify(unknown), [], (
+            "EvidenceVerifyError", "common height has to be less than equal")
+        forged_vote = copy.deepcopy(dup)
+        forged_vote.vote_b.signature = bytes(64)
+        yield "verify_evidence: duplicate vote, vote B's signature forged", verify(forged_vote), [], (
+            "EvidenceVerifyError", "verifying VoteB: invalid signature")
+        bad_sig = (len(last.validators) * 5) // 12
+        forged_commit = copy.deepcopy(evidence["equivocation"])
+        cs_ = forged_commit.conflicting_block.signed_header.commit.signatures[bad_sig]
+        cs_.signature = tamper(cs_.signature)
+        yield f"verify_evidence: equivocation, signature #{bad_sig} forged", verify(forged_commit), [last], (
+            "EvidenceVerifyError", f"verifying conflicting commit: wrong signature (#{bad_sig})")
+        return {"facts": facts, "trace": [list(t) for t in trace], "times": times}
+
+
+def run_script(script, step):
+    """Drive a client_script: step(label, call, checked, want) returns the
+    call's outcome, which must be `want` (its class, a fragment of its
+    message); returns the script's result."""
+    try:
+        item = next(script)
+        while True:
+            label, call, checked, want = item
+            got = step(label, call, checked, want)
+            if got[0] != want[0] or want[1] not in got[1]:
+                raise AssertionError(f"phase 11: {label}: {got}, expected {want}")
+            item = script.send(got)
+    except StopIteration as done:
+        return done.value
+
+
+def client_setup(pool, rng, chain_id):
+    """Phase 11's chain on each plane, signed at set-up."""
+    m = light_modules()
+
+    def sign(secrets, msgs):
+        return [sigs[0] for _, sigs in pool.map(
+            _sign_worker, [(kind, seed, [msg]) for (kind, seed), msg in zip(secrets, msgs)],
+            chunksize=16)]
+
+    n, swaps = LIGHT_VALIDATORS, len(ROTATION_SWAPS)
+    chains = {}
+    for kind in PLANES:
+        seeds = [rng.bytes(32) for _ in range(n + swaps * (n // 3))]
+        fresh = [(kind, pub, (kind, seed)) for pub, seed in zip(make_keys(pool, kind, seeds), seeds)]
+        chains[kind] = rotation_chain(m, fresh[:n], fresh[n:], sign, chain_id)
+    return chains
+
+
+def client_phase(planes, chain_id, chains, runs):
+    """Phase 11 on each plane: every call of client_script with its launch
+    counters zeroed just before it and read just after, held to the
+    launches worked out from the keys its commit checks tally (a fill when
+    one is new to the phase, then a hit; a check below the cutover, none);
+    logs each call's wall time with the garbage collections inside it, each
+    bisection step with its launches, the sequential syncs' adjacent steps
+    and the detections' cost."""
+    import gc
+
+    m = light_modules()
+    totals = {}
+    paused = {"s": 0.0, "t0": None}
+
+    def on_gc(stage, info):
+        if stage == "start":
+            paused["t0"] = time.perf_counter()
+        elif paused["t0"] is not None:
+            paused["s"] += time.perf_counter() - paused["t0"]
+            paused["t0"] = None
+
+    gc.callbacks.append(on_gc)
+    try:
+        for kind, P in planes.items():
+            _client_plane(m, kind, P, chain_id, chains[kind], runs, totals, paused)
+    finally:
+        gc.callbacks.remove(on_gc)
+    check_path("phase 11", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()])
+    return totals
+
+
+def _client_plane(m, kind, P, chain_id, chain, runs, totals, paused):
+    """Phase 11 on one plane; `paused` sums the interpreter's garbage
+    collections, which each call's line reports beside its time."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    seen, plane_totals = set(), {}
+
+    def step(label, call, checked, want):
+        expect = {}
+        for vals in checked:
+            keys = light_counted(vals)
+            if len(keys) >= ed.DEVICE_BATCH_CUTOVER:
+                expect[P.hit.__name__] = expect.get(P.hit.__name__, 0) + 1
+                if not seen.issuperset(keys):
+                    expect[P.fill.__name__] = expect.get(P.fill.__name__, 0) + 1
+                seen.update(keys)
+        gc0 = paused["s"]
+        got, t = drive(f"phase 11: {kind} {label}", lambda: outcome(call), expect, plane_totals)
+        runs.append({"plane": kind, "commit": LIGHT_VALIDATORS, "run": f"client {label}", "s": t})
+        log(f"phase 11: {kind} {label}: {got[0]}{' (' + got[1][:70] + ')' if got[1] else ''}, "
+            f"launches {json.dumps(expect)}, {t * 1e3:.2f} ms (garbage collection "
+            f"{(paused['s'] - gc0) * 1e3:.2f}) on {card()}")
+        return got
+
+    done = run_script(client_script(m, chain, chain_id, counts=read_counts), step)
+    adjacent = []
+    for name, trusted, target, got, t, launched in done["trace"]:
+        if got == "ErrNewValSetCantBeTrusted" and launched:
+            raise AssertionError(f"phase 11: {kind} {name} {trusted} -> {target} failed after launching "
+                                 f"{launched}")
+        if name == "verify_adjacent":
+            adjacent.append(t)
+            continue
+        log(f"phase 11: {kind} bisection step {trusted} -> {target}: {got}, launches "
+            f"{json.dumps(launched)}, {t * 1e3:.2f} ms on {card()}")
+    log(f"phase 11: {kind} {len(adjacent)} adjacent steps (sequential syncs): mean "
+        f"{sum(adjacent) / len(adjacent) * 1e3:.2f} ms, min {min(adjacent) * 1e3:.2f}, max "
+        f"{max(adjacent) * 1e3:.2f}, one hit each, on {card()}")
+    for what, t in done["times"].items():
+        log(f"phase 11: {kind} {what}: {t * 1e3:.3f} ms on {card()}")
+    for name, c in plane_totals.items():
+        totals[name] = totals.get(name, 0) + c
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -3305,6 +3798,9 @@ def main() -> int:
         t0 = time.perf_counter()
         chains10, mixed10 = light_setup(pool, rng, chain_id)
         log(f"phase 10: its light chains and mixed-key commits signed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        chains11 = client_setup(pool, rng, chain_id)
+        log(f"phase 11: its rotating chains, forged blocks and votes signed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
@@ -3341,6 +3837,9 @@ def main() -> int:
     hash_phase(commits["ed25519"][SIZES[-1]][0], runs)
     mixed_phase(chain_id, mixed10, runs)
     log(f"phase 10: the light client and the hashes in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    client_phase(planes, chain_id, chains11, runs)
+    log(f"phase 11: the light client's sync modes, witnesses and evidence in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

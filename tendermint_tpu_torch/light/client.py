@@ -1,0 +1,375 @@
+"""Light client (ref: light/client.go).
+
+Verifies headers from a primary provider against a trust root, using
+skipping verification (bisection) by default, cross-checks witnesses,
+and persists trusted light blocks.
+
+Every commit check runs through the port's batch verifiers
+(light/verifier.py, types/validation.py) on the device the client was
+given: the card when `device` is None, the plain versions with "cpu".
+Below the device cutover (64 signatures) a batch verifies on the host
+either way, so a 150-validator set's 2/3 checks (101 signatures) run on
+the card and its 1/3 trusting checks (51) on the host.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+from ..types.evidence import LightClientAttackEvidence
+from ..types.light_block import LightBlock
+from ..types.validation import Fraction, verify_commit_light
+from ..utils.tmtime import Time
+from . import verifier as vf
+from .provider import ErrLightBlockNotFound, Provider, ProviderError
+from .store import LightStore, MemLightStore
+
+SEQUENTIAL = "sequential"
+SKIPPING = "skipping"
+
+DEFAULT_PRUNING_SIZE = 1000  # client.go defaultPruningSize
+DEFAULT_MAX_CLOCK_DRIFT_NS = 10 * 10**9  # client.go defaultMaxClockDrift
+MAX_RETRY_ATTEMPTS = 5
+
+
+class LightClientError(Exception):
+    pass
+
+
+class ErrLightClientAttack(LightClientError):
+    """ref: light/errors.go ErrLightClientAttack."""
+
+
+@dataclass
+class TrustOptions:
+    """ref: light/trust_options.go TrustOptions."""
+
+    period_ns: int  # trusting period
+    height: int
+    hash: bytes
+    trust_level: Fraction = vf.DEFAULT_TRUST_LEVEL
+
+    def validate(self) -> None:
+        if self.height <= 0:
+            raise ValueError("trusted option height must be > 0")
+        if len(self.hash) != 32:
+            raise ValueError(f"expected hash size to be 32 bytes, got {len(self.hash)} bytes")
+        if self.period_ns <= 0:
+            raise ValueError("trusting period must be greater than 0")
+        vf.validate_trust_level(self.trust_level)
+
+
+class LightClient:
+    """ref: client.go:120 Client."""
+
+    def __init__(
+        self,
+        chain_id: str,
+        trust_options: TrustOptions,
+        primary: Provider,
+        witnesses: list[Provider] | None = None,
+        trusted_store: LightStore | None = None,
+        verification_mode: str = SKIPPING,
+        max_clock_drift_ns: int = DEFAULT_MAX_CLOCK_DRIFT_NS,
+        pruning_size: int = DEFAULT_PRUNING_SIZE,
+        clock=Time.now,
+        device=None,
+    ):
+        trust_options.validate()
+        self.chain_id = chain_id
+        self.trust_options = trust_options
+        self.primary = primary
+        self.witnesses = list(witnesses or [])
+        self.store = trusted_store if trusted_store is not None else MemLightStore()
+        self.mode = verification_mode
+        self.max_clock_drift_ns = max_clock_drift_ns
+        self.pruning_size = pruning_size
+        self.now = clock
+        self.device = device
+        self.latest_attack_evidence: LightClientAttackEvidence | None = None
+        self._initialize()
+
+    # -------------------------------------------------------- initialization
+
+    def _initialize(self) -> None:
+        """Fetch + sanity-check the trust root (ref: client.go:283
+        initializeWithTrustOptions)."""
+        existing = self.store.latest_light_block()
+        if existing is not None:
+            return  # restored from a previous run
+        lb = self.primary.light_block(self.trust_options.height)
+        lb.validate_basic(self.chain_id)
+        if lb.signed_header.hash() != self.trust_options.hash:
+            raise LightClientError(
+                f"expected header's hash {self.trust_options.hash.hex()}, "
+                f"but got {lb.signed_header.hash().hex()}"
+            )
+        # initial trust: 2/3 of its own validator set signed it (client.go:318)
+        verify_commit_light(
+            self.chain_id,
+            lb.validator_set,
+            lb.signed_header.commit.block_id,
+            lb.signed_header.header.height,
+            lb.signed_header.commit,
+            self.device,
+        )
+        self.store.save_light_block(lb)
+
+    # ------------------------------------------------------------- queries
+
+    def trusted_light_block(self, height: int) -> LightBlock | None:
+        return self.store.light_block(height)
+
+    def latest_trusted(self) -> LightBlock | None:
+        return self.store.latest_light_block()
+
+    # ------------------------------------------------------------ verifying
+
+    def update(self, now: Time | None = None) -> LightBlock | None:
+        """Verify the primary's latest header (ref: client.go:380 Update)."""
+        now = now or self.now()
+        latest = self.primary.light_block(0)
+        trusted = self.store.latest_light_block()
+        if trusted is not None and latest.height <= trusted.height:
+            # A primary serving a DIFFERENT header at our trusted height
+            # is a conflict signal, not a no-op (ref: client.go Update
+            # errors on same-height hash mismatch).
+            if (
+                latest.height == trusted.height
+                and latest.signed_header.hash() != trusted.signed_header.hash()
+            ):
+                raise LightClientError(
+                    f"primary returned a conflicting header at trusted height "
+                    f"{trusted.height}"
+                )
+            return trusted
+        # verify the block already in hand — no refetch round-trip
+        latest.validate_basic(self.chain_id)
+        self._verify_light_block(latest, now)
+        return latest
+
+    def verify_light_block_at_height(self, height: int, now: Time | None = None) -> LightBlock:
+        """ref: client.go:413 VerifyLightBlockAtHeight."""
+        if height <= 0:
+            raise ValueError("height must be positive")
+        now = now or self.now()
+        cached = self.store.light_block(height)
+        if cached is not None:
+            return cached
+        latest = self.store.latest_light_block()
+        if latest is None:
+            raise LightClientError("light client not initialized")
+        if height < latest.height:
+            return self._verify_backwards(height, latest, now)
+        lb = self.primary.light_block(height)
+        lb.validate_basic(self.chain_id)
+        self._verify_light_block(lb, now)
+        return lb
+
+    def _verify_light_block(self, new_lb: LightBlock, now: Time) -> None:
+        """ref: client.go:497 verifyLightBlock. Nothing is persisted
+        until witness divergence detection passes — a detected attack
+        must not leave forged intermediate headers trusted."""
+        closest = self._closest_trusted_below(new_lb.height)
+        if closest is None:
+            raise LightClientError("no trusted state below requested height")
+        if self.mode == SEQUENTIAL:
+            verified = self._verify_sequential(closest, new_lb, now)
+        else:
+            verified = self._verify_skipping_against_primary(closest, new_lb, now)
+        self._detect_divergence(new_lb, now)
+        for lb in verified:
+            self.store.save_light_block(lb)
+        self.store.save_light_block(new_lb)
+        self.store.prune(self.pruning_size)
+
+    def _closest_trusted_below(self, height: int) -> LightBlock | None:
+        lb = self.store.light_block_before(height + 1)
+        return lb
+
+    def _verify_sequential(self, trusted: LightBlock, new_lb: LightBlock, now: Time) -> list[LightBlock]:
+        """Verify every height in (trusted, new]; returns the verified
+        intermediates for deferred persistence (ref: client.go:554)."""
+        current = trusted
+        verified: list[LightBlock] = []
+        for h in range(trusted.height + 1, new_lb.height + 1):
+            lb = new_lb if h == new_lb.height else self._fetch(self.primary, h)
+            vf.verify_adjacent(
+                self.chain_id,
+                current.signed_header,
+                lb.signed_header,
+                lb.validator_set,
+                self.trust_options.period_ns,
+                now,
+                self.max_clock_drift_ns,
+                device=self.device,
+            )
+            if h != new_lb.height:
+                verified.append(lb)
+            current = lb
+        return verified
+
+    def _verify_skipping_against_primary(self, trusted: LightBlock, new_lb: LightBlock, now: Time) -> list[LightBlock]:
+        """Bisection (ref: client.go:647 verifySkipping): try to jump
+        straight from trusted → target; on trust failure, fetch the
+        midpoint, verify it, and continue from there. Returns the
+        verified intermediates for deferred persistence."""
+        verified = [trusted]
+        target = new_lb
+        pending: list[LightBlock] = [new_lb]
+        depth = 0
+        while pending:
+            current = verified[-1]
+            candidate = pending[-1]
+            try:
+                if candidate.height == current.height + 1:
+                    vf.verify_adjacent(
+                        self.chain_id,
+                        current.signed_header,
+                        candidate.signed_header,
+                        candidate.validator_set,
+                        self.trust_options.period_ns,
+                        now,
+                        self.max_clock_drift_ns,
+                        device=self.device,
+                    )
+                else:
+                    vf.verify_non_adjacent(
+                        self.chain_id,
+                        current.signed_header,
+                        current.validator_set,
+                        candidate.signed_header,
+                        candidate.validator_set,
+                        self.trust_options.period_ns,
+                        now,
+                        self.max_clock_drift_ns,
+                        self.trust_options.trust_level,
+                        device=self.device,
+                    )
+                verified.append(candidate)
+                pending.pop()
+                depth = 0  # progress made — only CONSECUTIVE failures count
+            except vf.ErrNewValSetCantBeTrusted:
+                # bisect: pull the midpoint between current and candidate
+                depth += 1
+                if depth > 60:  # 2^60-height gap — unreachable in practice
+                    raise LightClientError("bisection depth exceeded")
+                mid = (current.height + candidate.height) // 2
+                if mid in (current.height, candidate.height):
+                    raise LightClientError(
+                        f"cannot bisect between adjacent heights {current.height}/{candidate.height}"
+                    )
+                mid_lb = self._fetch(self.primary, mid)
+                pending.append(mid_lb)
+        return [lb for lb in verified[1:] if lb.height != target.height]
+
+    def _verify_backwards(self, height: int, from_lb: LightBlock, now: Time) -> LightBlock:
+        """Hash-chain walk to an earlier height (ref: client.go:884
+        backwards)."""
+        current = from_lb
+        for h in range(from_lb.height - 1, height - 1, -1):
+            lb = self._fetch(self.primary, h)
+            lb.validate_basic(self.chain_id)
+            if lb.signed_header.hash() != current.signed_header.header.last_block_id.hash:
+                raise LightClientError(
+                    f"backwards verification failed: header at {h} does not hash-chain to {h + 1}"
+                )
+            current = lb
+        self.store.save_light_block(current)
+        return current
+
+    def _fetch(self, provider: Provider, height: int) -> LightBlock:
+        last_err = None
+        for _ in range(MAX_RETRY_ATTEMPTS):
+            try:
+                lb = provider.light_block(height)
+                lb.validate_basic(self.chain_id)
+                return lb
+            except ErrLightBlockNotFound as e:
+                raise
+            except ProviderError as e:
+                last_err = e
+        raise LightClientError(f"failed to obtain light block from {provider.id()}: {last_err}")
+
+    # ------------------------------------------------------------ detection
+
+    def _detect_divergence(self, new_lb: LightBlock, now: Time) -> None:
+        """Compare the verified header against every witness; a
+        conflicting witness header is a possible attack
+        (ref: light/detector.go:33 detectDivergence)."""
+        if not self.witnesses:
+            return
+        primary_hash = new_lb.signed_header.hash()
+        # A witness merely LAGGING the head (ErrLightBlockNotFound: it
+        # has not stored the freshly-committed height yet) gets bounded
+        # retries with a short backoff before being counted down — the
+        # reference detector retries not-yet-available witnesses the
+        # same way (detector.go compareNewHeaderWithWitness
+        # maxRetryAttempts); without this, every head-of-chain update
+        # intermittently trips the zero-cross-reference failure on
+        # honest setups. Retries run as SHARED passes over every
+        # still-lagging witness (one backoff sleep per pass, between
+        # passes only — never after the final attempt), so k exhausted
+        # witnesses cost one 0.6s retry window total, not 0.6s each.
+        cross_referenced = 0
+        remaining = list(self.witnesses)
+        for attempt in range(3):
+            if attempt:
+                time.sleep(0.2 * attempt)
+            lagging = []
+            for witness in remaining:
+                try:
+                    w_lb = witness.light_block(new_lb.height)
+                except ErrLightBlockNotFound:
+                    lagging.append(witness)
+                    continue
+                except (ProviderError, OSError):
+                    # hard-down witness (network error): no retry value
+                    continue
+                cross_referenced += 1
+                if w_lb.signed_header.hash() == primary_hash:
+                    continue
+                # Diverging witness: build attack evidence against
+                # whichever chain is lying, with the ABCI component
+                # fully populated so full nodes accept it as-is
+                # (ref: detector.go:404 newLightClientAttackEvidence).
+                # Raised IMMEDIATELY — a conflicting header must not
+                # wait out other witnesses' retry backoffs.
+                common = self.store.light_block_before(new_lb.height)
+                ev = LightClientAttackEvidence(conflicting_block=w_lb)
+                if common is not None and ev.conflicting_header_is_invalid(new_lb.signed_header.header):
+                    # lunatic: root at the common header
+                    ev.common_height = common.height
+                    ev.timestamp = common.signed_header.header.time
+                    ev.total_voting_power = common.validator_set.total_voting_power()
+                else:
+                    # equivocation/amnesia: validator sets are the same
+                    ev.common_height = new_lb.height
+                    ev.timestamp = new_lb.signed_header.header.time
+                    ev.total_voting_power = new_lb.validator_set.total_voting_power()
+                if common is not None:
+                    ev.byzantine_validators = ev.get_byzantine_validators(
+                        common.validator_set, new_lb.signed_header
+                    )
+                self.latest_attack_evidence = ev
+                for p in [self.primary] + self.witnesses:
+                    try:
+                        p.report_evidence(ev)
+                    except Exception:
+                        pass
+                raise ErrLightClientAttack(
+                    f"witness {witness.id()} has a different header {w_lb.signed_header.hash().hex()} "
+                    f"at height {new_lb.height} (primary: {primary_hash.hex()})"
+                )
+            remaining = lagging
+            if not remaining:
+                break
+        if cross_referenced == 0:
+            # Every configured witness was unreachable: accepting the
+            # primary's header with ZERO cross-checks is exactly the
+            # eclipse scenario witnesses exist to defeat (ref:
+            # detector.go ErrFailedHeaderCrossReferencing).
+            raise LightClientError(
+                "failed to cross-reference the header with any witness"
+            )

@@ -10,7 +10,8 @@ launches of ops/ and the sharded launches of parallel/) and DeviceMetrics
 (tendermint_device_*: devobs/), and the two of the hash plane, HashMetrics
 (tendermint_hash_*: the merkle builds of crypto/merkle.py and the hash
 memos of types/) and ProofMetrics (tendermint_proofs_*: the multiproof
-builds and the tree cache). Names, labels, help strings and buckets are
+builds and the tree cache), and the evidence plane's EvidenceMetrics
+(tendermint_evidence_*: evidence/verify.py). Names, labels, help strings and buckets are
 the reference's, so one scrape reads both packages alike.
 
 Metric writes never raise (`_never_raise`): a telemetry fault must not
@@ -553,6 +554,37 @@ class ProofMetrics:
         )
 
 
+class EvidenceMetrics:
+    """ref: internal/evidence/metrics.go (num_evidence and committed are the
+    reference node's pair; the rest are the JAX package's evidence-plane
+    series). verify_evidence(..., metrics=) observes verify_seconds; the
+    pool's and the reactor's series stay empty until those are ported."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_evidence"
+        self.num_evidence = reg.gauge(f"{ns}_pool_num_evidence", "Pending evidence")
+        self.committed = reg.counter(f"{ns}_committed", "Evidence committed in blocks")
+        self.pending = reg.gauge(
+            f"{ns}_pending",
+            "Pending evidence items in the pool by type",
+            labels=("evidence_type",),
+        )
+        self.total = reg.counter(
+            f"{ns}_total",
+            "Evidence observed by the pool, by type and outcome "
+            "(verified / rejected / committed / expired)",
+            labels=("evidence_type", "outcome"),
+        )
+        self.verify_seconds = reg.histogram(
+            f"{ns}_verify_seconds",
+            "Full contextual evidence verification latency",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1),
+        )
+        self.gossiped = reg.counter(
+            f"{ns}_gossiped_total", "Evidence items sent to peers by the reactor"
+        )
+
+
 # Process-global registry: the engine, the device plane and the hash plane
 # are process-wide, so their groups register here.
 _GLOBAL_REGISTRY = Registry()
@@ -560,6 +592,7 @@ _ENGINE_METRICS: EngineMetrics | None = None
 _DEVICE_METRICS: DeviceMetrics | None = None
 _HASH_METRICS: HashMetrics | None = None
 _PROOF_METRICS: ProofMetrics | None = None
+_EVIDENCE_METRICS: EvidenceMetrics | None = None
 _ENGINE_LOCK = threading.Lock()
 
 
@@ -609,3 +642,14 @@ def proof_metrics() -> ProofMetrics:
             if _PROOF_METRICS is None:
                 _PROOF_METRICS = ProofMetrics(_GLOBAL_REGISTRY)
     return _PROOF_METRICS
+
+
+def evidence_metrics() -> EvidenceMetrics:
+    """Lazy process-wide EvidenceMetrics singleton (the first caller that
+    hands it to verify_evidence registers the families)."""
+    global _EVIDENCE_METRICS
+    if _EVIDENCE_METRICS is None:
+        with _ENGINE_LOCK:
+            if _EVIDENCE_METRICS is None:
+                _EVIDENCE_METRICS = EvidenceMetrics(_GLOBAL_REGISTRY)
+    return _EVIDENCE_METRICS

@@ -1,7 +1,9 @@
-"""Wire message schemas for canonical vote sign bytes, commit and header
-hashing, validator sets and light blocks (ref: proto/tendermint/types/types.proto,
-canonical.proto, validator.proto, proto/tendermint/crypto/keys.proto,
-proof.proto, proto/tendermint/version/types.proto).
+"""Wire message schemas for canonical vote and vote-extension sign bytes,
+commit and header hashing, votes, extended commits, validator sets, light
+blocks and evidence (ref: proto/tendermint/types/types.proto,
+canonical.proto, validator.proto, evidence.proto,
+proto/tendermint/crypto/keys.proto, proof.proto,
+proto/tendermint/version/types.proto).
 
 Field numbers and nullability mirror the reference schemas exactly; the
 encodings are byte-identical.
@@ -169,6 +171,30 @@ class Commit(Message):
     ]
 
 
+class ExtendedCommitSig(Message):
+    """CommitSig with its vote extension (types.proto:155-165)."""
+
+    fields = [
+        Field(1, "enum", "block_id_flag"),
+        Field(2, "bytes", "validator_address"),
+        Field(3, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
+        Field(4, "bytes", "signature"),
+        Field(5, "bytes", "extension"),
+        Field(6, "bytes", "extension_signature"),
+    ]
+
+
+class ExtendedCommit(Message):
+    """Commit whose signatures keep their vote extensions (types.proto:145-151)."""
+
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "message", "block_id", always_emit=True, msg_cls=BlockID),
+        Field(4, "message", "extended_signatures", repeated=True, msg_cls=ExtendedCommitSig),
+    ]
+
+
 class Validator(Message):
     fields = [
         Field(1, "bytes", "address"),
@@ -230,3 +256,48 @@ class CanonicalVote(Message):
         Field(5, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
         Field(6, "string", "chain_id"),
     ]
+
+
+class CanonicalVoteExtension(Message):
+    fields = [
+        Field(1, "bytes", "extension"),
+        Field(2, "sfixed64", "height"),
+        Field(3, "sfixed64", "round"),
+        Field(4, "string", "chain_id"),
+    ]
+
+
+# -- evidence (proto/tendermint/types/evidence.proto) ---------------------
+
+
+class DuplicateVoteEvidence(Message):
+    fields = [
+        Field(1, "message", "vote_a", msg_cls=Vote),
+        Field(2, "message", "vote_b", msg_cls=Vote),
+        Field(3, "int64", "total_voting_power"),
+        Field(4, "int64", "validator_power"),
+        Field(5, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
+    ]
+
+
+class LightClientAttackEvidence(Message):
+    fields = [
+        Field(1, "message", "conflicting_block", msg_cls=LightBlock),
+        Field(2, "int64", "common_height"),
+        Field(3, "message", "byzantine_validators", repeated=True, msg_cls=Validator),
+        Field(4, "int64", "total_voting_power"),
+        Field(5, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
+    ]
+
+
+class Evidence(Message):
+    """oneof sum {DuplicateVoteEvidence, LightClientAttackEvidence}."""
+
+    fields = [
+        Field(1, "message", "duplicate_vote_evidence", msg_cls=DuplicateVoteEvidence),
+        Field(2, "message", "light_client_attack_evidence", msg_cls=LightClientAttackEvidence),
+    ]
+
+
+class EvidenceList(Message):
+    fields = [Field(1, "message", "evidence", repeated=True, msg_cls=Evidence)]

@@ -1,6 +1,6 @@
 """Header, PartSetHeader, BlockID, CommitSig and Commit (ref: types/block.go),
-the part of the block types that commit and light-header verification
-need. `Block`, `PartSet` and evidence come in later slices.
+the part of the block types that commit, light-header and evidence
+verification need. `Block` and `PartSet` come in later slices.
 
 Every hash is an RFC-6962 merkle root (crypto/merkle.py) over
 deterministic proto encodings; cdc_encode wraps primitives in gogoproto
@@ -102,9 +102,23 @@ class BlockID:
         """ref: BlockID.IsNil (types/block.go)."""
         return not self.hash and self.part_set_header.is_zero()
 
+    def is_complete(self) -> bool:
+        """ref: BlockID.IsComplete (types/block.go)."""
+        return (
+            len(self.hash) == HASH_SIZE
+            and self.part_set_header.total > 0
+            and len(self.part_set_header.hash) == HASH_SIZE
+        )
+
     def validate_basic(self) -> None:
         validate_hash(self.hash)
         self.part_set_header.validate_basic()
+
+    def key(self) -> bytes:
+        """Map key: the hash and the proto-encoded PartSetHeader, as the
+        reference's, so evidence orders its votes alike (ref: BlockID.Key,
+        types/block.go:1375)."""
+        return self.hash + self.part_set_header.to_proto().encode()
 
     def to_proto(self) -> pb.BlockID:
         return pb.BlockID(hash=self.hash, part_set_header=self.part_set_header.to_proto())
@@ -274,6 +288,12 @@ class CommitSig:
         if self.block_id_flag in (BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_NIL):
             return BlockID()
         raise ValueError(f"unknown BlockIDFlag: {self.block_id_flag}")
+
+    def for_block(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
+
+    def absent(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_ABSENT
 
     def validate_basic(self) -> None:
         """ref: CommitSig.ValidateBasic (types/block.go:657)."""

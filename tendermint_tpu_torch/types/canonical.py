@@ -1,4 +1,4 @@
-"""Canonical vote sign bytes (ref: types/canonical.go, types/vote.go:149).
+"""Canonical vote and vote-extension sign bytes (ref: types/canonical.go, types/vote.go:149).
 
 The byte layout is the contract every commit signature is checked over;
 it is byte-identical to the reference node's and to the JAX package's.
@@ -36,10 +36,24 @@ def canonicalize_vote(chain_id: str, vote: pb.Vote) -> pb.CanonicalVote:
     )
 
 
+def canonicalize_vote_extension(chain_id: str, vote: pb.Vote) -> pb.CanonicalVoteExtension:
+    return pb.CanonicalVoteExtension(
+        extension=vote.extension,
+        height=vote.height,
+        round=vote.round,
+        chain_id=chain_id,
+    )
+
+
 def vote_sign_bytes(chain_id: str, vote: pb.Vote) -> bytes:
     """Varint-length-prefixed canonical vote encoding
     (ref: types/vote.go:149 VoteSignBytes)."""
     return canonicalize_vote(chain_id, vote).encode_delimited()
+
+
+def vote_extension_sign_bytes(chain_id: str, vote: pb.Vote) -> bytes:
+    """ref: types/vote.go:167 VoteExtensionSignBytes."""
+    return canonicalize_vote_extension(chain_id, vote).encode_delimited()
 
 
 def vote_sign_bytes_template(chain_id: str, type_: int, height: int, round_: int, block_id: pb.BlockID | None):

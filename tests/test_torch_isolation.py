@@ -1,7 +1,7 @@
 """The port stands alone and runs on the card unless told otherwise:
 importing every module of tendermint_tpu_torch (the sr25519 plane's, the
-engine's, the telemetry's, the secp256k1 key type's, the merkle plane's and
-the light client's included) loads no JAX and nothing of tendermint_tpu, the
+engine's, the telemetry's, the secp256k1 key type's, the merkle plane's, the
+light client's with its stores and providers, and evidence's included) loads no JAX and nothing of tendermint_tpu, the
 native host prep and merkle plane load the port's own library (never the
 reference's prep.so), a default-device verifier raises without CUDA instead
 of running on the host, and TM_TPU_ENGINE selects the engine or direct
@@ -37,11 +37,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native", "ops.engine",
              "ops.ristretto", "ops.verify_sr", "parallel.sharded_verify", "parallel.multihost",
              "trace", "metrics", "devobs", "crypto.secp256k1", "crypto.encoding", "crypto.softcrypto",
-             "crypto.merkle", "types.light_block", "light", "light.verifier"):
+             "crypto.merkle", "types.light_block", "light", "light.verifier", "types.vote",
+             "types.evidence", "evidence", "evidence.verify", "store", "store.kv", "light.client",
+             "light.store", "light.provider"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
-from tendermint_tpu_torch import devobs, light, metrics, native, trace
+from tendermint_tpu_torch import devobs, evidence, light, metrics, native, store, trace
 from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
@@ -56,7 +58,10 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (merkle, ("hash_from_byte_slices", "proofs_from_byte_slices",
                            "multiproof_from_byte_slices", "sha256_batch")),
                  (secp256k1, ("route",)), (encoding, ("pubkey_to_proto", "pubkey_from_proto")),
-                 (light, ("verify", "verify_adjacent", "verify_non_adjacent", "header_expired"))):
+                 (light, ("verify", "verify_adjacent", "verify_non_adjacent", "header_expired",
+                          "LightClient", "TrustOptions", "MemLightStore", "DBLightStore", "LocalProvider")),
+                 (evidence, ("verify_evidence", "verify_duplicate_vote", "verify_light_client_attack")),
+                 (store, ("MemDB", "FileDB")), (metrics, ("evidence_metrics",))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()

@@ -96,8 +96,8 @@ def chains(request):
     rng = np.random.default_rng(91 if request.param == "ed25519" else 92)
     fresh = members(request.param, N_VALS + 1 + N_VALS - N_VALS // 3, rng)
     sign = Signer()
-    return {name: cs.light_chain(m, fresh[:N_VALS], fresh[N_VALS], fresh[N_VALS + 1:], sign, CHAIN_ID,
-                                 heights=HEIGHTS, swap_at=SWAP_AT)
+    return {name: cs.light_chain(m, fresh[:N_VALS], [fresh[N_VALS]], fresh[N_VALS + 1:], sign, CHAIN_ID,
+                                 heights=HEIGHTS, swap_at=(SWAP_AT,))
             for name, m in (("port", PORT), ("jax", JAX))}
 
 
@@ -150,10 +150,10 @@ def test_trust_level_and_expiry_match_reference():
     rng = np.random.default_rng(93)
     sign = Signer()
     fresh = members("ed25519", N_VALS + 1 + N_VALS - N_VALS // 3, rng)
-    blocks, _ = cs.light_chain(PORT, fresh[:N_VALS], fresh[N_VALS], fresh[N_VALS + 1:], sign, CHAIN_ID,
-                               heights=2, swap_at=2)
-    jblocks, _ = cs.light_chain(JAX, fresh[:N_VALS], fresh[N_VALS], fresh[N_VALS + 1:], sign, CHAIN_ID,
-                                heights=2, swap_at=2)
+    blocks, _ = cs.light_chain(PORT, fresh[:N_VALS], [fresh[N_VALS]], fresh[N_VALS + 1:], sign, CHAIN_ID,
+                               heights=2, swap_at=(2,))
+    jblocks, _ = cs.light_chain(JAX, fresh[:N_VALS], [fresh[N_VALS]], fresh[N_VALS + 1:], sign, CHAIN_ID,
+                                heights=2, swap_at=(2,))
     t = blocks[1].signed_header.header.time
     for period, dt in ((10**9, 0), (10**9, 10**9), (10**9, 10**9 - 1), (0, 0), (5, -3)):
         now = t.add(dt)
