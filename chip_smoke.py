@@ -153,9 +153,36 @@ Both signature planes run the same phases, each fatal on failure:
      call is held to its outcome and its launches (the 101-signature checks
      on the card, the 51-signature trusting checks on the host); each
      sync's verifier calls, the detections and the evidence checks are
-     timed beside the card's name and power limit.
+     timed beside the card's name and power limit;
+ 12. the state layer (state/, store/blockstore.py, evidence/pool.py, abci/)
+     on the card, BASELINE.json config 3: on each plane a source node
+     (BlockExecutor over the kvstore app through LocalClient, StateStore,
+     BlockStore and EvidencePool over FileDBs) builds 16 heights over a
+     genesis of 1,000 validators of equal power (blocks from
+     create_proposal_block with three kv transactions each, every commit
+     signed by the height's set; a val: transaction at 5 adds a validator,
+     sr25519-prefixed on that plane; a double sign at 8, reported with
+     report_conflicting_votes, becomes evidence at update, rides block 9
+     and costs its validator one power) at set-up; then (a) a fresh node
+     over its own FileDBs replays the chain as blocksync does (load_block,
+     save_block, apply_block), each call held to its launches (none at
+     height 1, one RLC at each later height, the evidence checked on the
+     host) and each height to the source's app hash, state_to_json, tx
+     results hash and the validator set of H + 2 after each change; (b)
+     the eleven altered headers of tests/test_state_execution.py at heights
+     1 (no launch) and 12 (the proposer and the time, checked after the
+     LastCommit, one RLC each), a LastCommit with signature #417 tampered
+     (RLC, fill, hit; the reference's error naming the index) and the
+     committed evidence proposed again (EvidenceError); (c) a LightClient
+     over a LocalProvider on the replica's stores verifies 1 -> 16 skipping,
+     alone and beside a lunatic witness, whose attack evidence the node's
+     EvidencePool.add_evidence accepts; the reopened FileDBs give the same
+     state, block store and pool. The split of apply_block over heights
+     2-16, the replay's blocks per second, load_block and the source's
+     create_proposal_block are timed beside the card's name and power
+     limit.
 
-Phases 3, 5, 6, 7, 10 and 11 are each a main path: every call in them runs
+Phases 3, 5, 6, 7, 10, 11 and 12 are each a main path: every call in them runs
 with the launch counters set to 0 just before it and read just after, and
 each phase fails if one of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
@@ -177,6 +204,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3352,19 +3380,24 @@ class ChainStore:
         return None if lb is None else lb.validator_set
 
 
-def chain_provider(m, chain_id, blocks, name):
-    """A LocalProvider of m's package over ChainStore(blocks), recording the
+def recording_provider(m, chain_id, block_store, state_store, name):
+    """A LocalProvider of m's package over the two stores, recording the
     heights it is asked for in `.fetched`."""
 
-    class ChainProvider(m.light.LocalProvider):
+    class RecordingProvider(m.light.LocalProvider):
         def light_block(self, height):
             self.fetched.append(height)
             return super().light_block(height)
 
-    store = ChainStore(blocks)
-    provider = ChainProvider(chain_id, store, store, name)
+    provider = RecordingProvider(chain_id, block_store, state_store, name)
     provider.fetched = []
     return provider
+
+
+def chain_provider(m, chain_id, blocks, name):
+    """recording_provider over ChainStore(blocks)."""
+    store = ChainStore(blocks)
+    return recording_provider(m, chain_id, store, store, name)
 
 
 def chain_state(blocks, chain_id):
@@ -3715,6 +3748,515 @@ def _client_plane(m, kind, P, chain_id, chain, runs, totals, paused):
         totals[name] = totals.get(name, 0) + c
 
 
+# -- phase 12: the state layer --------------------------------------------------------
+
+STATE_VALIDATORS = 1000  # BASELINE.json config 3: blocksync replay of a 1,000-validator chain
+STATE_HEIGHTS = 16
+STATE_TXS = 3  # kv transactions a block
+STATE_JOIN_AT = 5  # its val: transaction adds a validator, which signs from height 7
+STATE_DOUBLE_SIGN_AT = 8  # a validator precommits two block IDs; block 9 carries the evidence
+STATE_REJECT_AT = 12  # the height whose altered copies (b) refuses
+STATE_T0 = LIGHT_T0
+STATE_DT = LIGHT_DT
+# (b): the header fields of tests/test_state_execution.py:234-246, each with
+# the error class and the start of the message the reference raises for it
+HEADER_MUTATIONS = {
+    "version_app": ("InvalidBlockError", "wrong Block.Header.Version"),
+    "chain_id": ("InvalidBlockError", "wrong Block.Header.ChainID"),
+    "height": ("InvalidBlockError", "wrong Block.Header.Height"),
+    "last_block_id": ("InvalidBlockError", "wrong Block.Header.LastBlockID"),
+    "app_hash": ("InvalidBlockError", "wrong Block.Header.AppHash"),
+    "consensus_hash": ("InvalidBlockError", "wrong Block.Header.ConsensusHash"),
+    "last_results_hash": ("InvalidBlockError", "wrong Block.Header.LastResultsHash"),
+    "validators_hash": ("InvalidBlockError", "wrong Block.Header.ValidatorsHash"),
+    "next_validators_hash": ("InvalidBlockError", "wrong Block.Header.NextValidatorsHash"),
+    "proposer_address": ("InvalidBlockError", "block.Header.ProposerAddress"),
+    "time": ("InvalidBlockError", "block time"),
+}
+# validate_block checks these two after the LastCommit, the rest before it
+AFTER_COMMIT_CHECK = ("proposer_address", "time")
+APPLY_PARTS = ("validate_block", "verify_commit", "validate_basic", "set_hash", "check_evidence", "last_commit_info",
+               "finalize_block", "commit", "state_update", "state_save", "responses_save", "evidence_update")
+# the parts that run inside another part (validate_block, and set_hash
+# wherever a validator set is hashed)
+NESTED_PARTS = ("verify_commit", "validate_basic", "set_hash")
+
+
+def state_modules():
+    """The port's modules a state chain is built and replayed with (those of
+    light_modules and the state layer's); the chain functions below take
+    such a namespace, so the CPU tests can hand them the JAX package's
+    instead."""
+    from tendermint_tpu_torch import abci, state
+    from tendermint_tpu_torch.abci import kvstore
+    from tendermint_tpu_torch.abci import types as abci_types
+    from tendermint_tpu_torch.evidence import pool
+    from tendermint_tpu_torch.state import execution, store, validation
+    from tendermint_tpu_torch.state import state as state_
+    from tendermint_tpu_torch.store import blockstore
+    from tendermint_tpu_torch.types import genesis, params, part_set
+    from tendermint_tpu_torch.utils import bits
+
+    return SimpleNamespace(**vars(light_modules()), abci=abci, abci_types=abci_types, kvstore=kvstore, state=state,
+                           state_=state_, state_store=store, state_validation=validation, execution=execution,
+                           pool=pool, blockstore=blockstore, genesis=genesis, params=params, part_set=part_set,
+                           bits=bits)
+
+
+class TxQueue:
+    """A node's mempool as BlockExecutor drives it: the transactions queued
+    for the next proposal, dropped once a block commits them."""
+
+    max_gas = -1
+
+    def __init__(self):
+        self.txs = []
+
+    def lock(self):
+        pass
+
+    def unlock(self):
+        pass
+
+    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+        return list(self.txs)
+
+    def update(self, height, txs, tx_results, recheck=True):
+        self.txs = [tx for tx in self.txs if tx not in txs]
+
+
+def state_genesis(m, members, chain_id):
+    """The GenesisDoc of members [(kind, pub, secret)] at power 10 each, the
+    consensus params admitting their key types, read back from the genesis
+    file's JSON."""
+    keys = [m.keys[kind](pub) for kind, pub, _ in members]
+    kinds = tuple(sorted({kind for kind, _, _ in members}))
+    doc = m.genesis.GenesisDoc(
+        chain_id=chain_id, genesis_time=m.tmtime.Time(STATE_T0, 0),
+        consensus_params=m.params.ConsensusParams(validator=m.params.ValidatorParams(pub_key_types=kinds)),
+        validators=[m.genesis.GenesisValidator(address=k.address(), pub_key=k, power=10, name=f"v{i}")
+                    for i, k in enumerate(keys)])
+    doc.validate_and_complete()
+    return m.genesis.GenesisDoc.from_json(doc.to_json())
+
+
+def file_dbs(m, where):
+    """A node's four FileDBs in the directory `where`."""
+    os.makedirs(where, exist_ok=True)
+    return {name: m.kv.FileDB(os.path.join(where, f"{name}.db")) for name in ("app", "state", "blocks", "evidence")}
+
+
+def state_node(m, gen, dbs, device=None):
+    """A node over the key-value stores dbs {"app", "state", "blocks",
+    "evidence"}: KVStoreApplication behind LocalClient, StateStore,
+    BlockStore, EvidencePool and BlockExecutor (`device` passed on unless
+    None: the JAX package's take none). A fresh node runs InitChain and saves
+    the genesis state; a reopened one carries on from its stores."""
+    kw = {} if device is None else {"device": device}
+    A = m.abci_types
+    client = m.abci.LocalClient(m.kvstore.KVStoreApplication(dbs["app"]))
+    states = m.state.StateStore(dbs["state"])
+    blocks = m.blockstore.BlockStore(dbs["blocks"])
+    state = states.load()
+    if state is None:
+        state = m.state.make_genesis_state(gen)
+        client.init_chain(A.RequestInitChain(
+            time_ns=gen.genesis_time.unix_ns(), chain_id=gen.chain_id, initial_height=gen.initial_height,
+            consensus_params=gen.consensus_params.to_proto_update(),
+            validators=[A.ValidatorUpdate(pub_key_type=v.pub_key.type_name, pub_key_bytes=v.pub_key.bytes(),
+                                          power=v.power) for v in gen.validators]))
+        states.save(state)
+    pool = m.pool.EvidencePool(dbs["evidence"], states, blocks, **kw)
+    mempool = TxQueue()
+    executor = m.execution.BlockExecutor(states, client, mempool=mempool, evidence_pool=pool, block_store=blocks,
+                                         **kw)
+    return SimpleNamespace(client=client, app=client._app, states=states, blocks=blocks, pool=pool,
+                           mempool=mempool, executor=executor, state=state, dbs=dbs)
+
+
+def conflicting_votes(m, vals, secrets, sign, chain_id, height, time_):
+    """Two precommits of vals' first validator at `height`, for two block IDs."""
+    val = vals.validators[0]
+    votes = []
+    for tag in (b"double sign a", b"double sign b"):
+        v = m.vote.Vote(type=m.vote.PRECOMMIT, height=height, round=0,
+                        block_id=m.block.BlockID(tagged(tag, height),
+                                                 m.block.PartSetHeader(1, tagged(tag + b" parts", height))),
+                        timestamp=time_, validator_address=val.address, validator_index=0)
+        v.signature = sign([secrets[val.address]], [v.sign_bytes(chain_id)])[0]
+        votes.append(v)
+    return votes
+
+
+def state_chain(m, members, joiner, sign, chain_id, dbs, heights=STATE_HEIGHTS, device=None):
+    """The source node's chain: `heights` blocks from create_proposal_block
+    (STATE_TXS kv transactions each, an explicit block time), each commit
+    signed by the height's whole set through sign(secrets, msgs) -> sigs,
+    saved with its part set and seen commit, then applied. Block
+    STATE_JOIN_AT carries a val: transaction adding `joiner` (a member) at
+    power 10 (with its key type's prefix off ed25519); after saving block
+    STATE_DOUBLE_SIGN_AT the source reports a validator's two conflicting
+    precommits at it, which the pool turns into evidence when the block is
+    applied and the next proposal carries. Returns the genesis doc, the node,
+    the members' secrets, create_proposal_block's seconds at each height and
+    {height: (the state before, block, block ID, app hash, state_to_json
+    after, tx results hash)}."""
+    import base64
+
+    gen = state_genesis(m, members, chain_id)
+    node = state_node(m, gen, dbs, device)
+    secrets = member_secrets(m, list(members) + [joiner])
+    kind, pub, _ = joiner
+    join_tx = b"val:" + (b"" if kind == "ed25519" else kind.encode() + b":") + base64.b64encode(pub) + b"!10"
+    state, last_commit = node.state, m.block.Commit()
+    chain, proposal_s = {}, []
+    for h in range(1, heights + 1):
+        node.mempool.txs = [b"key-%d-%d=value-%d" % (h, i, i) for i in range(STATE_TXS)]
+        if h == STATE_JOIN_AT:
+            node.mempool.txs.append(join_tx)
+        t0 = time.perf_counter()
+        block = node.executor.create_proposal_block(h, state, last_commit, state.validators.get_proposer().address,
+                                                    block_time=m.tmtime.Time(STATE_T0 + STATE_DT * h, 1000 * h))
+        proposal_s.append(time.perf_counter() - t0)
+        parts = block.make_part_set(m.block.BLOCK_PART_SIZE_BYTES)
+        block_id = m.block.BlockID(block.hash(), parts.header)
+        seen = signed_commit(m, state.validators, secrets, sign, chain_id, h, block_id, STATE_T0 + STATE_DT * h)
+        node.blocks.save_block(block, parts, seen)
+        if h == STATE_DOUBLE_SIGN_AT:
+            node.pool.report_conflicting_votes(*conflicting_votes(m, state.validators, secrets, sign, chain_id, h,
+                                                                  block.header.time))
+        before = state
+        state = node.executor.apply_block(state, block_id, block)
+        results = node.states.load_finalize_block_responses(h)
+        chain[h] = (before, block, block_id, state.app_hash, m.state_store.state_to_json(state),
+                    m.execution.tx_results_hash(results.tx_results))
+        last_commit = seen
+    node.state = state
+    return SimpleNamespace(gen=gen, node=node, secrets=secrets, proposal_s=proposal_s, chain=chain)
+
+
+def header_mutations(m, state, height):
+    """(b)'s altered headers of a block at `height` on `state`, by field, as
+    tests/test_state_execution.py:234-246 makes them."""
+    x = b"\x55"
+    return {"version_app": 99, "chain_id": "other-chain", "height": height + 1,
+            "last_block_id": m.block.BlockID(hash=x * 32), "app_hash": x * 8, "consensus_hash": x * 32,
+            "last_results_hash": x * 32, "validators_hash": x * 32, "next_validators_hash": x * 32,
+            "proposer_address": x * 20, "time": m.tmtime.Time.from_unix_ns(state.last_block_time.unix_ns() - 1)}
+
+
+def mutated_block(block, field, value):
+    import copy
+
+    b = copy.deepcopy(block)
+    setattr(b.header, field, value)
+    return b
+
+
+def tampered_block(m, block, idx):
+    """A copy of block whose LastCommit has signature #idx tampered, its
+    header's last_commit_hash made to match, so that validate_basic passes
+    and the commit check finds the signature."""
+    import copy
+
+    b = copy.deepcopy(block)
+    b.last_commit = tampered_commit(m, block.last_commit, idx)
+    b.header.last_commit_hash = b.last_commit.hash()
+    return b
+
+
+def trusting_counted(trusted, signers, frac=(1, 3)):
+    """The keys a trusting check of `trusted` tallies over a commit that
+    every validator of `signers` signed, in the set's order."""
+    needed = trusted.total_voting_power() * frac[0] // frac[1]
+    power = {v.address: v.voting_power for v in trusted.validators}
+    tallied = n = 0
+    for v in signers.validators:
+        if v.address in power:
+            n += 1
+            tallied += power[v.address]
+            if tallied > needed:
+                break
+    return n
+
+
+def rlc_launches(P, counted):
+    """The launches of commit checks of valid commits that tally `counted`
+    keys each: the RLC from MSM_BATCH_CUTOVER up, the host below
+    DEVICE_BATCH_CUTOVER (phase 12 makes no check in between)."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    n = 0
+    for keys in counted:
+        if ed.DEVICE_BATCH_CUTOVER <= keys < ed.MSM_BATCH_CUTOVER:
+            raise AssertionError(f"phase 12: a {keys}-key check would take the cached bitmap")
+        n += keys >= ed.MSM_BATCH_CUTOVER
+    return {P.rlc.__name__: n} if n else {}
+
+
+@contextlib.contextmanager
+def apply_split(m, node):
+    """Times the parts of node's apply_block into the yielded dict of
+    seconds: validate_block (of which verify_commit, Block.validate_basic
+    and the validator-set hashes), check_evidence, build_last_commit_info
+    (the last set loaded from the state store), ABCI FinalizeBlock and
+    Commit, State.update, the state store's writes (the state, and the
+    FinalizeBlock responses) and the evidence pool's update."""
+    spent = {}
+    targets = [(m.execution, "validate_block", "validate_block"),
+               (m.state_validation, "verify_commit", "verify_commit"),
+               (m.block.Block, "validate_basic", "validate_basic"), (m.vs.ValidatorSet, "hash", "set_hash"),
+               (node.pool, "check_evidence", "check_evidence"),
+               (node.executor, "build_last_commit_info", "last_commit_info"),
+               (node.client, "finalize_block", "finalize_block"), (node.client, "commit", "commit"),
+               (m.state_.State, "update", "state_update"), (node.states, "save", "state_save"),
+               (node.states, "save_finalize_block_responses", "responses_save"),
+               (node.pool, "update", "evidence_update")]
+    saved = []
+    for obj, name, part in targets:
+        real = getattr(obj, name) if not isinstance(obj, type) else obj.__dict__[name]
+
+        def part_timed(*a, _real=real, _part=part, **k):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                spent[_part] = spent.get(_part, 0.0) + time.perf_counter() - t0
+
+        saved.append((obj, name, real))
+        setattr(obj, name, part_timed)
+    try:
+        yield spent
+    finally:
+        for obj, name, real in saved:
+            setattr(obj, name, real)
+
+
+def state_setup(pool, rng, chain_id, tmp):
+    """Phase 12's source chains, signed and applied at set-up: on each plane
+    a source node over FileDBs under tmp builds state_chain over
+    STATE_VALIDATORS fresh keys and one joiner; then the lunatic witness's
+    block at the last height (the set of height 1 re-signs its header with a
+    forged app hash and itself as the validators)."""
+    m = state_modules()
+
+    def sign(secrets, msgs):
+        return [sigs[0] for _, sigs in pool.map(
+            _sign_worker, [(kind, seed, [msg]) for (kind, seed), msg in zip(secrets, msgs)],
+            chunksize=16)]
+
+    built = {}
+    for kind in PLANES:
+        seeds = [rng.bytes(32) for _ in range(STATE_VALIDATORS + 1)]
+        fresh = [(kind, pub, (kind, seed)) for pub, seed in zip(make_keys(pool, kind, seeds), seeds)]
+        src = state_chain(m, fresh[:-1], fresh[-1], sign, chain_id, file_dbs(m, os.path.join(tmp, kind, "source")))
+        header = src.chain[STATE_HEIGHTS][1].header
+        common = src.chain[1][0].validators
+        lunatic = resign(m, common, src.secrets, sign, chain_id, header, app_hash=FORGED_APP_HASH,
+                         validators_hash=common.hash(), next_validators_hash=common.hash(),
+                         proposer_address=common.get_proposer().address)
+        built[kind] = SimpleNamespace(src=src, lunatic=lunatic, joiner=fresh[-1])
+    return built
+
+
+def state_phase(planes, chain_id, built, runs, tmp):
+    """Phase 12 on each plane: the replay, the rejections and the light
+    client over the replica's stores, every call with its launch counters
+    zeroed just before it and read just after; logs the split of
+    apply_block, the replay's blocks per second, load_block and the
+    source's create_proposal_block, with the garbage collections."""
+    import gc
+
+    m = state_modules()
+    totals = {}
+    paused = {"s": 0.0, "t0": None}
+
+    def on_gc(stage, info):
+        if stage == "start":
+            paused["t0"] = time.perf_counter()
+        elif paused["t0"] is not None:
+            paused["s"] += time.perf_counter() - paused["t0"]
+            paused["t0"] = None
+
+    gc.callbacks.append(on_gc)
+    try:
+        for kind, P in planes.items():
+            _state_plane(m, kind, P, chain_id, built[kind], runs, totals, paused, os.path.join(tmp, kind, "replica"))
+    finally:
+        gc.callbacks.remove(on_gc)
+    check_path("phase 12", totals, [{P.rlc.__name__: 1, P.fill.__name__: 1, P.hit.__name__: 1}
+                                    for P in planes.values()])
+    return totals
+
+
+def _state_plane(m, kind, P, chain_id, built, runs, totals, paused, where):
+    """Phase 12 on one plane: (a) a fresh node replays the source's blocks,
+    (b) refuses altered copies, (c) serves a light client and judges its
+    attack evidence; then its reopened stores must give the same state."""
+    src, top = built.src, STATE_HEIGHTS
+    plane_totals = {}
+    rlc = {P.rlc.__name__: 1}
+    on = f"on {card()}"
+
+    def expect(what, got, want):
+        if got != want:
+            raise AssertionError(f"phase 12: {kind} {what}: {got}, expected {want}")
+
+    def refuse(label, node, state, block, want_launches, want):
+        got, t = drive(f"phase 12: {kind} {label}", lambda: outcome(
+            lambda: node.executor.apply_block(state, m.block.BlockID(), block)), want_launches, plane_totals)
+        if got[0] != want[0] or want[1] not in got[1]:
+            raise AssertionError(f"phase 12: {kind} {label}: {got}, expected {want}")
+        log(f"phase 12: {kind} {label}: {got[0]} ({got[1][:70]}), launches {json.dumps(want_launches)}, "
+            f"{t * 1e3:.2f} ms {on}")
+
+    def rejections(node, state, block):
+        h = block.header.height
+        for field, value in header_mutations(m, state, h).items():
+            want = rlc if h > 1 and field in AFTER_COMMIT_CHECK else {}
+            refuse(f"height {h}, {field} altered", node, state, mutated_block(block, field, value), want,
+                   HEADER_MUTATIONS[field])
+        if h == 1:
+            return
+        idx = (state.last_validators.size() * 5) // 12
+        refuse(f"height {h}, LastCommit signature #{idx} tampered", node, state, tampered_block(m, block, idx),
+               {P.rlc.__name__: 1, P.fill.__name__: 1, P.hit.__name__: 1},
+               ("ValueError", f"wrong signature (#{idx})"))
+
+    # (a) the replay, as blocksync applies: load, save, apply
+    node = state_node(m, src.gen, file_dbs(m, where))
+    state, rows = node.state, []
+    with apply_split(m, node) as spent:
+        for h in range(1, top + 1):
+            t0 = time.perf_counter()
+            block = src.node.blocks.load_block(h)
+            t_load = time.perf_counter() - t0
+            block_id = src.node.blocks.load_block_meta(h).block_id
+            seen = src.node.blocks.load_seen_commit(h)
+            if h in (1, STATE_REJECT_AT):
+                rejections(node, state, block)
+            t0 = time.perf_counter()
+            parts = block.make_part_set(m.block.BLOCK_PART_SIZE_BYTES)
+            t_parts = time.perf_counter() - t0
+            expect(f"height {h} part set", parts.header, block_id.part_set_header)
+            t0 = time.perf_counter()
+            node.blocks.save_block(block, parts, seen)
+            t_save = time.perf_counter() - t0
+            spent.clear()
+            gc0 = paused["s"]
+            want = {} if h == 1 else rlc
+            state, t = drive(f"phase 12: {kind} apply_block {h}",
+                             lambda: node.executor.apply_block(state, block_id, block), want, plane_totals)
+            log(f"phase 12: {kind} apply_block {h} ({len(block.txs)} txs, {len(block.evidence)} evidence): "
+                f"launches {json.dumps(want)}, {t * 1e3:.2f} ms {on}")
+            rows.append({"height": h, "apply": t, "load_block": t_load, "part_set": t_parts, "block_store": t_save,
+                         "gc": paused["s"] - gc0, **spent,
+                         "rest": t - sum(v for k, v in spent.items() if k not in NESTED_PARTS)})
+            before, _, _, app_hash, doc, results_hash = src.chain[h]
+            expect(f"height {h} app hash", state.app_hash, app_hash)
+            expect(f"height {h} state_to_json", m.state_store.state_to_json(state), doc)
+            expect(f"height {h} tx results hash", m.execution.tx_results_hash(
+                node.states.load_finalize_block_responses(h).tx_results), results_hash)
+            if h in (STATE_JOIN_AT, STATE_DOUBLE_SIGN_AT + 1):
+                # the app's validator update at h: the set of h + 2
+                expect(f"height {h} next validators", state.next_validators.hash(),
+                       src.chain[h + 2][0].validators.hash())
+                if state.next_validators.hash() == state.validators.hash():
+                    raise AssertionError(f"phase 12: {kind} the validator update at {h} changed nothing")
+    expect("end state", m.state_store.state_to_json(state), m.state_store.state_to_json(src.node.state))
+    evidenced = src.chain[STATE_DOUBLE_SIGN_AT + 1][1].evidence
+    expect("evidence in the block after the double sign", [type(e).__name__ for e in evidenced],
+           ["DuplicateVoteEvidence"])
+    signer = src.chain[STATE_DOUBLE_SIGN_AT][0].validators.validators[0]
+    punished = node.states.load_finalize_block_responses(STATE_DOUBLE_SIGN_AT + 1).validator_updates
+    expect("the double signer's power", [(u.pub_key_bytes, u.power) for u in punished],
+           [(signer.pub_key.bytes(), signer.voting_power - 1)])
+    # (b) the committed evidence proposed again, at the next height
+    again = state.make_block(top + 1, [], src.node.blocks.load_seen_commit(top), list(evidenced),
+                             state.validators.get_proposer().address,
+                             m.tmtime.Time(STATE_T0 + STATE_DT * (top + 1), 0))
+    refuse(f"height {top + 1}, committed evidence again", node, state, again, rlc,
+           ("EvidenceError", "evidence was already committed"))
+
+    # (c) a light client over the replica's stores, and its attack evidence
+    now = m.tmtime.Time(STATE_T0 + STATE_DT * top + 60)
+    sets = {h: node.states.load_validators(h) for h in range(1, top + 1)}
+    trust = m.light.TrustOptions(period_ns=TRUSTING_PERIOD_NS, height=1,
+                                 hash=node.blocks.load_block_meta(1).header.hash())
+    steps, mids = bisection_model({h: SimpleNamespace(validator_set=v) for h, v in sets.items()}, 1, top)
+    checks = []
+    for cur, to, passes in steps:
+        checks.append(trusting_counted(sets[cur], sets[to]))
+        if passes:
+            checks.append(len(light_counted(sets[to])))
+    served = {h: m.light.LocalProvider(chain_id, node.blocks, node.states).light_block(h) for h in sets}
+    for name, witnesses in (("no witness", []), ("lunatic witness", [chain_provider(
+            m, chain_id, {**served, top: built.lunatic}, "lunatic witness")])):
+        primary = recording_provider(m, chain_id, node.blocks, node.states, "primary")
+        held = {}
+
+        def make():
+            held["c"] = m.light.LightClient(chain_id, trust, primary, witnesses=witnesses,
+                                            trusted_store=m.light.MemLightStore(), clock=lambda: now)
+        got, t = drive(f"phase 12: {kind} light client ({name}): trust height 1", lambda: outcome(make),
+                       rlc_launches(P, [len(light_counted(sets[1]))]), plane_totals)
+        expect(f"light client ({name}) trust", got, ("accepted", ""))
+        # the detection compares the witness's header by hash and builds the
+        # evidence from the light store: no commit check of its own
+        want = rlc_launches(P, checks)
+        got, t = drive(f"phase 12: {kind} light client ({name}): verify to {top}",
+                       lambda: outcome(lambda: held["c"].verify_light_block_at_height(top)), want, plane_totals)
+        log(f"phase 12: {kind} light client ({name}): verify 1 -> {top}: {got[0]}, launches {json.dumps(want)}, "
+            f"fetched {primary.fetched}, {t * 1e3:.2f} ms {on}")
+        if not witnesses:
+            expect("light client verify", got, ("accepted", ""))
+            expect("light client fetched", primary.fetched, [1, top] + mids)
+            continue
+        expect("light client against the lunatic witness", got[0], "ErrLightClientAttack")
+        ev = held["c"].latest_attack_evidence
+        expect("the attack evidence's common height", ev.common_height, 1)
+        got, t = drive(f"phase 12: {kind} EvidencePool.add_evidence (lunatic)",
+                       lambda: outcome(lambda: node.pool.add_evidence(ev)),
+                       rlc_launches(P, [trusting_counted(sets[1], sets[1])]), plane_totals)
+        expect("add_evidence", got, ("accepted", ""))
+        expect("pending evidence", [e.hash() for e in node.pool.pending_evidence(1 << 20)[0]], [ev.hash()])
+        log(f"phase 12: {kind} EvidencePool.add_evidence of the lunatic attack: accepted, launches "
+            f"{json.dumps(rlc_launches(P, [trusting_counted(sets[1], sets[1])]))}, {t * 1e3:.2f} ms {on}")
+
+    # the replica's stores reopened
+    pending = [e.hash() for e in node.pool.pending_evidence(1 << 20)[0]]
+    for db in node.dbs.values():
+        db.close()
+    again = state_node(m, src.gen, file_dbs(m, where))
+    expect("reopened state", m.state_store.state_to_json(again.states.load()), m.state_store.state_to_json(state))
+    expect("reopened block store", (again.blocks.base(), again.blocks.height()), (1, top))
+    expect("reopened pool", [e.hash() for e in again.pool.pending_evidence(1 << 20)[0]], pending)
+    info = again.client.info(m.abci_types.RequestInfo())
+    expect("reopened app", (info.last_block_height, info.last_block_app_hash), (top, state.app_hash))
+    for db in again.dbs.values():
+        db.close()
+
+    # times, over heights 2..16
+    later = rows[1:]
+
+    def spread(key, scale=1e3):
+        xs = [r.get(key, 0.0) * scale for r in later]
+        return f"mean {sum(xs) / len(xs):.2f}, range {min(xs):.2f}-{max(xs):.2f}"
+
+    log(f"phase 12: {kind} apply_block of a {STATE_VALIDATORS}-validator block, heights 2-{top}, ms: "
+        + "; ".join(f"{k} {spread(k)}" for k in ("apply",) + APPLY_PARTS + ("rest", "gc")) + f" {on}")
+    replay_s = sum(r["apply"] + r["load_block"] + r["part_set"] + r["block_store"] for r in later)
+    log(f"phase 12: {kind} replay: {len(later) / replay_s:.2f} blocks/s (load_block, make_part_set, save_block, "
+        f"apply_block), load_block {spread('load_block')} ms, make_part_set {spread('part_set')} ms, save_block "
+        f"{spread('block_store')} ms, the source's "
+        f"create_proposal_block mean {sum(src.proposal_s[1:]) / (top - 1) * 1e3:.2f} ms {on}")
+    for r in later:
+        runs.append({"plane": kind, "commit": STATE_VALIDATORS, "run": f"apply_block {r['height']}", "s": r["apply"],
+                     **{f"{k}_s": r.get(k, 0.0) for k in APPLY_PARTS + ("rest", "gc")}})
+    for name, c in plane_totals.items():
+        totals[name] = totals.get(name, 0) + c
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -3782,6 +4324,7 @@ def main() -> int:
         return 0
 
     chain_id = "chip-smoke"
+    tmp12 = tempfile.mkdtemp(prefix="chip-smoke-state-")
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(workers) as pool:
@@ -3801,6 +4344,10 @@ def main() -> int:
         t0 = time.perf_counter()
         chains11 = client_setup(pool, rng, chain_id)
         log(f"phase 11: its rotating chains, forged blocks and votes signed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        built12 = state_setup(pool, rng, chain_id, tmp12)
+        log(f"phase 12: its source chains signed and applied, and the lunatic blocks signed, in "
+            f"{time.perf_counter() - t0:.1f} s")
     kernels = []
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
@@ -3840,6 +4387,10 @@ def main() -> int:
     t0 = time.perf_counter()
     client_phase(planes, chain_id, chains11, runs)
     log(f"phase 11: the light client's sync modes, witnesses and evidence in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    state_phase(planes, chain_id, built12, runs, tmp12)
+    shutil.rmtree(tmp12, ignore_errors=True)
+    log(f"phase 12: the state layer's replay, rejections and light client in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

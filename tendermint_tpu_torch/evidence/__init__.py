@@ -1,6 +1,7 @@
-"""Evidence verification (ref: internal/evidence/). The pool, which needs
-the state store, and the gossip reactor come in later slices."""
+"""Evidence: the pool and verification (ref: internal/evidence/). The
+gossip reactor comes with the node."""
 
+from .pool import EvidenceError, EvidencePool
 from .verify import (
     EvidenceABCIError,
     EvidenceVerifyError,
@@ -11,6 +12,8 @@ from .verify import (
 
 __all__ = [
     "EvidenceABCIError",
+    "EvidenceError",
+    "EvidencePool",
     "EvidenceVerifyError",
     "verify_duplicate_vote",
     "verify_evidence",

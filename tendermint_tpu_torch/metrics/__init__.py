@@ -10,9 +10,11 @@ launches of ops/ and the sharded launches of parallel/) and DeviceMetrics
 (tendermint_device_*: devobs/), and the two of the hash plane, HashMetrics
 (tendermint_hash_*: the merkle builds of crypto/merkle.py and the hash
 memos of types/) and ProofMetrics (tendermint_proofs_*: the multiproof
-builds and the tree cache), and the evidence plane's EvidenceMetrics
-(tendermint_evidence_*: evidence/verify.py). Names, labels, help strings and buckets are
-the reference's, so one scrape reads both packages alike.
+builds and the tree cache), the evidence plane's EvidenceMetrics
+(tendermint_evidence_*: evidence/verify.py and evidence/pool.py) and the
+state layer's StateMetrics (tendermint_state_*: state/execution.py). Names,
+labels, help strings and buckets are the reference's, so one scrape reads
+both packages alike.
 
 Metric writes never raise (`_never_raise`): a telemetry fault must not
 kill the engine's workers. Reads (`samples`, `gather`) stay loud.
@@ -557,8 +559,8 @@ class ProofMetrics:
 class EvidenceMetrics:
     """ref: internal/evidence/metrics.go (num_evidence and committed are the
     reference node's pair; the rest are the JAX package's evidence-plane
-    series). verify_evidence(..., metrics=) observes verify_seconds; the
-    pool's and the reactor's series stay empty until those are ported."""
+    series). verify_evidence(..., metrics=) observes verify_seconds, the
+    pool the rest; gossiped stays empty until the reactor is ported."""
 
     def __init__(self, reg: Registry):
         ns = f"{NAMESPACE}_evidence"
@@ -583,6 +585,25 @@ class EvidenceMetrics:
         self.gossiped = reg.counter(
             f"{ns}_gossiped_total", "Evidence items sent to peers by the reactor"
         )
+
+
+class StateMetrics:
+    """ref: internal/state/metrics.go: the block timing that BlockExecutor
+    observes (the reference's tmstate series come with its app-state
+    plane)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_state"
+        self.block_processing_time = reg.histogram(
+            f"{ns}_block_processing_time", "Time of ApplyBlock", buckets=(0.01, 0.05, 0.1, 0.5, 1, 5)
+        )
+
+    def observe(self, name: str, value: float) -> None:
+        """The hook BlockExecutor calls by name (the state layer does not
+        import this package)."""
+        h = getattr(self, name, None)
+        if h is not None:
+            h.observe(value)
 
 
 # Process-global registry: the engine, the device plane and the hash plane

@@ -1,7 +1,8 @@
 """Wire message schemas for canonical vote and vote-extension sign bytes,
 commit and header hashing, votes, extended commits, validator sets, light
-blocks and evidence (ref: proto/tendermint/types/types.proto,
-canonical.proto, validator.proto, evidence.proto,
+blocks, evidence, blocks and their parts, block metas and consensus params
+(ref: proto/tendermint/types/types.proto, canonical.proto, validator.proto,
+evidence.proto, block.proto, params.proto,
 proto/tendermint/crypto/keys.proto, proof.proto,
 proto/tendermint/version/types.proto).
 
@@ -112,6 +113,14 @@ class PartSetHeader(Message):
     ]
 
 
+class Part(Message):
+    fields = [
+        Field(1, "uint32", "index"),
+        Field(2, "bytes", "bytes_"),
+        Field(3, "message", "proof", always_emit=True, msg_cls=Proof),
+    ]
+
+
 class BlockID(Message):
     fields = [
         Field(1, "bytes", "hash"),
@@ -136,6 +145,10 @@ class Header(Message):
         Field(13, "bytes", "evidence_hash"),
         Field(14, "bytes", "proposer_address"),
     ]
+
+
+class Data(Message):
+    fields = [Field(1, "bytes", "txs", repeated=True)]
 
 
 class Vote(Message):
@@ -212,6 +225,15 @@ class ValidatorSet(Message):
     ]
 
 
+class BlockMeta(Message):
+    fields = [
+        Field(1, "message", "block_id", always_emit=True, msg_cls=BlockID),
+        Field(2, "int64", "block_size"),
+        Field(3, "message", "header", always_emit=True, msg_cls=Header),
+        Field(4, "int64", "num_txs"),
+    ]
+
+
 class SimpleValidator(Message):
     fields = [
         Field(1, "message", "pub_key", msg_cls=PublicKey),
@@ -267,6 +289,99 @@ class CanonicalVoteExtension(Message):
     ]
 
 
+# -- consensus params (proto/tendermint/types/params.proto) ---------------
+
+
+class HashedParams(Message):
+    """The subset of the params folded into Header.ConsensusHash."""
+
+    fields = [
+        Field(1, "int64", "block_max_bytes"),
+        Field(2, "int64", "block_max_gas"),
+    ]
+
+
+class Duration(Message):
+    """google.protobuf.Duration."""
+
+    fields = [
+        Field(1, "int64", "seconds"),
+        Field(2, "int32", "nanos"),
+    ]
+
+    def to_ns(self) -> int:
+        return (self.seconds or 0) * 1_000_000_000 + (self.nanos or 0)
+
+    @classmethod
+    def from_ns(cls, ns: int) -> "Duration":
+        return cls(seconds=ns // 1_000_000_000, nanos=ns % 1_000_000_000)
+
+
+class BlockParamsProto(Message):
+    fields = [
+        Field(1, "int64", "max_bytes"),
+        Field(2, "int64", "max_gas"),
+    ]
+
+
+class EvidenceParamsProto(Message):
+    fields = [
+        Field(1, "int64", "max_age_num_blocks"),
+        Field(2, "message", "max_age_duration", msg_cls=Duration),
+        Field(3, "int64", "max_bytes"),
+    ]
+
+
+class ValidatorParamsProto(Message):
+    fields = [Field(1, "string", "pub_key_types", repeated=True)]
+
+
+class VersionParamsProto(Message):
+    fields = [Field(1, "uint64", "app_version")]
+
+
+class SynchronyParamsProto(Message):
+    """Field numbers per params.proto:78-85: message_delay=1, precision=2."""
+
+    fields = [
+        Field(1, "message", "message_delay", msg_cls=Duration),
+        Field(2, "message", "precision", msg_cls=Duration),
+    ]
+
+
+class TimeoutParamsProto(Message):
+    fields = [
+        Field(1, "message", "propose", msg_cls=Duration),
+        Field(2, "message", "propose_delta", msg_cls=Duration),
+        Field(3, "message", "vote", msg_cls=Duration),
+        Field(4, "message", "vote_delta", msg_cls=Duration),
+        Field(5, "message", "commit", msg_cls=Duration),
+        Field(6, "bool", "bypass_commit_timeout"),
+    ]
+
+
+class ABCIParamsProto(Message):
+    fields = [
+        Field(1, "int64", "vote_extensions_enable_height"),
+        Field(2, "bool", "recheck_tx"),
+    ]
+
+
+class ConsensusParamsUpdate(Message):
+    """tendermint.types.ConsensusParams as ABCI carries it: every section
+    nullable, only the changed ones set."""
+
+    fields = [
+        Field(1, "message", "block", msg_cls=BlockParamsProto),
+        Field(2, "message", "evidence", msg_cls=EvidenceParamsProto),
+        Field(3, "message", "validator", msg_cls=ValidatorParamsProto),
+        Field(4, "message", "version", msg_cls=VersionParamsProto),
+        Field(5, "message", "synchrony", msg_cls=SynchronyParamsProto),
+        Field(6, "message", "timeout", msg_cls=TimeoutParamsProto),
+        Field(7, "message", "abci", msg_cls=ABCIParamsProto),
+    ]
+
+
 # -- evidence (proto/tendermint/types/evidence.proto) ---------------------
 
 
@@ -301,3 +416,14 @@ class Evidence(Message):
 
 class EvidenceList(Message):
     fields = [Field(1, "message", "evidence", repeated=True, msg_cls=Evidence)]
+
+
+class Block(Message):
+    """proto/tendermint/types/block.proto."""
+
+    fields = [
+        Field(1, "message", "header", always_emit=True, msg_cls=Header),
+        Field(2, "message", "data", always_emit=True, msg_cls=Data),
+        Field(3, "message", "evidence", always_emit=True, msg_cls=EvidenceList),
+        Field(4, "message", "last_commit", msg_cls=Commit),
+    ]

@@ -1,4 +1,4 @@
-"""Persistence (ref: internal/store/, tm-db). The block store comes with
-the state slice."""
+"""Persistence (ref: internal/store/, tm-db): the key-value store and the
+block store."""
 
 from .kv import Batch, FileDB, KVStore, MemDB  # noqa: F401

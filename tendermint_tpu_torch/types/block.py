@@ -1,6 +1,5 @@
-"""Header, PartSetHeader, BlockID, CommitSig and Commit (ref: types/block.go),
-the part of the block types that commit, light-header and evidence
-verification need. `Block` and `PartSet` come in later slices.
+"""Block, Header, PartSetHeader, BlockID, CommitSig and Commit: structure
+and hashing (ref: types/block.go). A block's parts are types/part_set.py.
 
 Every hash is an RFC-6962 merkle root (crypto/merkle.py) over
 deterministic proto encodings; cdc_encode wraps primitives in gogoproto
@@ -24,6 +23,10 @@ from .canonical import vote_sign_bytes_template
 
 HASH_SIZE = 32
 ADDRESS_SIZE = 20
+
+# ref: types/params.go:21-24
+BLOCK_PART_SIZE_BYTES = 65536
+MAX_HEADER_BYTES = 626
 
 BLOCK_ID_FLAG_ABSENT = pb.BLOCK_ID_FLAG_ABSENT
 BLOCK_ID_FLAG_COMMIT = pb.BLOCK_ID_FLAG_COMMIT
@@ -370,6 +373,9 @@ class Commit:
             signature=cs.signature,
         )
 
+    def size(self) -> int:
+        return len(self.signatures)
+
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         """The canonical signed message of validator slot val_idx
         (ref: Commit.VoteSignBytes, types/block.go:859), from a per-commit
@@ -446,3 +452,89 @@ class Commit:
             block_id=BlockID.from_proto(p.block_id),
             signatures=[CommitSig.from_proto(s) for s in (p.signatures or [])],
         )
+
+
+@dataclass
+class Block:
+    """ref: types/block.go:37 Block."""
+
+    header: Header = field(default_factory=Header)
+    txs: list[bytes] = field(default_factory=list)
+    evidence: list = field(default_factory=list)  # list[Evidence] (types/evidence.py)
+    last_commit: Commit | None = None
+
+    def fill_header(self) -> None:
+        """Compute the derived header hashes (ref: Block.fillHeader,
+        types/block.go:99)."""
+        if not self.header.last_commit_hash and self.last_commit is not None:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = txs_hash(self.txs)
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = evidence_list_hash(self.evidence)
+
+    def hash(self) -> bytes | None:
+        # A nil LastCommit always yields a nil hash; height-1 blocks carry
+        # an empty Commit (ref: types/block.go:111-120).
+        if self.last_commit is None:
+            return None
+        self.fill_header()
+        return self.header.hash()
+
+    def hashes_to(self, h: bytes) -> bool:
+        if not h:
+            return False
+        return self.hash() == h
+
+    def validate_basic(self) -> None:
+        """ref: Block.ValidateBasic (types/block.go:64)."""
+        self.header.validate_basic()
+        if self.last_commit is None:
+            raise ValueError("nil LastCommit")
+        self.last_commit.validate_basic()
+        if self.header.last_commit_hash != self.last_commit.hash():
+            raise ValueError("wrong Header.LastCommitHash")
+        if self.header.data_hash != txs_hash(self.txs):
+            raise ValueError("wrong Header.DataHash")
+        if self.header.evidence_hash != evidence_list_hash(self.evidence):
+            raise ValueError("wrong Header.EvidenceHash")
+
+    def make_part_set(self, part_size: int = BLOCK_PART_SIZE_BYTES):
+        from .part_set import PartSet
+
+        return PartSet.from_data(self.encode(), part_size)
+
+    def encode(self) -> bytes:
+        return self.to_proto().encode()
+
+    def to_proto(self) -> pb.Block:
+        from .evidence import evidence_to_proto
+
+        self.fill_header()
+        return pb.Block(
+            header=self.header.to_proto(),
+            data=pb.Data(txs=list(self.txs)),
+            evidence=pb.EvidenceList(evidence=[evidence_to_proto(e) for e in self.evidence]),
+            last_commit=self.last_commit.to_proto() if self.last_commit else None,
+        )
+
+    @classmethod
+    def from_proto(cls, p: pb.Block) -> "Block":
+        from .evidence import evidence_from_proto
+
+        ev_list = p.evidence.evidence if (p.evidence and p.evidence.evidence) else []
+        return cls(
+            header=Header.from_proto(p.header or pb.Header()),
+            txs=list(p.data.txs) if (p.data and p.data.txs) else [],
+            evidence=[evidence_from_proto(e) for e in ev_list],
+            last_commit=Commit.from_proto(p.last_commit) if p.last_commit else None,
+        )
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Block":
+        return cls.from_proto(pb.Block.decode(data))
+
+
+def evidence_list_hash(evidence: list) -> bytes:
+    """Merkle root of the evidence encodings (ref: types/evidence.go:667)."""
+    return hash_from_byte_slices([e.bytes() for e in evidence], site="evidence")

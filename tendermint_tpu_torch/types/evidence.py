@@ -1,7 +1,7 @@
 """Evidence of Byzantine behavior (ref: types/evidence.go): two conflicting
 votes of one validator, and a conflicting light block that a light client's
-witness served. The bytes and hashes are the reference's.
-`evidence_to_abci` comes with the ABCI types."""
+witness served. The bytes and hashes are the reference's, and
+`evidence_to_abci` gives the ABCI Misbehavior records of abci/types.py."""
 
 from __future__ import annotations
 
@@ -235,3 +235,37 @@ def evidence_from_proto(p: pb.Evidence) -> Evidence:
     if p.light_client_attack_evidence is not None:
         return LightClientAttackEvidence.from_proto(p.light_client_attack_evidence)
     raise ValueError("evidence is not recognized")
+
+
+def evidence_to_abci(evidence: list) -> list:
+    """The ABCI Misbehavior records of an evidence list (ref:
+    EvidenceList.ToABCI / Evidence.ABCI(), types/evidence.go:70,300): one a
+    duplicate vote, one a byzantine validator of a light-client attack."""
+    from ..abci import types as abci
+
+    out = []
+    for ev in evidence:
+        if isinstance(ev, DuplicateVoteEvidence):
+            out.append(
+                abci.Misbehavior(
+                    type=abci.MISBEHAVIOR_DUPLICATE_VOTE,
+                    validator=abci.Validator(address=ev.vote_a.validator_address, power=ev.validator_power),
+                    height=ev.vote_a.height,
+                    time_ns=ev.timestamp.unix_ns(),
+                    total_voting_power=ev.total_voting_power,
+                )
+            )
+        elif isinstance(ev, LightClientAttackEvidence):
+            for val in ev.byzantine_validators:
+                out.append(
+                    abci.Misbehavior(
+                        type=abci.MISBEHAVIOR_LIGHT_CLIENT_ATTACK,
+                        validator=abci.Validator(address=val.address, power=val.voting_power),
+                        height=ev.common_height,
+                        time_ns=ev.timestamp.unix_ns(),
+                        total_voting_power=ev.total_voting_power,
+                    )
+                )
+        else:
+            raise TypeError(f"evidence is not recognized: {type(ev)}")
+    return out

@@ -1,5 +1,5 @@
 """Nanosecond-precision UTC time (ref: libs/time/time.go), trimmed to what
-commit and light-header verification need.
+commit and header verification and the genesis file need.
 
 Consensus timestamps are protobuf Timestamps (seconds since the unix epoch
 + nanos), and the zero value is the Go zero time 0001-01-01T00:00:00Z
@@ -36,6 +36,36 @@ class Time:
     @classmethod
     def from_unix_ns(cls, ns: int) -> "Time":
         return cls(ns // _NS, ns % _NS)
+
+    @classmethod
+    def from_datetime(cls, dt: datetime) -> "Time":
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=timezone.utc)
+        delta = dt - datetime(1970, 1, 1, tzinfo=timezone.utc)
+        return cls.from_unix_ns((delta.days * 86400 + delta.seconds) * _NS + delta.microseconds * 1000)
+
+    @classmethod
+    def parse_rfc3339(cls, s: str) -> "Time":
+        """The reference's parse: nanosecond fractions, which datetime
+        cannot hold, split off first; an unpadded year (Go's zero time
+        rendered by glibc's %Y as "1-01-01...") padded to four digits."""
+        frac_ns = 0
+        if "." in s:
+            head, rest = s.split(".", 1)
+            digits = ""
+            idx = 0
+            while idx < len(rest) and rest[idx].isdigit():
+                digits += rest[idx]
+                idx += 1
+            frac_ns = int((digits + "000000000")[:9])
+            s = head + rest[idx:]
+        if s.endswith("Z"):
+            s = s[:-1] + "+00:00"
+        if s.index("-") < 4:
+            year, rest = s.split("-", 1)
+            s = f"{int(year):04d}-{rest}"
+        base = cls.from_datetime(datetime.fromisoformat(s).replace(microsecond=0))
+        return cls(base.seconds, frac_ns)
 
     def unix_ns(self) -> int:
         return self.seconds * _NS + self.nanos

@@ -1,11 +1,13 @@
 """The port stands alone and runs on the card unless told otherwise:
 importing every module of tendermint_tpu_torch (the sr25519 plane's, the
 engine's, the telemetry's, the secp256k1 key type's, the merkle plane's, the
-light client's with its stores and providers, and evidence's included) loads no JAX and nothing of tendermint_tpu, the
-native host prep and merkle plane load the port's own library (never the
-reference's prep.so), a default-device verifier raises without CUDA instead
-of running on the host, and TM_TPU_ENGINE selects the engine or direct
-dispatch as the reference's does."""
+light client's with its stores and providers, evidence's, and the state
+layer's with its stores, evidence pool and ABCI app included) loads no JAX
+and nothing of tendermint_tpu, the native host prep and merkle plane load
+the port's own library (never the reference's prep.so), a default-device
+verifier raises without CUDA instead of running on the host, and
+TM_TPU_ENGINE selects the engine or direct dispatch as the reference's
+does."""
 
 import os
 import subprocess
@@ -39,11 +41,13 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "trace", "metrics", "devobs", "crypto.secp256k1", "crypto.encoding", "crypto.softcrypto",
              "crypto.merkle", "types.light_block", "light", "light.verifier", "types.vote",
              "types.evidence", "evidence", "evidence.verify", "store", "store.kv", "light.client",
-             "light.store", "light.provider"):
+             "light.store", "light.provider", "abci", "abci.types", "abci.client", "abci.kvstore", "state",
+             "state.state", "state.store", "state.validation", "state.execution", "store.blockstore",
+             "types.params", "types.genesis", "types.part_set", "utils.bits", "evidence.pool"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
-from tendermint_tpu_torch import devobs, evidence, light, metrics, native, store, trace
+from tendermint_tpu_torch import abci, devobs, evidence, light, metrics, native, state, store, trace
 from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
@@ -61,7 +65,9 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (light, ("verify", "verify_adjacent", "verify_non_adjacent", "header_expired",
                           "LightClient", "TrustOptions", "MemLightStore", "DBLightStore", "LocalProvider")),
                  (evidence, ("verify_evidence", "verify_duplicate_vote", "verify_light_client_attack")),
-                 (store, ("MemDB", "FileDB")), (metrics, ("evidence_metrics",))):
+                 (store, ("MemDB", "FileDB")), (metrics, ("evidence_metrics", "StateMetrics")),
+                 (state, ("BlockExecutor", "StateStore", "make_genesis_state", "validate_block")),
+                 (abci, ("LocalClient", "BaseApplication")), (evidence, ("EvidencePool",))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
