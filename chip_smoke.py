@@ -180,9 +180,32 @@ Both signature planes run the same phases, each fatal on failure:
      state, block store and pool. The split of apply_block over heights
      2-16, the replay's blocks per second, load_block and the source's
      create_proposal_block are timed beside the card's name and power
-     limit.
+     limit;
+ 13. blocksync (blocksync/) on the port's p2p layer (p2p/), over phase 12's
+     source chains: (a) a fresh node's BlockSyncReactor, on a recording
+     stub channel, is handed blocks 1-16 through its pool and syncs 1-15
+     in 15 calls of _try_sync_one, each height held to the source's store
+     bytes, app hash and state_to_json, every call to its RLC launches and
+     rows (a light check of second.LastCommit, 667-668 signatures, at
+     height 1 and through the verify-ahead after it, one validate_block
+     LastCommit check a height from 2; 29 launches); (b) block 12 served
+     by a second peer with LastCommit signature #2 altered: refused with
+     the reference's error, both senders reported, heights 11 and 12
+     redone, the sync completed from an honest third peer (the failed
+     verify-ahead's RLC and the cached bitmap); (c) the seen commit of
+     height 12 as an ExtendedCommit with 1,000 extension signatures,
+     through _validate_ext_commit under TM_TPU_ENGINE=off: honest (two
+     RLCs), an extension signature and a vote signature altered (two RLCs
+     and the cached bitmap, refused), then honest through the engine (its
+     launches printed); (d) a server and a syncing node, each a reactor on
+     the port's Router over one MemoryNetwork, sync 15 blocks to
+     on_caught_up with (a)'s launches and rows: blocks/s, the time to
+     on_caught_up and the split of a block (the light check's synchronous
+     call or the verify-ahead's dispatch and wait, make_part_set,
+     save_block, apply_block and the server's load_block) beside the
+     card's name and power limit.
 
-Phases 3, 5, 6, 7, 10, 11 and 12 are each a main path: every call in them runs
+Phases 3, 5, 6, 7, 10, 11, 12 and 13 are each a main path: every call in them runs
 with the launch counters set to 0 just before it and read just after, and
 each phase fails if one of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
@@ -884,16 +907,28 @@ def expect_wrong_signature(fn, idx):
     raise AssertionError(f"tampered signature #{idx} was accepted")
 
 
-def drive(what, fn, want, totals, entries=None):
+def drive(what, fn, want, totals, entries=None, rows=None, merge=None):
     """One main-path call with every launch counter set to 0 just before it
     and read just after; fails unless it made exactly the launches `want`
     names (and, where `entries` is given, took exactly those sharded entry
-    points). Adds them to `totals`; returns (output, wall seconds)."""
+    points). Where `rows` is (counter of rlc_rows(), plane, n), the call
+    must also carry exactly n RLC rows of that plane. Where `merge` names an
+    RLC kernel, the engine may have merged the call's checks: the same
+    launches with fewer (but some) of that kernel pass, and are logged.
+    Adds them to `totals`; returns (output, wall seconds)."""
+    r0 = rows[0].get(rows[1], 0) if rows else 0
     reset_counts()
     out, t = timed(fn)
     got = {name: c for name, c in read_counts().items() if c}
-    if got != want:
-        raise AssertionError(f"{what} launched {got}, expected {want}")
+    merged = (merge is not None and got != want and set(got) == set(want) and 0 < got[merge] < want[merge]
+              and all(got[k] == want[k] for k in want if k != merge))
+    carried = rows[0].get(rows[1], 0) - r0 if rows else None
+    if (got != want and not merged) or (rows and carried != rows[2]):
+        raise AssertionError(f"{what} launched {got}" + (f" on {carried} RLC rows" if rows else "")
+                             + f", expected {want}" + (f" on {rows[2]}" if rows else ""))
+    if merged:
+        log(f"{what}: the engine merged checks: {got[merge]} RLC launches carried {carried} rows, "
+            f"{want[merge]} expected")
     took = {label: entry.launches for label, entry in sharded_entries().items() if entry.launches}
     if entries is not None and took != entries:
         raise AssertionError(f"{what} took the sharded entries {took}, expected {entries}")
@@ -3120,12 +3155,19 @@ def light_cases(m, blocks, rival, chain_id, device=None):
     return cases
 
 
+def error_name(e):
+    """An error's class name as the JAX package gives it: the port's
+    CommitVerificationError (types/validation.py) is the ValueError that the
+    JAX package raises for a commit that does not verify."""
+    return "ValueError" if type(e).__name__ == "CommitVerificationError" else type(e).__name__
+
+
 def outcome(call):
     """("accepted", "") or (the error's class name, its message)."""
     try:
         call()
     except Exception as e:  # noqa: BLE001 - the outcome is compared
-        return type(e).__name__, str(e)
+        return error_name(e), str(e)
     return "accepted", ""
 
 
@@ -3994,42 +4036,24 @@ def rlc_launches(P, counted):
     return {P.rlc.__name__: n} if n else {}
 
 
-@contextlib.contextmanager
 def apply_split(m, node):
-    """Times the parts of node's apply_block into the yielded dict of
-    seconds: validate_block (of which verify_commit, Block.validate_basic
-    and the validator-set hashes), check_evidence, build_last_commit_info
-    (the last set loaded from the state store), ABCI FinalizeBlock and
-    Commit, State.update, the state store's writes (the state, and the
-    FinalizeBlock responses) and the evidence pool's update."""
-    spent = {}
-    targets = [(m.execution, "validate_block", "validate_block"),
-               (m.state_validation, "verify_commit", "verify_commit"),
-               (m.block.Block, "validate_basic", "validate_basic"), (m.vs.ValidatorSet, "hash", "set_hash"),
-               (node.pool, "check_evidence", "check_evidence"),
-               (node.executor, "build_last_commit_info", "last_commit_info"),
-               (node.client, "finalize_block", "finalize_block"), (node.client, "commit", "commit"),
-               (m.state_.State, "update", "state_update"), (node.states, "save", "state_save"),
-               (node.states, "save_finalize_block_responses", "responses_save"),
-               (node.pool, "update", "evidence_update")]
-    saved = []
-    for obj, name, part in targets:
-        real = getattr(obj, name) if not isinstance(obj, type) else obj.__dict__[name]
-
-        def part_timed(*a, _real=real, _part=part, **k):
-            t0 = time.perf_counter()
-            try:
-                return _real(*a, **k)
-            finally:
-                spent[_part] = spent.get(_part, 0.0) + time.perf_counter() - t0
-
-        saved.append((obj, name, real))
-        setattr(obj, name, part_timed)
-    try:
-        yield spent
-    finally:
-        for obj, name, real in saved:
-            setattr(obj, name, real)
+    """Times the parts of node's apply_block (call_times, yielding {part:
+    [(end, seconds)]}): validate_block (of which verify_commit,
+    Block.validate_basic and the validator-set hashes), check_evidence,
+    build_last_commit_info (the last set loaded from the state store), ABCI
+    FinalizeBlock and Commit, State.update, the state store's writes (the
+    state, and the FinalizeBlock responses) and the evidence pool's
+    update."""
+    return call_times([(m.execution, "validate_block", "validate_block", None),
+                       (m.state_validation, "verify_commit", "verify_commit", None),
+                       (m.block.Block, "validate_basic", "validate_basic", None),
+                       (m.vs.ValidatorSet, "hash", "set_hash", None),
+                       (node.pool, "check_evidence", "check_evidence", None),
+                       (node.executor, "build_last_commit_info", "last_commit_info", None),
+                       (node.client, "finalize_block", "finalize_block", None), (node.client, "commit", "commit", None),
+                       (m.state_.State, "update", "state_update", None), (node.states, "save", "state_save", None),
+                       (node.states, "save_finalize_block_responses", "responses_save", None),
+                       (node.pool, "update", "evidence_update", None)])
 
 
 def state_setup(pool, rng, chain_id, tmp):
@@ -4039,12 +4063,7 @@ def state_setup(pool, rng, chain_id, tmp):
     block at the last height (the set of height 1 re-signs its header with a
     forged app hash and itself as the validators)."""
     m = state_modules()
-
-    def sign(secrets, msgs):
-        return [sigs[0] for _, sigs in pool.map(
-            _sign_worker, [(kind, seed, [msg]) for (kind, seed), msg in zip(secrets, msgs)],
-            chunksize=16)]
-
+    sign = pool_signer(pool)
     built = {}
     for kind in PLANES:
         seeds = [rng.bytes(32) for _ in range(STATE_VALIDATORS + 1)]
@@ -4149,9 +4168,10 @@ def _state_plane(m, kind, P, chain_id, built, runs, totals, paused, where):
                              lambda: node.executor.apply_block(state, block_id, block), want, plane_totals)
             log(f"phase 12: {kind} apply_block {h} ({len(block.txs)} txs, {len(block.evidence)} evidence): "
                 f"launches {json.dumps(want)}, {t * 1e3:.2f} ms {on}")
+            parts = {k: sum(x for _, x in v) for k, v in spent.items()}
             rows.append({"height": h, "apply": t, "load_block": t_load, "part_set": t_parts, "block_store": t_save,
-                         "gc": paused["s"] - gc0, **spent,
-                         "rest": t - sum(v for k, v in spent.items() if k not in NESTED_PARTS)})
+                         "gc": paused["s"] - gc0, **parts,
+                         "rest": t - sum(v for k, v in parts.items() if k not in NESTED_PARTS)})
             before, _, _, app_hash, doc, results_hash = src.chain[h]
             expect(f"height {h} app hash", state.app_hash, app_hash)
             expect(f"height {h} state_to_json", m.state_store.state_to_json(state), doc)
@@ -4257,6 +4277,459 @@ def _state_plane(m, kind, P, chain_id, built, runs, totals, paused, where):
         totals[name] = totals.get(name, 0) + c
 
 
+# -- phase 13: blocksync on the port's p2p layer --------------------------------------
+
+BLOCKSYNC_TAMPER_AT = 12  # (b): a second peer serves this block, its LastCommit (proving 11) altered
+BLOCKSYNC_TAMPER_INDEX = 2  # among the first 667 signatures the light check counts
+BLOCKSYNC_EXT_AT = 12  # (c): the height whose seen commit is extended
+BLOCKSYNC_PEERS = ("a1" * 20, "b2" * 20, "c3" * 20)  # (a)-(c)'s serving peers, by node ID
+BLOCKSYNC_TIMEOUT_S = 300
+SYNC_PARTS = ("light_sync", "ahead_dispatch", "ahead_wait", "make_part_set", "save_block", "apply_block",
+              "load_block")
+
+
+def blocksync_modules():
+    """The port's modules a chain is synced with: state_modules' and the p2p
+    layer's, blocksync's (its pool as bs_pool), the batch verifier's seam,
+    the wire messages, the metrics and the node key type."""
+    from tendermint_tpu_torch import blocksync, metrics, p2p
+    from tendermint_tpu_torch.blocksync import pool as bs_pool
+    from tendermint_tpu_torch.blocksync import reactor
+    from tendermint_tpu_torch.crypto import batch, ed25519
+    from tendermint_tpu_torch.proto import messages as pb
+
+    return SimpleNamespace(**vars(state_modules()), blocksync=blocksync, bs_pool=bs_pool, reactor=reactor, p2p=p2p,
+                           pb=pb, metrics=metrics, batch=batch, node_key=ed25519.Ed25519PrivKey)
+
+
+class StubChannel:
+    """A reactor's channel that records what it sends and the peer errors it
+    reports, and delivers nothing."""
+
+    def __init__(self):
+        self.sent, self.errors = [], []
+
+    def send_to(self, peer_id, message, timeout=None):
+        self.sent.append((peer_id, message))
+        return True
+
+    def broadcast(self, message, timeout=None):
+        self.sent.append(("", message))
+        return True
+
+    def send_error(self, err):
+        self.errors.append(err)
+
+    def receive_one(self, timeout=None):
+        time.sleep(timeout or 0)
+
+
+class StubPeers:
+    """A peer manager with no peers."""
+
+    def subscribe(self, callback):
+        pass
+
+    def unsubscribe(self, callback):
+        pass
+
+
+def sync_node(m, gen, dbs, device=None):
+    """A fresh node over dbs (state_node) with a BlockSyncReactor on a
+    StubChannel (`device` passed on unless None); returns (node, reactor,
+    channel)."""
+    node = state_node(m, gen, dbs, device)
+    ch = StubChannel()
+    kw = {} if device is None else {"device": device}
+    return node, m.reactor.BlockSyncReactor(node.state, node.executor, node.blocks, ch, StubPeers(), **kw), ch
+
+
+def serve(reactor, block_at, peer, lo, hi, ext_at=None):
+    """Heights lo..hi assigned to peer in reactor's pool and delivered:
+    block_at(h), with ext_at(h) as its extended commit where given."""
+    reactor.pool.set_peer_range(peer, lo, hi)
+    reactor.pool._fill_requests()
+    for h in range(lo, hi + 1):
+        if not reactor.pool.add_block(peer, block_at(h), ext_commit=ext_at(h) if ext_at else None):
+            raise AssertionError(f"the pool refused block {h} from its requester")
+
+
+def extended_commit(m, commit, secrets, sign, chain_id):
+    """An ExtendedCommit (m.pb's) of commit's signatures, each COMMIT slot
+    with a vote extension its validator signs over the canonical
+    vote-extension bytes through sign(secrets, msgs) -> sigs."""
+    pb = m.pb
+    ec = pb.ExtendedCommit(height=commit.height, round=commit.round, block_id=commit.block_id.to_proto(),
+                           extended_signatures=[pb.ExtendedCommitSig(
+                               block_id_flag=s.block_id_flag, validator_address=s.validator_address,
+                               timestamp=pb.Timestamp(seconds=s.timestamp.seconds, nanos=s.timestamp.nanos),
+                               signature=s.signature,
+                               extension=b"ext-%d-%d" % (commit.height, i) if s.block_id_flag == 2 else b"")
+                               for i, s in enumerate(commit.signatures)])
+    votes = m.vote.votes_from_extended_commit(ec)
+    idx = [i for i, v in enumerate(votes) if v is not None and not v.block_id.is_nil()]
+    sigs = sign([secrets[votes[i].validator_address] for i in idx], [votes[i].extension_sign_bytes(chain_id)
+                                                                      for i in idx])
+    for i, sig in zip(idx, sigs):
+        ec.extended_signatures[i].extension_signature = sig
+    return ec
+
+
+def altered_ext(ec, idx, field):
+    """A copy of ec with extended signature idx's `field` (signature or
+    extension_signature) altered."""
+    import copy
+
+    out = copy.deepcopy(ec)
+    sig = out.extended_signatures[idx]
+    setattr(sig, field, tamper(getattr(sig, field)))
+    return out
+
+
+def bs_node(m, net, seed, node, chain_id, block_sync, on_caught_up=None, on_fatal=None, device=None):
+    """A node exposing only a BlockSyncReactor over node's state, executor
+    and block store on the p2p Router over the MemoryNetwork net, as
+    tests/test_blocksync.py's BSNode builds one: the node key from seed, a
+    PeerManager, the blocksync channel."""
+    key = m.node_key.generate(bytes([seed]) * 32)
+    nid = m.p2p.node_id_from_pubkey(key.pub_key())
+    pm = m.p2p.PeerManager(nid, m.p2p.PeerManagerOptions(max_connected=8))
+    router = m.p2p.Router(m.p2p.NodeInfo(node_id=nid, network=chain_id), key, pm, [net.create_transport(nid)])
+    ch = router.open_channel(m.reactor.blocksync_channel_descriptor())
+    kw = {} if device is None else {"device": device}
+    reactor = m.reactor.BlockSyncReactor(node.states.load(), node.executor, node.blocks, ch, pm,
+                                         on_caught_up=on_caught_up, block_sync=block_sync, on_fatal=on_fatal, **kw)
+    return SimpleNamespace(nid=nid, pm=pm, router=router, reactor=reactor,
+                           endpoint=m.p2p.Endpoint(protocol="memory", host=nid, node_id=nid))
+
+
+def threaded_sync(m, src_node, node, chain_id, device=None, timeout=BLOCKSYNC_TIMEOUT_S):
+    """A server (block_sync=False over src_node's stores) and node's syncing
+    reactor (block_sync=True) on two Routers over one MemoryNetwork, the
+    syncing one dialing the server; returns (blocks synced, its state, wall
+    seconds from the start to on_caught_up), raising what on_fatal gets."""
+    import threading
+
+    net = m.p2p.MemoryNetwork()
+    done, got = threading.Event(), {}
+
+    def caught_up(state, n):
+        got.update(state=state, n=n, t=time.perf_counter())
+        done.set()
+
+    def fatal(exc):
+        got["exc"] = exc
+        done.set()
+
+    server = bs_node(m, net, 0x51, src_node, chain_id, block_sync=False, device=device)
+    client = bs_node(m, net, 0x52, node, chain_id, block_sync=True, on_caught_up=caught_up, on_fatal=fatal,
+                     device=device)
+    t0 = time.perf_counter()
+    for n in (server, client):
+        n.router.start()
+        n.reactor.start()
+    try:
+        client.pm.add(server.endpoint)
+        if not done.wait(timeout):
+            raise AssertionError(f"blocksync stuck at {client.reactor.pool.height}")
+    finally:
+        for n in (client, server):
+            n.reactor.stop()
+            n.router.stop()
+    if "exc" in got:
+        raise got["exc"]
+    return got["n"], got["state"], got["t"] - t0
+
+
+@contextlib.contextmanager
+def call_times(targets):
+    """Each call of the targets [(object, attribute, part, wait part or
+    None)] timed into the yielded {part: [(end time, seconds)]}, from any
+    thread; where a wait part is named, the call returns a completion
+    callable (the verify-ahead's), whose calls are timed under it."""
+    spent = {}
+
+    def record(part, t0):
+        t1 = time.perf_counter()
+        spent.setdefault(part, []).append((t1, t1 - t0))
+
+    def timed_call(real, part, wait):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                out = real(*a, **k)
+            finally:
+                record(part, t0)
+            return out if wait is None else timed_call(out, wait, None)
+        return call
+
+    saved = []
+    for obj, name, part, wait in targets:
+        real = getattr(obj, name) if not isinstance(obj, type) else obj.__dict__[name]
+        saved.append((obj, name, real))
+        setattr(obj, name, timed_call(real, part, wait))
+    try:
+        yield spent
+    finally:
+        for obj, name, real in saved:
+            setattr(obj, name, real)
+
+
+@contextlib.contextmanager
+def rlc_rows():
+    """The rows of every RLC dispatch that launched, by plane, counted into
+    the yielded dict where the dispatch returns (ops/msm.py's two entry
+    points, which the engine and direct dispatch call)."""
+    from tendermint_tpu_torch.ops import msm as M
+
+    rows, saved = {}, []
+    for name, kind in (("verify_batch_rlc_async", "ed25519"), ("verify_batch_rlc_sr_async", "sr25519")):
+        real = getattr(M, name)
+
+        def counted(pubkeys, msgs, sigs, *a, _real=real, _kind=kind, **k):
+            handle = _real(pubkeys, msgs, sigs, *a, **k)
+            if handle is not None:
+                rows[_kind] = rows.get(_kind, 0) + len(sigs)
+            return handle
+
+        saved.append((name, real))
+        setattr(M, name, counted)
+    try:
+        yield rows
+    finally:
+        for name, real in saved:
+            setattr(M, name, real)
+
+
+def pool_signer(pool):
+    """sign(secrets, msgs) -> sigs on the set-up's process pool."""
+    def sign(secrets, msgs):
+        return [sigs[0] for _, sigs in pool.map(
+            _sign_worker, [(kind, seed, [msg]) for (kind, seed), msg in zip(secrets, msgs)], chunksize=16)]
+    return sign
+
+
+def blocksync_setup(pool, chain_id, built):
+    """Phase 13's extended commits, signed at set-up: on each plane the seen
+    commit of phase 12's source chain at BLOCKSYNC_EXT_AT, every COMMIT
+    slot with its validator's extension signature."""
+    m = blocksync_modules()
+    sign = pool_signer(pool)
+    for b in built.values():
+        b.ext = extended_commit(m, b.src.node.blocks.load_seen_commit(BLOCKSYNC_EXT_AT), b.src.secrets, sign,
+                                chain_id)
+
+
+def blocksync_phase(planes, chain_id, built, runs, tmp):
+    """Phase 13 on each plane, over phase 12's source chain: (a) the
+    hand-driven sync, (b) the tampered block, (c) the extended commits, (d)
+    the threaded sync over two routers; every call held to its launches and
+    RLC rows."""
+    m = blocksync_modules()
+    totals = {}
+    with rlc_rows() as rows:
+        for kind, P in planes.items():
+            _blocksync_plane(m, kind, P, chain_id, built[kind], runs, totals, rows, os.path.join(tmp, kind, "sync"))
+    check_path("phase 13", totals, [{P.rlc.__name__: 1, P.hit.__name__: 1} for P in planes.values()])
+    return totals
+
+
+def _blocksync_plane(m, kind, P, chain_id, built, runs, totals, rows, where):
+    import torch
+
+    src, top = built.src, STATE_HEIGHTS
+    plane_totals = {}
+    on = f"on {card()}"
+    rlc = P.rlc.__name__
+    peer_a, peer_b, peer_c = BLOCKSYNC_PEERS
+    sets = {h: src.chain[h][0].validators for h in src.chain}
+    light = {h: len(light_counted(v)) for h, v in sets.items()}
+
+    def expect(what, got, want):
+        if got != want:
+            raise AssertionError(f"phase 13: {kind} {what}: {got}, expected {want}")
+
+    def iteration(h, first, last):
+        """(launches, RLC rows) of the sync of height h: its light check
+        where the iteration finds no verify-ahead (first), the verify-ahead
+        of h + 1 unless block h + 2 is missing (last), validate_block's
+        LastCommit check from height 2."""
+        checks = [light[h]] * first + [light[h + 1]] * (not last) + ([sets[h - 1].size()] if h > 1 else [])
+        return ({rlc: len(checks)} if checks else {}), sum(checks)
+
+    def held_blocks(node, h, what):
+        for load in ("load_block", "load_block_meta", "load_seen_commit"):
+            got, want = getattr(node.blocks, load)(h), getattr(src.node.blocks, load)(h)
+            expect(f"{what} {load}({h})", got.to_proto().encode(), want.to_proto().encode())
+        expect(f"{what} tx results hash at {h}", m.execution.tx_results_hash(
+            node.states.load_finalize_block_responses(h).tx_results), src.chain[h][5])
+
+    def held(node, state, h, what):
+        held_blocks(node, h, what)
+        expect(f"{what} app hash at {h}", state.app_hash, src.chain[h][3])
+        expect(f"{what} state_to_json at {h}", m.state_store.state_to_json(state), src.chain[h][4])
+
+    def steps(reactor, node, lo, hi, what, first=None):
+        """_try_sync_one for heights lo..hi, each held to its launches,
+        rows, stores and state; heights lo and lo + 1 in one drive, since
+        the verify-ahead of lo + 1 may still be in the engine's queue when
+        the sync of lo returns (height 1 makes no check of its own)."""
+        times = []
+        h = lo
+        while h <= hi:
+            span = [h, h + 1] if h == lo and hi > lo else [h]
+            want, want_rows = {}, 0
+            for x in span:
+                launches, n = iteration(x, x == lo if first is None else x == first, x + 2 > top)
+                want = {rlc: want.get(rlc, 0) + launches.get(rlc, 0)} if launches or want else {}
+                want_rows += n
+            got, t = drive(f"phase 13: {kind} {what} heights {span}",
+                           lambda: [(reactor._try_sync_one(), reactor.state) for _ in span], want, plane_totals,
+                           rows=(rows, kind, want_rows), merge=rlc)
+            for x, (ok, state) in zip(span, got):
+                expect(f"{what} _try_sync_one at {x}", ok, True)
+                held(node, state, x, what)
+            times.append((span, t))
+            h = span[-1] + 1
+        return times
+
+    def bitmap_launches(vals, counted):
+        cache = P.cache()
+        want = {P.hit.__name__: 1}
+        if any(v.pub_key.bytes() not in cache._lru for v in vals.validators[:counted]):
+            want[P.fill.__name__] = 1
+        return want
+
+    # (a) hand-driven: blocks 1-16 from the source's store, 15 iterations
+    r0 = rows.get(kind, 0)
+    node, reactor, ch = sync_node(m, src.gen, file_dbs(m, os.path.join(where, "a")))
+    serve(reactor, src.node.blocks.load_block, peer_a, 1, top)
+    consumed = []
+    real_try = reactor._try_sync_one
+
+    def tracked():
+        consumed.append(reactor._verify_ahead is not None)
+        return real_try()
+
+    reactor._try_sync_one = tracked
+    times = steps(reactor, node, 1, top - 1, "(a)")
+    expect("(a) verify-ahead consumed", consumed, [False] + [True] * (top - 2))
+    expect("(a) peer errors", ch.errors, [])
+    launches_a, rows_a = plane_totals.get(rlc, 0), rows.get(kind, 0) - r0
+    later = [t * 1e3 for span, t in times if len(span) == 1]
+    log(f"phase 13: {kind} (a) _try_sync_one x {top - 1}: launches {json.dumps({rlc: launches_a})} carrying "
+        f"{rows_a} RLC rows ({top - 1} light checks of {light[1]}-{max(light.values())} signatures, {top - 2} "
+        f"validate_block checks of {sets[1].size()}-{max(v.size() for v in sets.values())}), the verify-ahead "
+        f"consumed at heights 2-{top - 1}; ms a call, heights 3-{top - 1}: mean {sum(later) / len(later):.2f}, "
+        f"range {min(later):.2f}-{max(later):.2f} {on}")
+
+    # (b) block 12 from a second peer, its LastCommit signature #2 altered
+    bad_h, idx = BLOCKSYNC_TAMPER_AT - 1, BLOCKSYNC_TAMPER_INDEX
+    node_b, reactor_b, ch_b = sync_node(m, src.gen, file_dbs(m, os.path.join(where, "b")))
+    serve(reactor_b, src.node.blocks.load_block, peer_a, 1, bad_h)
+    tampered = tampered_block(m, src.node.blocks.load_block(BLOCKSYNC_TAMPER_AT), idx)
+    serve(reactor_b, lambda h: tampered if h == BLOCKSYNC_TAMPER_AT else src.node.blocks.load_block(h),
+          peer_b, BLOCKSYNC_TAMPER_AT, top)
+    steps(reactor_b, node_b, 1, bad_h - 2, "(b)")
+    # height 10 dispatches the verify-ahead of 11 on the altered commit: the
+    # RLC fails and the engine's collect runs the cached bitmap before
+    # validate_block's check of 10 returns; height 11 then refuses
+    launches, n = iteration(bad_h - 1, False, False)
+    want = dict(launches)
+    for name, c in bitmap_launches(sets[bad_h], light[bad_h]).items():
+        want[name] = want.get(name, 0) + c
+    got, t = drive(f"phase 13: {kind} (b) heights [{bad_h - 1}, {bad_h}]",
+                   lambda: [reactor_b._try_sync_one(), reactor_b._try_sync_one()], want, plane_totals,
+                   rows=(rows, kind, n), merge=rlc)
+    expect("(b) _try_sync_one", got, [True, False])
+    err = f"wrong signature (#{idx}):"
+    expect("(b) peer errors", [(e.node_id, str(e.err)[:len(err)]) for e in ch_b.errors],
+           [(peer_b, err), (peer_a, err)])
+    expect("(b) pool after the refusal", (sorted(reactor_b.pool.peers), reactor_b.pool.height,
+                                          sorted(reactor_b.pool.requesters), sorted(reactor_b.pool.blocks)),
+           ([], bad_h, [], []))
+    log(f"phase 13: {kind} (b) block {BLOCKSYNC_TAMPER_AT} from a second peer with LastCommit signature #{idx} "
+        f"altered: refused ({str(ch_b.errors[0].err)[:60]}), both senders reported, heights {bad_h} and "
+        f"{BLOCKSYNC_TAMPER_AT} redone; heights {bad_h - 1}-{bad_h} launched {json.dumps(want)}, "
+        f"{t * 1e3:.2f} ms {on}")
+    serve(reactor_b, src.node.blocks.load_block, peer_c, bad_h, top)
+    steps(reactor_b, node_b, bad_h, top - 1, "(b) honest", first=bad_h)
+    expect("(b) peer errors at the end", len(ch_b.errors), 2)
+
+    # (c) the extended commit at BLOCKSYNC_EXT_AT: direct dispatch, then the engine
+    h = BLOCKSYNC_EXT_AT
+    vals, block_id = sets[h], src.chain[h][2]
+    check = functools.partial(reactor._validate_ext_commit, height=h, first_id=block_id, vals=vals,
+                              chain_id=chain_id)
+    n_ext = sum(1 for s in built.ext.extended_signatures if s.block_id_flag == 2)
+    cases = (("honest", built.ext, None),
+             ("extension signature #3 altered", altered_ext(built.ext, 3, "extension_signature"),
+              "extended commit has an invalid extension signature"),
+             (f"vote signature #{idx} altered", altered_ext(built.ext, idx, "signature"),
+              f"extended commit votes failed verification: wrong signature (#{idx})"))
+    with env_setting("TM_TPU_ENGINE", "off"):
+        for label, ec, err in cases:
+            # a refusal's failed RLC runs the cached bitmap (a fill where the
+            # cache lacks the set's keys)
+            want = {rlc: 2, **(bitmap_launches(vals, vals.size()) if err else {})}
+            got, t = drive(f"phase 13: {kind} (c) {label}", lambda: check(ec), want, plane_totals,
+                           rows=(rows, kind, vals.size() + n_ext))
+            if (got is None) != (err is None) or (err and not str(got).startswith(err)):
+                raise AssertionError(f"phase 13: {kind} (c) {label}: {got!r}, expected {err!r}")
+            log(f"phase 13: {kind} (c) {vals.size()}-validator extended commit, {label}: "
+                f"{'accepted' if got is None else 'refused (' + str(got)[:70] + ')'}, TM_TPU_ENGINE=off launches "
+                f"{json.dumps(want)}, {t * 1e3:.2f} ms {on}")
+    engine_totals = {}
+    got, t = drive(f"phase 13: {kind} (c) honest through the engine", lambda: check(built.ext), {rlc: 2},
+                   engine_totals, rows=(rows, kind, vals.size() + n_ext), merge=rlc)
+    if got is not None:
+        raise AssertionError(f"phase 13: {kind} (c) honest through the engine: {got!r}, expected None")
+    for name, c in engine_totals.items():
+        plane_totals[name] = plane_totals.get(name, 0) + c
+    log(f"phase 13: {kind} (c) honest extended commit through the engine: accepted, launches "
+        f"{json.dumps(engine_totals)} ({'the two batches coalesced' if engine_totals[rlc] == 1 else 'not coalesced'}"
+        f"), {t * 1e3:.2f} ms {on}")
+
+    # (d) the threaded sync over two routers and a MemoryNetwork
+    node_d = state_node(m, src.gen, file_dbs(m, os.path.join(where, "d")))
+    targets = [(m.reactor, "verify_commit_light", "light_sync", None),
+               (m.reactor, "verify_commit_light_async", "ahead_dispatch", "ahead_wait"),
+               (m.block.Block, "make_part_set", "make_part_set", None),
+               (node_d.blocks, "save_block", "save_block", None),
+               (node_d.executor, "apply_block", "apply_block", None),
+               (src.node.blocks, "load_block", "load_block", None)]
+    d_totals = {}
+    with call_times(targets) as spent:
+        (synced, state, t_caught), _ = drive(f"phase 13: {kind} (d) threaded sync",
+                                             lambda: threaded_sync(m, src.node, node_d, chain_id),
+                                             {rlc: launches_a}, d_totals, rows=(rows, kind, rows_a), merge=rlc)
+    expect("(d) blocks synced", (synced, state.last_block_height), (top - 1, top - 1))
+    for hh in range(1, top - 1):
+        held_blocks(node_d, hh, "(d)")
+    held(node_d, state, top - 1, "(d)")
+    for name, c in d_totals.items():
+        plane_totals[name] = plane_totals.get(name, 0) + c
+    applied = [t1 for t1, _ in spent["apply_block"]]
+    rate = (len(applied) - 1) / (applied[-1] - applied[0])
+
+    def per_block(part):
+        xs = [s * 1e3 for _, s in spent.get(part, [])]
+        return (f"{part} {sum(xs) / (top - 1):.2f}" + (f" ({len(xs)} calls, {min(xs):.2f}-{max(xs):.2f})" if xs
+                                                        else " (no calls)"))
+
+    log(f"phase 13: {kind} (d) threaded sync of {top - 1} blocks over two routers: {rate:.2f} blocks/s (blocks 2-"
+        f"{top - 1}: from the end of apply_block 1 to the end of apply_block {top - 1}), on_caught_up "
+        f"{t_caught:.2f} s after the start (the pool's {m.bs_pool.STATUS_SETTLE_SECONDS:.1f} s settle window and "
+        f"the {m.reactor.BlockSyncReactor.SWITCH_CHECK_INTERVAL:.1f} s switch check included), RLC launches "
+        f"{d_totals[rlc]} carrying {rows_a} rows {on}")
+    log(f"phase 13: {kind} (d) ms a synced block (sum / {top - 1}; calls, range a call): "
+        + "; ".join(per_block(p) for p in SYNC_PARTS) + f" {on}")
+    runs.append({"plane": kind, "commit": STATE_VALIDATORS, "run": "blocksync threaded, to on_caught_up",
+                 "s": t_caught, "blocks_per_s": rate})
+    for name, c in plane_totals.items():
+        totals[name] = totals.get(name, 0) + c
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -4348,6 +4821,9 @@ def main() -> int:
         built12 = state_setup(pool, rng, chain_id, tmp12)
         log(f"phase 12: its source chains signed and applied, and the lunatic blocks signed, in "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        blocksync_setup(pool, chain_id, built12)
+        log(f"phase 13: its extended commits' extension signatures signed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
@@ -4389,8 +4865,12 @@ def main() -> int:
     log(f"phase 11: the light client's sync modes, witnesses and evidence in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     state_phase(planes, chain_id, built12, runs, tmp12)
-    shutil.rmtree(tmp12, ignore_errors=True)
     log(f"phase 12: the state layer's replay, rejections and light client in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    blocksync_phase(planes, chain_id, built12, runs, tmp12)
+    shutil.rmtree(tmp12, ignore_errors=True)
+    log(f"phase 13: blocksync's hand-driven sync, refusals, extended commits and threaded sync in "
+        f"{time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

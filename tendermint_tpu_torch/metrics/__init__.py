@@ -11,8 +11,11 @@ launches of ops/ and the sharded launches of parallel/) and DeviceMetrics
 (tendermint_hash_*: the merkle builds of crypto/merkle.py and the hash
 memos of types/) and ProofMetrics (tendermint_proofs_*: the multiproof
 builds and the tree cache), the evidence plane's EvidenceMetrics
-(tendermint_evidence_*: evidence/verify.py and evidence/pool.py) and the
-state layer's StateMetrics (tendermint_state_*: state/execution.py). Names,
+(tendermint_evidence_*: evidence/verify.py and evidence/pool.py), the
+state layer's StateMetrics (tendermint_state_*: state/execution.py), and
+the P2PMetrics (tendermint_p2p_*: p2p/router.py, p2p/peermanager.py) and
+BlockSyncMetrics (tendermint_blocksync_*: blocksync/reactor.py) of
+blocksync and the p2p layer beneath it. Names,
 labels, help strings and buckets are the reference's, so one scrape reads
 both packages alike.
 
@@ -604,6 +607,55 @@ class StateMetrics:
         h = getattr(self, name, None)
         if h is not None:
             h.observe(value)
+
+
+class P2PMetrics:
+    """ref: internal/p2p/metrics.go: the series the router and the peer
+    manager write (p2p/router.py, p2p/peermanager.py)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_p2p"
+        self.peers = reg.gauge(f"{ns}_peers", "Connected peers")
+        self.message_send_bytes_total = reg.counter(
+            f"{ns}_message_send_bytes_total", "Bytes sent", labels=("chID",)
+        )
+        self.message_receive_bytes_total = reg.counter(
+            f"{ns}_message_receive_bytes_total", "Bytes received", labels=("chID",)
+        )
+        self.peer_queue_dropped_msgs = reg.counter(
+            f"{ns}_peer_queue_dropped_msgs",
+            "Envelopes dropped from full per-peer send queues",
+            labels=("chID",),
+        )
+        # the JAX package's backpressure and churn series, which the Go
+        # reference lacks
+        self.peer_send_queue_depth = reg.gauge(
+            f"{ns}_peer_send_queue_depth",
+            "Envelopes queued toward one peer (child removed on disconnect)",
+            labels=("peer",),
+        )
+        self.peer_connections = reg.counter(
+            f"{ns}_peer_connections_total",
+            "Peer connections registered since boot",
+            labels=("dir",),
+        )
+        self.dial_attempts = reg.counter(
+            f"{ns}_dial_attempts_total",
+            "Outbound dial attempts by outcome (ok = handshake registered)",
+            labels=("result",),
+        )
+
+
+class BlockSyncMetrics:
+    """ref: internal/blocksync/metrics.go: the series the blocksync reactor
+    writes (blocksync/reactor.py)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_blocksync"
+        self.syncing = reg.gauge(f"{ns}_syncing", "1 while block-syncing")
+        self.num_blocks = reg.counter(f"{ns}_num_blocks", "Blocks synced and applied")
+        self.latest_height = reg.gauge(f"{ns}_latest_block_height", "Pool verify height")
+        self.sync_rate = reg.gauge(f"{ns}_sync_rate", "Recent blocks/sec estimate")
 
 
 # Process-global registry: the engine, the device plane and the hash plane

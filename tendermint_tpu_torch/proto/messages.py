@@ -4,7 +4,9 @@ blocks, evidence, blocks and their parts, block metas and consensus params
 (ref: proto/tendermint/types/types.proto, canonical.proto, validator.proto,
 evidence.proto, block.proto, params.proto,
 proto/tendermint/crypto/keys.proto, proof.proto,
-proto/tendermint/version/types.proto).
+proto/tendermint/version/types.proto), the p2p layer's NodeInfo
+(proto/tendermint/p2p/types.proto) and blocksync's messages
+(proto/tendermint/blocksync/types.proto).
 
 Field numbers and nullability mirror the reference schemas exactly; the
 encodings are byte-identical.
@@ -426,4 +428,80 @@ class Block(Message):
         Field(2, "message", "data", always_emit=True, msg_cls=Data),
         Field(3, "message", "evidence", always_emit=True, msg_cls=EvidenceList),
         Field(4, "message", "last_commit", msg_cls=Commit),
+    ]
+
+
+# ---------------------------------------------------------------- p2p wire
+# ref: proto/tendermint/p2p/types.proto
+
+
+class ProtocolVersionProto(Message):
+    """tendermint.p2p.ProtocolVersion (proto/tendermint/p2p/types.proto:9)."""
+
+    fields = [
+        Field(1, "uint64", "p2p"),
+        Field(2, "uint64", "block"),
+        Field(3, "uint64", "app"),
+    ]
+
+
+class NodeInfoOtherProto(Message):
+    fields = [
+        Field(1, "string", "tx_index"),
+        Field(2, "string", "rpc_address"),
+    ]
+
+
+class NodeInfoProto(Message):
+    """tendermint.p2p.NodeInfo (proto/tendermint/p2p/types.proto:15)."""
+
+    fields = [
+        Field(1, "message", "protocol_version", always_emit=True, msg_cls=ProtocolVersionProto),
+        Field(2, "string", "node_id"),
+        Field(3, "string", "listen_addr"),
+        Field(4, "string", "network"),
+        Field(5, "string", "version"),
+        Field(6, "bytes", "channels"),
+        Field(7, "string", "moniker"),
+        Field(8, "message", "other", always_emit=True, msg_cls=NodeInfoOtherProto),
+    ]
+
+
+# ---------------------------------------------------------- blocksync wire
+# ref: proto/tendermint/blocksync/types.proto
+
+
+class BlocksyncBlockRequest(Message):
+    fields = [Field(1, "int64", "height")]
+
+
+class BlocksyncNoBlockResponse(Message):
+    fields = [Field(1, "int64", "height")]
+
+
+class BlocksyncBlockResponse(Message):
+    fields = [
+        Field(1, "message", "block", msg_cls=Block),
+        # populated for vote-extension heights (blocksync/types.proto:23)
+        Field(2, "message", "ext_commit", msg_cls=ExtendedCommit),
+    ]
+
+
+class BlocksyncStatusRequest(Message):
+    fields = []
+
+
+class BlocksyncStatusResponse(Message):
+    fields = [Field(1, "int64", "height"), Field(2, "int64", "base")]
+
+
+class BlocksyncMessage(Message):
+    """Message oneof (blocksync/types.proto:34-42)."""
+
+    fields = [
+        Field(1, "message", "block_request", msg_cls=BlocksyncBlockRequest),
+        Field(2, "message", "no_block_response", msg_cls=BlocksyncNoBlockResponse),
+        Field(3, "message", "block_response", msg_cls=BlocksyncBlockResponse),
+        Field(4, "message", "status_request", msg_cls=BlocksyncStatusRequest),
+        Field(5, "message", "status_response", msg_cls=BlocksyncStatusResponse),
     ]

@@ -38,6 +38,14 @@ from .validator_set import NotEnoughVotingPowerError, ValidatorSet
 BATCH_VERIFY_THRESHOLD = 2
 
 
+class CommitVerificationError(ValueError):
+    """A commit that does not verify: a nil commit, a wrong set size, height
+    or block ID, a double vote or a wrong signature, with the reference's
+    message. A fault of the verifier itself (a kernel wrapper's guard, a
+    build, a launch or a missing device) keeps its own type, so a caller
+    that refuses a block on this error does not refuse it on those."""
+
+
 @dataclass(frozen=True)
 class Fraction:
     """ref: libs/math/fraction.go."""
@@ -128,7 +136,7 @@ def verify_commit_light_trusting(
     if trust_level.denominator == 0:
         raise ValueError("trustLevel has zero Denominator")
     if commit is None:
-        raise ValueError("nil commit")
+        raise CommitVerificationError("nil commit")
     product = vals.total_voting_power() * trust_level.numerator
     if product >= 2**63:
         raise OverflowError("int64 overflow while calculating voting power needed")
@@ -180,7 +188,7 @@ def _verify_commit_batch(
             if val is None:
                 continue
             if val_idx in seen_vals:
-                raise ValueError(f"double vote from {val} ({seen_vals[val_idx]} and {idx})")
+                raise CommitVerificationError(f"double vote from {val} ({seen_vals[val_idx]} and {idx})")
             seen_vals[val_idx] = idx
         vote_sign_bytes = commit.vote_sign_bytes(chain_id, idx)
         try:
@@ -222,7 +230,7 @@ def _verify_commit_batch(
             if not sig_ok:
                 idx = batch_sig_idxs[i]
                 sig = commit.signatures[idx].signature
-                raise ValueError(f"wrong signature (#{idx}): {sig.hex().upper()}")
+                raise CommitVerificationError(f"wrong signature (#{idx}): {sig.hex().upper()}")
         raise RuntimeError("BUG: batch verification failed with no invalid signatures")
 
     if defer:
@@ -253,11 +261,11 @@ def _verify_commit_single(
             if val is None:
                 continue
             if val_idx in seen_vals:
-                raise ValueError(f"double vote from {val} ({seen_vals[val_idx]} and {idx})")
+                raise CommitVerificationError(f"double vote from {val} ({seen_vals[val_idx]} and {idx})")
             seen_vals[val_idx] = idx
         vote_sign_bytes = commit.vote_sign_bytes(chain_id, idx)
         if not val.pub_key.verify_signature(vote_sign_bytes, commit_sig.signature):
-            raise ValueError(f"wrong signature (#{idx}): {commit_sig.signature.hex().upper()}")
+            raise CommitVerificationError(f"wrong signature (#{idx}): {commit_sig.signature.hex().upper()}")
         if count_sig(commit_sig):
             tallied += val.voting_power
         if not count_all_signatures and tallied > voting_power_needed:
@@ -271,10 +279,10 @@ def _verify_basic_vals_and_commit(vals: ValidatorSet, commit: Commit, height: in
     if vals is None:
         raise ValueError("nil validator set")
     if commit is None:
-        raise ValueError("nil commit")
+        raise CommitVerificationError("nil commit")
     if vals.size() != len(commit.signatures):
-        raise ValueError(f"invalid commit -- wrong set size: {vals.size()} vs {len(commit.signatures)}")
+        raise CommitVerificationError(f"invalid commit -- wrong set size: {vals.size()} vs {len(commit.signatures)}")
     if height != commit.height:
-        raise ValueError(f"invalid commit -- wrong height: {height} vs {commit.height}")
+        raise CommitVerificationError(f"invalid commit -- wrong height: {height} vs {commit.height}")
     if block_id != commit.block_id:
-        raise ValueError(f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}")
+        raise CommitVerificationError(f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}")

@@ -1,11 +1,13 @@
 """The port stands alone and runs on the card unless told otherwise:
 importing every module of tendermint_tpu_torch (the sr25519 plane's, the
 engine's, the telemetry's, the secp256k1 key type's, the merkle plane's, the
-light client's with its stores and providers, evidence's, and the state
-layer's with its stores, evidence pool and ABCI app included) loads no JAX
+light client's with its stores and providers, evidence's, the state
+layer's with its stores, evidence pool and ABCI app, and blocksync's with
+the p2p layer beneath it included) loads no JAX
 and nothing of tendermint_tpu, the native host prep and merkle plane load
 the port's own library (never the reference's prep.so), a default-device
-verifier raises without CUDA instead of running on the host, and
+verifier and a default-device BlockSyncReactor's light check raise without
+CUDA instead of running on the host, and
 TM_TPU_ENGINE selects the engine or direct dispatch as the reference's
 does."""
 
@@ -43,11 +45,13 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "types.evidence", "evidence", "evidence.verify", "store", "store.kv", "light.client",
              "light.store", "light.provider", "abci", "abci.types", "abci.client", "abci.kvstore", "state",
              "state.state", "state.store", "state.validation", "state.execution", "store.blockstore",
-             "types.params", "types.genesis", "types.part_set", "utils.bits", "evidence.pool"):
+             "types.params", "types.genesis", "types.part_set", "utils.bits", "evidence.pool", "p2p",
+             "p2p.types", "p2p.channel", "p2p.transport", "p2p.transport_memory", "p2p.conn_tracker",
+             "p2p.peermanager", "p2p.router", "blocksync", "blocksync.pool", "blocksync.reactor"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
-from tendermint_tpu_torch import abci, devobs, evidence, light, metrics, native, state, store, trace
+from tendermint_tpu_torch import abci, blocksync, devobs, evidence, light, metrics, native, p2p, state, store, trace
 from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
@@ -67,7 +71,11 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (evidence, ("verify_evidence", "verify_duplicate_vote", "verify_light_client_attack")),
                  (store, ("MemDB", "FileDB")), (metrics, ("evidence_metrics", "StateMetrics")),
                  (state, ("BlockExecutor", "StateStore", "make_genesis_state", "validate_block")),
-                 (abci, ("LocalClient", "BaseApplication")), (evidence, ("EvidencePool",))):
+                 (abci, ("LocalClient", "BaseApplication")), (evidence, ("EvidencePool",)),
+                 (p2p, ("Router", "RouterOptions", "PeerManager", "MemoryNetwork", "Endpoint", "NodeInfo",
+                        "ConnTracker", "Channel")),
+                 (blocksync, ("BlockSyncReactor", "BlockPool", "blocksync_channel_descriptor")),
+                 (metrics, ("P2PMetrics", "BlockSyncMetrics"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
@@ -113,6 +121,43 @@ def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
     monkeypatch.setenv("TM_TPU_CRYPTO", "off")
     assert _jobs(3).verify() == (True, [True, True, True])
+
+
+def test_default_device_blocksync_light_check_raises(monkeypatch):
+    """A BlockSyncReactor built without `device` runs its light check on the
+    card: without CUDA the check raises from _try_sync_one (no peer is
+    reported, nothing is verified on the host); with device="cpu" the same
+    blocks sync."""
+    import chip_smoke as cs
+    from test_torch_blocksync import PEER_A, PORT
+    from test_torch_state import mem_dbs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TM_TPU_CRYPTO", "auto")
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 4)
+    chain = cs.state_chain(PORT, *_state_members(), _sign, "iso-chain", mem_dbs(PORT), heights=3, device="cpu")
+    for kw in ({}, {"device": "cpu"}):
+        node, reactor, ch = cs.sync_node(PORT, chain.gen, mem_dbs(PORT), **kw)
+        cs.serve(reactor, chain.node.blocks.load_block, PEER_A, 1, 3)
+        if not kw:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                reactor._try_sync_one()
+            assert ch.errors == [] and reactor.state.last_block_height == 0
+        else:
+            assert reactor._try_sync_one() and reactor.state.last_block_height == 1
+
+
+def _state_members():
+    """Five ed25519 members and a joiner for a small state chain."""
+    out = []
+    for i in range(6):
+        seed = bytes([i + 40]) * 32
+        out.append(("ed25519", ref.gen_privkey(seed)[32:], ("ed25519", seed)))
+    return out[:-1], out[-1]
+
+
+def _sign(secrets, msgs):
+    return [ref.sign(ref.gen_privkey(seed), m) for (_, seed), m in zip(secrets, msgs)]
 
 
 def test_uncovered_settings_raise(monkeypatch):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from tendermint_tpu.crypto import ed25519 as jed
 from tendermint_tpu.crypto import merlin as jmerlin
 from tendermint_tpu.crypto import merlin_batch as jmb
@@ -228,7 +229,7 @@ def _outcome(fn):
     try:
         fn()
     except Exception as e:  # the error surface is what is compared
-        return type(e).__name__, str(e)
+        return cs.error_name(e), str(e)
     return "accepted", ""
 
 

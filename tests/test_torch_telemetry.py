@@ -10,7 +10,10 @@ counted under direct_* labels as in the reference. The device observatory
 is a no-op while disabled, install() never raises, and the bytes the port
 copies are counted (the plain versions' copies too: the CPU path copies
 the same rows). Every test starts from a fresh global registry, devobs
-state and trace ring (`fresh`), so no test depends on another's order.
+state and trace ring in both packages (`fresh`), so no test depends on
+another's order: bench.py's smoke, which tests/test_perf.py runs in-process,
+leaves the reference's device observatory installed, and its spans would
+then carry compile events and flow ids that the port's do not.
 """
 
 import os
@@ -24,7 +27,9 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 
 import tendermint_tpu.crypto.ed25519 as jed  # noqa: E402
+import tendermint_tpu.devobs as JD  # noqa: E402
 import tendermint_tpu.metrics as JM  # noqa: E402
+import tendermint_tpu.ops.verify as JV  # noqa: E402
 from tendermint_tpu import trace as JT  # noqa: E402
 from tendermint_tpu.types import validation as jval  # noqa: E402
 from tendermint_tpu_torch import devobs  # noqa: E402
@@ -42,22 +47,29 @@ from test_torch_validation import CHAIN_ID, HEIGHT, JAX_PKG, PORT_PKG, build  # 
 torch.set_num_threads(1)
 
 
-@pytest.fixture
-def fresh(monkeypatch):
-    """A fresh global registry and metric groups in both packages, devobs
-    off with zeroed counters, and empty trace rings, tracing off after."""
+def reset_telemetry(monkeypatch):
+    """A fresh global registry and metric groups in both packages, both
+    packages' devobs off (the reference's listeners read its _STATE) with
+    zeroed counters, and empty trace rings; undone by monkeypatch."""
     for mod in (M, JM):
         monkeypatch.setattr(mod, "_GLOBAL_REGISTRY", mod.Registry())
         monkeypatch.setattr(mod, "_ENGINE_METRICS", None)
         monkeypatch.setattr(mod, "_DEVICE_METRICS", None)
-    state = dict(devobs._STATE, transfers={"h2d": 0, "d2h": 0},
-                 transfer_bytes={"h2d": 0, "d2h": 0}, installed=False, compiles=0,
-                 compile_seconds=0.0, residency_samples=0, live_buffer_bytes=0,
-                 high_water_bytes=0, warned=False)
-    monkeypatch.setattr(devobs, "_STATE", state)
-    monkeypatch.setattr(devobs, "_COMPILE_TAIL", type(devobs._COMPILE_TAIL)(maxlen=256))
+    for obs in (devobs, JD):
+        state = dict(obs._STATE, transfers={"h2d": 0, "d2h": 0},
+                     transfer_bytes={"h2d": 0, "d2h": 0}, installed=False, compiles=0,
+                     compile_seconds=0.0, residency_samples=0, live_buffer_bytes=0,
+                     high_water_bytes=0, warned=False)
+        monkeypatch.setattr(obs, "_STATE", state)
+        monkeypatch.setattr(obs, "_COMPILE_TAIL", type(obs._COMPILE_TAIL)(maxlen=256))
     for tr in (T, JT):
         tr.clear()
+
+
+@pytest.fixture
+def fresh(monkeypatch):
+    """reset_telemetry for one test, tracing off after."""
+    reset_telemetry(monkeypatch)
     yield
     for tr in (T, JT):
         tr.set_enabled(False)
@@ -189,6 +201,30 @@ def test_spans_equal_reference(fresh, monkeypatch, engine, where):
         assert ("engine.host_verify" if engine == "auto" else "verify.direct_host") in names
     else:
         assert {"ops.verify_dispatch", "ops.pk_cache_fill"} <= names
+
+
+@pytest.mark.parametrize("engine", ["auto", "off"])
+def test_spans_equal_with_reference_devobs_left_installed(monkeypatch, engine):
+    """The device-plane span comparison after another file left the
+    reference's device observatory installed, as bench.py's smoke in
+    tests/test_perf.py does: reset_telemetry turns both packages' off, and
+    the spans are equal again."""
+    assert JD.install() is True and JD.enabled()
+    try:
+        reset_telemetry(monkeypatch)
+        # the keys of test_spans_equal_reference's commit, seen by neither
+        # package's pubkey cache, so that both fill
+        monkeypatch.setattr(V, "_PK_CACHES", {})
+        monkeypatch.setattr(JV, "_PK_CACHE", None)
+        assert not JD.enabled() and not devobs.enabled()
+        test_spans_equal_reference(None, monkeypatch, engine, "device")
+    finally:
+        monkeypatch.undo()
+        JD.uninstall()
+        for tr in (T, JT):
+            tr.set_enabled(False)
+            tr.clear()
+    assert not JD.enabled()
 
 
 # -- devobs -------------------------------------------------------------------------

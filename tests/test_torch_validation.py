@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from tendermint_tpu.crypto import ed25519 as jed
 from tendermint_tpu.crypto import ed25519_ref as ref
 from tendermint_tpu.types import block as jblock
@@ -99,7 +100,7 @@ def _outcome(fn):
     try:
         fn()
     except Exception as e:  # the error surface is what is compared
-        return type(e).__name__, str(e)
+        return cs.error_name(e), str(e)
     return "accepted", ""
 
 
@@ -117,8 +118,44 @@ def test_same_verdict_and_error(privs, routed, path, tampered):
     assert got == want
     if tampered:
         assert got[0] == "ValueError" and got[1].startswith("wrong signature (#2): ")
+        with pytest.raises(tval.CommitVerificationError):
+            _call(tval, path, tv, tb, tc, device="cpu")
     else:
         assert got == ("accepted", "")
+
+
+def _verdict_case(pkg, mod, privs, case):
+    """(verify call, commit) of one package for a commit that does not
+    verify in the named way."""
+    vals, bid, commit = build(pkg, privs)
+    block = pkg[1]
+    path, height = "trusting" if case == "double vote" else "light", HEIGHT
+    if case == "nil commit":
+        commit = None
+    elif case == "wrong set size":
+        commit.signatures = commit.signatures[:-1]
+    elif case == "wrong height":
+        height = HEIGHT + 1
+    elif case == "wrong block ID":
+        bid = block.BlockID(b"\xcc" * 32, bid.part_set_header)
+    elif case == "double vote":
+        commit.signatures[3] = commit.signatures[2]
+    if path == "trusting":
+        return lambda **kw: mod.verify_commit_light_trusting(CHAIN_ID, vals, commit, mod.Fraction(2, 3), **kw)
+    return lambda **kw: mod.verify_commit_light(CHAIN_ID, vals, bid, height, commit, **kw)
+
+
+@pytest.mark.parametrize("case", ["nil commit", "wrong set size", "wrong height", "wrong block ID", "double vote"])
+def test_verdicts_are_commit_verification_errors(privs, routed, case):
+    """Each commit that does not verify raises the port's
+    CommitVerificationError, a ValueError with the JAX package's message,
+    so that blocksync refuses a block on it and not on a kernel wrapper's
+    own ValueError."""
+    want = _outcome(_verdict_case(JAX_PKG, jval, privs, case))
+    call = _verdict_case(PORT_PKG, tval, privs, case)
+    assert _outcome(lambda: call(device="cpu")) == want and want[0] == "ValueError"
+    with pytest.raises(tval.CommitVerificationError):
+        call(device="cpu")
 
 
 def test_short_power_same_error(privs, routed):
