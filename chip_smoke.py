@@ -203,9 +203,42 @@ Both signature planes run the same phases, each fatal on failure:
      on_caught_up and the split of a block (the light check's synchronous
      call or the verify-ahead's dispatch and wait, make_part_set,
      save_block, apply_block and the server's load_block) beside the
-     card's name and power limit.
+     card's name and power limit;
+ 14. consensus on one node (consensus/, mempool/, privval/), on each plane:
+     a genesis of 150 validators of equal power; the node is a
+     ConsensusState over BlockExecutor(device=cuda), the kvstore through
+     LocalClient, StateStore and BlockStore over FileDBs, a FilePV holding
+     the key that proposes height 4, a WAL on disk and a TxMempool with
+     EngineTxPreVerifier; ConsensusNet plays the other 149 (proposals from
+     create_proposal_block, every prevote and precommit signed on a process
+     pool). (a) 8 heights driven on this thread through add_peer_message,
+     process_all and a manual ticker, every call of the node held to its
+     launches (none at height 1, a fill and a hit at 2, a hit a height
+     after) and every height to its block ID and to a shadow replica's app
+     hash and state_to_json (applied with TM_TPU_CRYPTO=off); the WAL holds
+     an EndHeight for each; (b) on ed25519, three admission batches through
+     check_tx_batch before heights 3, 5 and 7: 1,024 envelopes of 1,024
+     account keys (one RLC), 1,024 with #517 tampered (RLC, fill, hit;
+     #517 rejected before the app) and 32 (no launch), each committed by
+     its height and removed by update; (c) at height 9 a proposal whose
+     LastCommit has signature #77 altered (a nil prevote, the reference's
+     error naming the index), a prevote with a bad signature (dropped, no
+     launch), a validator's two prevotes (report_conflicting_votes), and,
+     with every device entry point raising a kernel wrapper's ValueError,
+     round 1's proposal through the consumer routine: on_fatal gets it and
+     no prevote of round 1 is signed; (d) a fresh state store and kvstore
+     replay the 8 stored heights through the Handshaker (7 hits), equal to
+     the node's app hash and state, and a second ConsensusState repairs the
+     torn WAL and replays it from EndHeight 8 (2 hits); (e) a fresh node
+     started with start() and the real ticker at tests/test_consensus.py's
+     fast timeouts decides 8 heights against a network answering from its
+     own thread (7 hits): heights/s and the split of a height (add_vote's
+     host vote checks, validate_block, process_proposal, apply_block,
+     save_block, the WAL's fsyncs, create_proposal_block, make_part_set),
+     the node's own time a height (its consensus thread's busy time) and
+     the network stand-in's, beside the card's name and power limit.
 
-Phases 3, 5, 6, 7, 10, 11, 12 and 13 are each a main path: every call in them runs
+Phases 3, 5, 6, 7, 10, 11, 12, 13 and 14 are each a main path: every call in them runs
 with the launch counters set to 0 just before it and read just after, and
 each phase fails if one of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
@@ -4730,6 +4763,824 @@ def _blocksync_plane(m, kind, P, chain_id, built, runs, totals, rows, where):
         totals[name] = totals.get(name, 0) + c
 
 
+# -- phase 14: consensus on one node -----------------------------------------------------------
+
+CS_VALIDATORS = 150  # the Cosmos Hub's active set, as in phases 10-11
+CS_HEIGHTS = 8
+CS_NODE_PROPOSES_AT = 4  # the node's key is the proposer of round 0 at this height
+CS_T0 = 1_700_600_000
+CS_STEP_NS = 1_000_000  # the stepped clock's tick
+CS_ADMIT = {3: "valid", 5: "tampered", 7: "small"}  # (b): each batch is admitted just before its height starts
+CS_ENVELOPES = 1024  # (b): signed-tx envelopes from as many account keys
+CS_TAMPER_ENVELOPE = 517
+CS_SMALL_BATCH = 32  # below the device cutover
+CS_TAMPER_INDEX = 77  # (c): the LastCommit signature a proposal carries altered
+CS_BAD_VOTE_INDEX = 3  # (c): the validator whose prevote carries a bad signature
+CS_CONFLICT_INDEX = 5  # (c): the validator that prevotes twice
+CS_LIVE_TIMEOUT_S = 180
+CS_JOIN_S = 30
+# tests/test_consensus.py:25-39's fast timeouts, with bypass_commit_timeout: a live height's time is the node's work
+CS_FAST_TIMEOUTS = {"propose": 400_000_000, "propose_delta": 200_000_000, "vote": 200_000_000,
+                    "vote_delta": 100_000_000, "commit": 50_000_000, "bypass_commit_timeout": True}
+CS_PARTS = ("add_vote", "validate_block", "process_proposal", "apply_block", "save_block", "wal_write", "wal_fsync",
+            "create_proposal_block", "make_part_set")
+
+
+def consensus_modules():
+    """The port's modules a consensus node is built and driven with (those of
+    state_modules and the consensus slice's); the functions below take such
+    a namespace, so the CPU tests can hand them the JAX package's."""
+    from tendermint_tpu_torch import metrics
+    from tendermint_tpu_torch.consensus import handshake, messages, round_state, ticker, wal
+    from tendermint_tpu_torch.consensus import state as cstate
+    from tendermint_tpu_torch.crypto import ed25519, sr25519
+    from tendermint_tpu_torch.mempool import mempool, preverify
+    from tendermint_tpu_torch.privval import file_pv
+    from tendermint_tpu_torch.types import proposal, vote_set
+
+    return SimpleNamespace(**vars(state_modules()), metrics=metrics, handshake=handshake, messages=messages,
+                           round_state=round_state, ticker=ticker, wal=wal, cstate=cstate, mempool=mempool,
+                           preverify=preverify, file_pv=file_pv, proposal=proposal, vote_set=vote_set,
+                           privs={"ed25519": ed25519.Ed25519PrivKey.generate, "sr25519": sr25519.Sr25519PrivKey})
+
+
+class SteppedClock:
+    """A ConsensusState's clock: each call returns a time CS_STEP_NS after the
+    last; peek() the next one without stepping. Two nodes driven alike read
+    the same times, so their votes, blocks and WAL records are byte-equal."""
+
+    def __init__(self, m, t0_s=CS_T0 + 1):
+        self.m, self.ns = m, t0_s * 10**9
+
+    def __call__(self):
+        t = self.peek()
+        self.ns += CS_STEP_NS
+        return t
+
+    def peek(self):
+        return self.m.tmtime.Time.from_unix_ns(self.ns)
+
+
+class WallClock:
+    """The wall clock as a SteppedClock's interface, for the live run."""
+
+    def __init__(self, m):
+        self.m = m
+
+    def __call__(self):
+        return self.m.tmtime.Time.now()
+
+    peek = __call__
+
+
+class SignerKey:
+    """A validator key whose signatures come from sign(secrets, msgs) -> sigs
+    (the CPU tests' memoizing signer, so that two packages' nodes sign the
+    same bytes where signing is randomized)."""
+
+    def __init__(self, m, member, sign):
+        kind, pub, self.secret = member
+        self.type_name, self._pub, self._sign = kind, m.keys[kind](pub), sign
+
+    def pub_key(self):
+        return self._pub
+
+    def sign(self, msg):
+        return self._sign([self.secret], [msg])[0]
+
+
+class ManualTicker:
+    """Captures the timeouts a ConsensusState schedules; its driver fires them
+    (tests/test_consensus_locking.py's)."""
+
+    def __init__(self):
+        self.scheduled = []
+
+    def schedule_timeout(self, ti):
+        self.scheduled.append(ti)
+
+    def stop(self):
+        pass
+
+
+def cs_genesis(m, members, chain_id, fast=False):
+    """The GenesisDoc of members [(kind, pub, secret)] at power 10 each;
+    `fast` sets CS_FAST_TIMEOUTS."""
+    import dataclasses
+
+    kinds = tuple(sorted({kind for kind, _, _ in members}))
+    params = m.params.ConsensusParams(validator=m.params.ValidatorParams(pub_key_types=kinds))
+    if fast:
+        params = dataclasses.replace(params, timeout=m.params.TimeoutParams(**CS_FAST_TIMEOUTS))
+    doc = m.genesis.GenesisDoc(
+        chain_id=chain_id, genesis_time=m.tmtime.Time(CS_T0, 0), consensus_params=params,
+        validators=[m.genesis.GenesisValidator(address=m.keys[kind](pub).address(), pub_key=m.keys[kind](pub),
+                                               power=10, name=f"v{i}")
+                    for i, (kind, pub, _) in enumerate(members)])
+    doc.validate_and_complete()
+    return doc
+
+
+def proposer_schedule(m, gen, heights):
+    """The address proposing round 0 of each height 1..heights, the set
+    unchanged."""
+    vals, out = m.state.make_genesis_state(gen).validators.copy(), []
+    for _ in range(heights):
+        out.append(vals.get_proposer().address)
+        vals.increment_proposer_priority(1)
+    return out
+
+
+def node_member(m, gen, members, at=CS_NODE_PROPOSES_AT):
+    """The index among members of the key proposing round 0 of height `at`."""
+    addr = proposer_schedule(m, gen, at)[-1]
+    return next(i for i, (kind, pub, _) in enumerate(members) if m.keys[kind](pub).address() == addr)
+
+
+def cs_stores(m, gen, dbs, device=None, app_db=None):
+    """A node's app (the kvstore through LocalClient), state store, block
+    store, evidence pool, TxMempool with EngineTxPreVerifier and
+    BlockExecutor over dbs {"app", "state", "blocks", "evidence"}, brought to
+    its block store's height by the Handshaker (InitChain on a fresh one);
+    `device` is passed on unless None (the JAX package's take none)."""
+    kw = {} if device is None else {"device": device}
+    client = m.abci.LocalClient(m.kvstore.KVStoreApplication(dbs["app"]))
+    states = m.state.StateStore(dbs["state"])
+    blocks = m.blockstore.BlockStore(dbs["blocks"])
+    state = states.load()
+    if state is None:
+        state = m.state.make_genesis_state(gen)
+        states.save(state)
+    handshaker = m.handshake.Handshaker(states, state, blocks, gen, **kw)
+    state = handshaker.handshake(client)
+    registry = m.metrics.Registry()
+    pool = m.pool.EvidencePool(dbs["evidence"], states, blocks, **kw)
+    mempool = m.mempool.TxMempool(client, metrics=m.metrics.MempoolMetrics(registry),
+                                  pre_verify=m.preverify.EngineTxPreVerifier(**kw))
+    executor = m.execution.BlockExecutor(states, client, mempool=mempool, evidence_pool=pool, block_store=blocks, **kw)
+    return SimpleNamespace(client=client, states=states, blocks=blocks, pool=pool, mempool=mempool,
+                           executor=executor, state=state, handshaker=handshaker, registry=registry, dbs=dbs)
+
+
+def cs_node(m, gen, dbs, priv_key, where, clock, device=None):
+    """The node under test: cs_stores' layers, a FilePV over priv_key whose
+    last-sign state is a file in `where`, a WAL on disk in `where`, and a
+    ConsensusState over them with `clock`, its broadcasts collected in
+    .out and what on_fatal receives in .fatal."""
+    node = cs_stores(m, gen, dbs, device)
+    lss = m.file_pv.LastSignState.load(os.path.join(where, "priv_validator_state.json"))
+    node.pv = m.file_pv.FilePV(priv_key=priv_key, last_sign_state=lss)
+    node.wal_path = os.path.join(where, "cs.wal")
+    node.out, node.fatal, node.decided = [], [], []
+    node.cs = m.cstate.ConsensusState(
+        node.state, node.executor, node.blocks, priv_validator=node.pv, wal=m.wal.WAL(node.wal_path),
+        evidence_pool=node.pool, broadcast=node.out.append, clock=clock,
+        on_decided=lambda h, b, bid: node.decided.append((h, time.perf_counter())),
+        metrics=m.metrics.ConsensusMetrics(node.registry), on_fatal=node.fatal.append, mempool=node.mempool)
+    return node
+
+
+def commit_keys(vals, commit):
+    """The keys of a commit's rows as verify_commit batches them: every
+    signature that is not absent."""
+    return [vals.validators[i].pub_key.bytes() for i, s in enumerate(commit.signatures) if not s.absent()]
+
+
+def tampered_envelope(tx):
+    """A signed-tx envelope (mempool/preverify.py's layout: magic, public
+    key, signature, payload) with the last byte of its signature flipped."""
+    from tendermint_tpu_torch.mempool.preverify import SIGTX_MAGIC
+
+    at = len(SIGTX_MAGIC) + 32 + 63
+    return tx[:at] + bytes([tx[at] ^ 1]) + tx[at + 1:]
+
+
+class ConsensusNet:
+    """The other validators of a consensus node's set, played by hand on the
+    caller's thread, as tests/test_consensus_locking.py:60-190's Driver does:
+    proposals built with create_proposal_block and signed with their
+    proposer's key, and every other validator's prevotes and precommits,
+    through sign(secrets, msgs) -> sigs. The node runs under a manual ticker;
+    each of its calls (messages queued through add_peer_message, or a fired
+    timeout, then process_all) goes through step(label, fn, want), where want
+    lists the device checks the call makes: ("rows", keys, valid). A shadow
+    replica (cs_stores over its own stores) applies each decided block under
+    TM_TPU_CRYPTO=off (no launch), for the app hash and state the height must
+    reach."""
+
+    def __init__(self, m, node, members, sign, chain_id, clock, step=None, shadow=None, manual=True):
+        self.m, self.node, self.cs, self.sign, self.chain_id, self.clock = m, node, node.cs, sign, chain_id, clock
+        self.secrets = member_secrets(m, members)
+        self.me = node.pv.get_pub_key().address()
+        self.step = step or (lambda label, fn, want: (fn(), 0.0))
+        self.shadow = shadow
+        # the network's proposals are built by an executor of their own over
+        # the node's stores and mempool (create_proposal_block checks nothing)
+        self.builder = m.execution.BlockExecutor(node.states, node.client, mempool=node.mempool,
+                                                 evidence_pool=node.pool, block_store=node.blocks)
+        self.precommits = {}  # height -> {validator index: precommit}, the node's included
+        self.records = []
+        self.replay_want = []  # the device checks of the records after the last EndHeight, in order
+        if manual:
+            self.ticker = ManualTicker()
+            self.cs.ticker = self.ticker
+            self.cs._schedule_round_0()
+
+    # -- the node's calls
+
+    def call(self, label, send, want=()):
+        def run():
+            send()
+            self.cs.process_all(0)
+        return self.step(label, run, list(want))
+
+    def fire(self, step_, round_=0):
+        """Queue the last timeout scheduled for (the node's height, round_, step_)."""
+        h = self.cs.rs.height
+        ti = next(t for t in reversed(self.ticker.scheduled) if (t.height, t.round, t.step) == (h, round_, step_))
+        return lambda: self.cs._tock(ti)
+
+    def deliver(self, msgs, peer="net"):
+        msgs = list(msgs)
+        return lambda: [self.cs.add_peer_message(msg, peer) for msg in msgs]
+
+    # -- what the network sends
+
+    def votes(self, type_, height, round_, block_id, skip=()):
+        """Every other validator's signed vote (those at indices in skip left out)."""
+        vals = self.cs.state.validators
+        t = self.clock.peek()
+        out = [self.m.vote.Vote(type=type_, height=height, round=round_, block_id=block_id, timestamp=t,
+                                validator_address=v.address, validator_index=i)
+               for i, v in enumerate(vals.validators) if v.address != self.me and i not in skip]
+        sigs = self.sign([self.secrets[v.validator_address] for v in out], [v.sign_bytes(self.chain_id) for v in out])
+        for v, sig in zip(out, sigs):
+            v.signature = sig
+        return out
+
+    def last_commit(self, height):
+        """The LastCommit a proposal at `height` carries: every precommit of
+        height - 1 (the node's included)."""
+        if height == self.cs.state.initial_height:
+            return self.m.block.Commit()
+        pcs = self.precommits[height - 1]
+        first = next(iter(pcs.values()))
+        return self.m.block.Commit(height=height - 1, round=first.round, block_id=first.block_id,
+                                   signatures=[pcs[i].to_commit_sig() for i in range(len(pcs))])
+
+    def want(self, height, commit=None, valid=True):
+        """The device check of validating a proposal at `height` (its LastCommit's rows)."""
+        if height == self.cs.state.initial_height:
+            return []
+        commit = commit or self.last_commit(height)
+        return [("rows", commit_keys(self.cs.state.last_validators, commit), valid)]
+
+    def proposal(self, height, round_, last_commit=None, proposer=None):
+        """The block the proposer of (height, round_) builds from the node's
+        state, its ID, and its signed proposal and parts as messages."""
+        m, st = self.m, self.cs.state
+        proposer = proposer or self.cs.rs.validators.get_proposer().address
+        assert proposer != self.me
+        block = self.builder.create_proposal_block(height, st, last_commit or self.last_commit(height), proposer,
+                                                        block_time=self.clock.peek())
+        parts = block.make_part_set(m.block.BLOCK_PART_SIZE_BYTES)
+        bid = m.block.BlockID(block.hash(), parts.header)
+        prop = m.proposal.Proposal(height=height, round=round_, pol_round=-1, block_id=bid,
+                                   timestamp=block.header.time)
+        prop.signature = self.sign([self.secrets[proposer]], [prop.sign_bytes(self.chain_id)])[0]
+        return block, bid, [m.messages.ProposalMessage(prop)] + [
+            m.messages.BlockPartMessage(height, round_, parts.get_part(i)) for i in range(parts.total())]
+
+    # -- what the node did
+
+    def our_vote(self, type_, height, round_):
+        for msg in reversed(self.node.out):
+            v = getattr(msg, "vote", None)
+            if v is not None and (v.type, v.height, v.round) == (type_, height, round_) and v.validator_address == self.me:
+                return v
+        return None
+
+    def our_proposal(self, height, round_):
+        for msg in reversed(self.node.out):
+            p = getattr(msg, "proposal", None)
+            if p is not None and (p.height, p.round) == (height, round_):
+                return p
+        return None
+
+    # -- a height
+
+    def height(self, h, admit=None):
+        """Drive height h to its commit in round 0: (b)'s admission batch
+        first where one is given (label, txs, want), then the NEW_HEIGHT
+        timeout, the proposal (the node's own, or the network's), every
+        other prevote, every other precommit. Returns the height's record."""
+        m, cs = self.m, self.cs
+        P, PC = m.vote.PREVOTE, m.vote.PRECOMMIT
+        assert cs.rs.height == h, (cs.rs.height, h)
+        outcomes = []
+        if admit is not None:
+            label, txs, want = admit
+            self.call(f"height {h}: admission of {label}",
+                      lambda: outcomes.extend(self.node.mempool.check_tx_batch(txs)), want)
+        ours = cs.rs.validators.get_proposer().address == self.me
+        want = self.want(h)
+        self.call(f"height {h}: the NEW_HEIGHT timeout" + (", the node proposes" if ours else ""),
+                  self.fire(m.round_state.STEP_NEW_HEIGHT), want if ours else [])
+        if ours:
+            bid = self.our_proposal(h, 0).block_id
+        else:
+            _, bid, msgs = self.proposal(h, 0)
+            self.call(f"height {h}: the proposal and its {len(msgs) - 1} parts", self.deliver(msgs), want)
+        prevote = self.our_vote(P, h, 0)
+        assert prevote is not None and prevote.block_id == bid, f"height {h}: the node did not prevote the proposal"
+        self.call(f"height {h}: the other prevotes", self.deliver(m.messages.VoteMessage(v)
+                                                                   for v in self.votes(P, h, 0, bid)))
+        precommit = self.our_vote(PC, h, 0)
+        assert precommit is not None and precommit.block_id == bid, f"height {h}: the node did not precommit"
+        pcs = self.votes(PC, h, 0, bid)
+        self.precommits[h] = {v.validator_index: v for v in pcs + [precommit]}
+        self.call(f"height {h}: the other precommits", self.deliver(m.messages.VoteMessage(v) for v in pcs))
+        assert cs.rs.height == h + 1 and self.node.blocks.height() == h, f"height {h} was not committed"
+        block = self.node.blocks.load_block(h)
+        assert block.hash() == bid.hash
+        rec = SimpleNamespace(height=h, block_id=(bid.hash, bid.part_set_header.total, bid.part_set_header.hash), ours=ours, block=block.to_proto().encode(),
+                              app_hash=cs.state.app_hash, state=m.state_store.state_to_json(cs.state),
+                              votes=(prevote.to_proto().encode(), precommit.to_proto().encode()),
+                              outcomes=outcomes, txs=list(block.txs), mempool=self.node.mempool.size())
+        if self.shadow is not None:
+            with env_setting("TM_TPU_CRYPTO", "off"):
+                self.shadow.state = self.shadow.executor.apply_block(self.shadow.state, bid, block)
+            assert rec.app_hash == self.shadow.state.app_hash, f"height {h}: app hash off the shadow's"
+            assert rec.state == m.state_store.state_to_json(self.shadow.state), f"height {h}: state off the shadow's"
+        self.records.append(rec)
+        return rec
+
+    # -- (c): refusals at the next height
+
+    def refusals(self, fault=None):
+        """At height h = the node's: the NEW_HEIGHT timeout; a proposal whose
+        LastCommit has signature CS_TAMPER_INDEX altered (a nil prevote, the
+        reference's error naming the index); a prevote with a bad signature
+        (dropped on the host); a validator's two prevotes for two block IDs
+        (report_conflicting_votes); then round 0 closed on nil votes. Where
+        `fault` is given (a context manager making the device entry points
+        raise), round 1's honest proposal is delivered through the node's
+        consumer routine inside it: on_fatal must receive the fault and no
+        prevote of round 1 be signed. Returns what was seen."""
+        import copy
+        import threading
+
+        m, cs, node, P, PC = self.m, self.cs, self.node, self.m.vote.PREVOTE, self.m.vote.PRECOMMIT
+        h, n = cs.rs.height, cs.state.validators.size()
+        others = [i for i, v in enumerate(cs.state.validators.validators) if v.address != self.me]
+        bad_i, conflict_i = others[CS_BAD_VOTE_INDEX % len(others)], others[CS_CONFLICT_INDEX % len(others)]
+        assert bad_i != conflict_i
+        self.replay_want = []
+        self.call(f"(c) height {h}: the NEW_HEIGHT timeout", self.fire(m.round_state.STEP_NEW_HEIGHT))
+        honest = self.last_commit(h)
+        bad, ti = copy.deepcopy(honest), min(CS_TAMPER_INDEX, n - 1)
+        bad.signatures[ti].signature = tamper(bad.signatures[ti].signature)
+        errors, reported = [], []
+        real_validate, real_report = node.executor.validate_block, node.pool.report_conflicting_votes
+
+        def validate(state, block):
+            try:
+                return real_validate(state, block)
+            except Exception as e:
+                errors.append(e)
+                raise
+
+        node.executor.validate_block = validate
+        node.pool.report_conflicting_votes = lambda a, b: (reported.append((a, b)), real_report(a, b))
+        try:
+            _, bad_bid, msgs = self.proposal(h, 0, last_commit=bad)
+            self.replay_want += self.want(h, bad, valid=False)
+            self.call(f"(c) height {h}: a proposal whose LastCommit has signature #{ti} altered",
+                      self.deliver(msgs), self.want(h, bad, valid=False))
+            prevote = self.our_vote(P, h, 0)
+            assert prevote is not None and prevote.block_id.is_nil(), "the altered LastCommit was not prevoted nil"
+            (forged,) = self.votes(P, h, 0, bad_bid, skip=[i for i in range(n) if i != bad_i])
+            forged.signature = tamper(forged.signature)
+            self.call(f"(c) height {h}: a prevote with a bad signature", self.deliver([m.messages.VoteMessage(forged)]))
+            skip = [i for i in range(n) if i != conflict_i]
+            (first,) = self.votes(P, h, 0, bad_bid, skip=skip)
+            (second,) = self.votes(P, h, 0, m.block.BlockID(), skip=skip)
+            self.call(f"(c) height {h}: a validator's two prevotes", self.deliver(
+                [m.messages.VoteMessage(first), m.messages.VoteMessage(second)]))
+        finally:
+            node.executor.validate_block, node.pool.report_conflicting_votes = real_validate, real_report
+        held = {v.validator_index for v in cs.rs.votes.prevotes(0).list()}
+        seen = SimpleNamespace(error=f"{error_name(errors[0])}: {errors[0]}" if errors else None,
+                               nil_prevote=prevote.to_proto().encode(), forged_dropped=bad_i not in held,
+                               reported=[(a.validator_index, b.validator_index) for a, b in reported],
+                               tamper_index=ti, bad_index=bad_i, conflict_index=conflict_i)
+        # close round 0 on nil: every other validator prevotes nil (the one
+        # whose second prevote conflicted has voted) and precommits nil
+        nil = m.block.BlockID()
+        skip = (conflict_i,)
+        self.call(f"(c) height {h}: nil prevotes", self.deliver(m.messages.VoteMessage(v)
+                                                               for v in self.votes(P, h, 0, nil, skip=skip)))
+        self.call(f"(c) height {h}: nil precommits", self.deliver(m.messages.VoteMessage(v)
+                                                                 for v in self.votes(PC, h, 0, nil)))
+        self.call(f"(c) height {h}: the PRECOMMIT_WAIT timeout", self.fire(m.round_state.STEP_PRECOMMIT_WAIT))
+        assert cs.rs.round == 1, f"height {h} did not move to round 1"
+        if fault is None:
+            return seen
+        _, _, msgs = self.proposal(h, 1)
+        self.replay_want += self.want(h)
+        for msg in msgs:
+            cs.add_peer_message(msg, "net")
+
+        def consume():
+            try:
+                cs._receive_routine()
+            except Exception:
+                pass  # on_fatal has it
+
+        def run():
+            t = threading.Thread(target=consume, name="consensus", daemon=True)
+            t.start()
+            t.join(CS_JOIN_S)
+            assert not t.is_alive(), "the consumer routine did not stop on the fault"
+
+        with fault:
+            self.step(f"(c) height {h}: round 1's proposal with the device entry points failing", run, [])
+        seen.fatal = [f"{type(e).__name__}: {e}" for e in node.fatal]
+        seen.prevote_r1 = self.our_vote(P, h, 1)
+        return seen
+
+
+def cs_restart(m, net, gen, priv_key, clock, device=None, step=None):
+    """(d): a fresh state store at genesis and a fresh kvstore replay the
+    node's stored heights through the Handshaker (apply_block a height);
+    then, the WAL's tail torn by a partial write, a second ConsensusState on
+    the same WAL, block store, last-sign state and the replayed state repairs
+    the WAL and replays it from the last EndHeight. Returns (the handshake's
+    state, its n_blocks, the WAL clean before, after, the second node)."""
+    node = net.node
+    step = step or (lambda label, fn, want: (fn(), 0.0))
+    node.cs.wal.close()
+    with open(node.wal_path, "ab") as f:
+        f.write(b"\x07\x00\x00\x00torn")
+    kw = {} if device is None else {"device": device}
+    dbs = {"app": m.kv.MemDB(), "state": m.kv.MemDB(), "evidence": m.kv.MemDB()}
+    client = m.abci.LocalClient(m.kvstore.KVStoreApplication(dbs["app"]))
+    states = m.state.StateStore(dbs["state"])
+    genesis_state = m.state.make_genesis_state(gen)
+    states.save(genesis_state)
+    handshaker = m.handshake.Handshaker(states, genesis_state, node.blocks, gen, **kw)
+    stored = node.blocks.height()
+    want = [("rows", commit_keys(node.states.load_validators(h - 1), node.blocks.load_block(h).last_commit), True)
+            for h in range(2, stored + 1)]
+    state, _ = step(f"(d) the handshake's replay of {stored} stored heights", lambda: handshaker.handshake(client),
+                    want)
+    pool = m.pool.EvidencePool(dbs["evidence"], states, node.blocks, **kw)
+    executor = m.execution.BlockExecutor(states, client, evidence_pool=pool, block_store=node.blocks, **kw)
+    pv = m.file_pv.FilePV(priv_key=priv_key, last_sign_state=m.file_pv.LastSignState.load(node.pv.last_sign_state.file_path))
+    wal = m.wal.WAL(node.wal_path)
+    _, clean_before = wal.search_for_end_height_with_status(stored)
+    out = []
+    cs2 = m.cstate.ConsensusState(state, executor, node.blocks, priv_validator=pv, wal=wal, evidence_pool=pool,
+                                  broadcast=out.append, clock=clock)
+    cs2.ticker = ManualTicker()
+    step("(d) the second node's WAL repair and replay", cs2._catchup_replay, net.replay_want)
+    _, clean_after = wal.search_for_end_height_with_status(stored)
+    cs2.out = out
+    return state, handshaker.n_blocks, clean_before, clean_after, cs2
+
+
+def cs_expected(P, dev, want):
+    """The launches a node call must make from the device checks it runs,
+    want [("rows", keys, valid)]: below the device cutover a check runs on
+    the host; at or above the MSM cutover the RLC, then on a bad batch the
+    bitmap plane; the bitmap plane up to the cache's capacity is the cached
+    bitmap: a fill when a key is missing from the plane's cache (keys an
+    earlier check of the call filled count as present), then a hit."""
+    from tendermint_tpu_torch.crypto import ed25519 as ted
+
+    cache = P.cache(dev)
+    present, out = set(cache._lru), {}
+
+    def add(fn):
+        out[fn.__name__] = out.get(fn.__name__, 0) + 1
+
+    for _, keys, valid in want:
+        if len(keys) < ted.DEVICE_BATCH_CUTOVER:
+            continue
+        if len(keys) >= ted.MSM_BATCH_CUTOVER:
+            add(P.rlc)
+            if valid:
+                continue
+        if len(set(keys)) > cache.capacity:
+            add(P.bitmap)
+            continue
+        if any(k not in present for k in keys):
+            add(P.fill)
+            present.update(keys)
+        add(P.hit)
+    return out
+
+
+@contextlib.contextmanager
+def failing_entries(message, exc=ValueError):
+    """Every device entry point of both planes (the bitmaps, the cached
+    bitmaps, the RLCs) raising exc(message): by default a kernel wrapper's
+    ValueError; a RuntimeError stands for a failed build or launch."""
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.ops import verify_sr as VS
+
+    def fail(*a, **k):
+        raise exc(message)
+
+    saved = [(mod, name, getattr(mod, name)) for mod, names in (
+        (V, ("verify_batch_async", "verify_batch_cached_async")),
+        (VS, ("verify_batch_async", "verify_batch_cached_async")),
+        (M, ("verify_batch_rlc_async", "verify_batch_rlc_cached_async", "verify_batch_rlc_sr_async")))
+        for name in names]
+    for mod, name, _ in saved:
+        setattr(mod, name, fail)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def thread_times(targets, thread="consensus"):
+    """Each call of the targets [(object, attribute, part)] made on the
+    thread named `thread`, timed into the yielded {part: seconds}, and the
+    thread's CPU time in those calls into {part + "_cpu": seconds} (CPU
+    time leaves out waits: for the GIL, a lock, an fsync)."""
+    import threading
+
+    parts = {part for _, _, part in targets}
+    spent = dict.fromkeys(list(parts) + [part + "_cpu" for part in parts], 0.0)
+
+    def timed(real, part):
+        def call(*a, **k):
+            if threading.current_thread().name != thread:
+                return real(*a, **k)
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return real(*a, **k)
+            finally:
+                spent[part] += time.perf_counter() - t0
+                spent[part + "_cpu"] += time.thread_time() - c0
+        return call
+
+    saved = []
+    for obj, name, part in targets:
+        raw = obj.__dict__[name] if isinstance(obj, type) else None
+        if isinstance(raw, classmethod):
+            saved.append((obj, name, raw))
+            setattr(obj, name, staticmethod(timed(getattr(obj, name), part)))
+        else:
+            real = raw if raw is not None else getattr(obj, name)
+            saved.append((obj, name, raw if raw is not None else None))
+            setattr(obj, name, timed(real, part))
+    try:
+        yield spent
+    finally:
+        for obj, name, raw in saved:
+            if raw is None:
+                delattr(obj, name)  # the instance attribute; the class's method shows again
+            else:
+                setattr(obj, name, raw)
+
+
+def live_run(m, gen, members, priv_key, sign, chain_id, where, heights=CS_HEIGHTS, device=None,
+             timeout=CS_LIVE_TIMEOUT_S):
+    """(e): a node over fresh stores started with start() and the real
+    ticker and clock; the network answers its broadcasts from a thread of
+    its own (the proposal of another proposer as the node enters round 0's
+    propose step, every other prevote when the node prevotes a block, every
+    other precommit when it precommits one), until the node has decided
+    `heights` heights. Returns (decided [(height, perf_counter)], the start's
+    perf_counter, the split {part: seconds} of the node's consensus thread,
+    with "node" its whole busy time (every input it dispatched), "node_cpu"
+    the thread's CPU time in it, and "network"
+    the seconds the network's thread spent building, signing and delivering
+    its answers, during which the node waits)."""
+    import queue
+    import threading
+
+    dbs = {name: m.kv.MemDB() for name in ("app", "state", "blocks", "evidence")}
+    clock = WallClock(m)
+    node = cs_node(m, gen, dbs, priv_key, where, clock, device)
+    net = ConsensusNet(m, node, members, sign, chain_id, clock, manual=False)
+    schedule = proposer_schedule(m, gen, heights + 1)
+    inbox, stop, done, errors = queue.Queue(), threading.Event(), threading.Event(), []
+    node.cs.broadcast = inbox.put
+    node.cs.on_decided = lambda h, b, bid: (node.decided.append((h, time.perf_counter())),
+                                            h >= heights and done.set())
+    Msgs, P, PC = m.messages, m.vote.PREVOTE, m.vote.PRECOMMIT
+    network = [0.0]
+
+    def answer():
+        proposed = set()
+        try:
+            while not stop.is_set():
+                try:
+                    msg = inbox.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                t_msg = time.perf_counter()
+                if (isinstance(msg, Msgs.NewRoundStepMessage) and msg.step == m.round_state.STEP_PROPOSE
+                        and msg.round == 0 and msg.height not in proposed and msg.height <= heights):
+                    proposed.add(msg.height)
+                    if schedule[msg.height - 1] != net.me:
+                        for out in net.proposal(msg.height, 0, proposer=schedule[msg.height - 1])[2]:
+                            node.cs.add_peer_message(out, "net")
+                elif isinstance(msg, Msgs.VoteMessage) and msg.vote.validator_address == net.me:
+                    v = msg.vote
+                    if v.round != 0 or v.block_id.is_nil():
+                        raise AssertionError(f"the node voted {v.type} for nil at {v.height}/{v.round}")
+                    others = net.votes(v.type, v.height, 0, v.block_id)
+                    if v.type == PC:
+                        net.precommits[v.height] = {o.validator_index: o for o in others + [v]}
+                    for o in others:
+                        node.cs.add_peer_message(Msgs.VoteMessage(o), "net")
+                network[0] += time.perf_counter() - t_msg
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            errors.append(e)
+            done.set()
+
+    targets = [(m.vote_set.VoteSet, "add_vote", "add_vote"), (node.executor, "validate_block", "validate_block"),
+               (node.executor, "process_proposal", "process_proposal"), (node.executor, "apply_block", "apply_block"),
+               (node.blocks, "save_block", "save_block"), (node.cs.wal, "write", "wal_write"),
+               (node.cs.wal, "write_sync", "wal_fsync"),
+               (node.cs.wal, "flush_and_sync", "wal_fsync"),
+               (node.executor, "create_proposal_block", "create_proposal_block"),
+               (m.part_set.PartSet, "from_data", "make_part_set"), (node.cs, "_dispatch", "node")]
+    driver = threading.Thread(target=answer, name="net", daemon=True)
+    with thread_times(targets) as spent:
+        driver.start()
+        t0 = time.perf_counter()
+        node.cs.start()
+        try:
+            finished = done.wait(timeout)
+        finally:
+            node.cs.stop()
+            stop.set()
+            driver.join(CS_JOIN_S)
+    if errors:
+        raise errors[0]
+    if node.fatal:
+        raise node.fatal[0]
+    if not finished or driver.is_alive():
+        raise AssertionError(f"the live run stopped at height {node.blocks.height()} of {heights}")
+    return node.decided, t0, dict(spent, network=network[0])
+
+
+def consensus_setup(pool, rng, chain_id):
+    """Phase 14's keys and envelopes, at set-up: on each plane CS_VALIDATORS
+    validators' keys; for ed25519's (b), CS_ENVELOPES account keys, each
+    signing two kv transactions (the first batch's and the second's), the
+    first CS_SMALL_BATCH a third, wrapped as signed-tx envelopes."""
+    out = {}
+    for kind in PLANES:
+        seeds = [rng.bytes(32) for _ in range(CS_VALIDATORS)]
+        out[kind] = SimpleNamespace(members=[(kind, pub, (kind, seed))
+                                             for seed, pub in zip(seeds, make_keys(pool, kind, seeds))])
+    payload = lambda i, r: b"acct-%d=n%d" % (i, r)
+    seeds = [rng.bytes(32) for _ in range(CS_ENVELOPES)]
+    jobs = [("ed25519", s, [payload(i, 1), payload(i, 2)] + ([payload(i, 3)] if i < CS_SMALL_BATCH else []))
+            for i, s in enumerate(seeds)]
+    signed = pool.map(_sign_worker, jobs, chunksize=64)
+    from tendermint_tpu_torch.mempool.preverify import SIGTX_MAGIC
+
+    env = lambda r: [(pub, SIGTX_MAGIC + pub + sigs[r - 1] + payload(i, r)) for i, (pub, sigs) in enumerate(signed)
+                     if r < 3 or i < CS_SMALL_BATCH]
+    out["ed25519"].batches = {"valid": env(1), "tampered": env(2), "small": env(3)}
+    return out
+
+
+def admission_batch(label, batch):
+    """(b)'s admission of one batch [(pub, envelope)] as ConsensusNet.height
+    takes it: the label, the txs (the tampered batch's CS_TAMPER_ENVELOPE-th
+    signature altered) and the device check of its pre-verification."""
+    txs = [tx for _, tx in batch]
+    if label == "tampered":
+        txs[CS_TAMPER_ENVELOPE] = tampered_envelope(txs[CS_TAMPER_ENVELOPE])
+    return (f"{len(txs)} envelopes ({label})", txs, [("rows", [pub for pub, _ in batch], label != "tampered")])
+
+
+def consensus_phase(planes, chain_id, built, runs, tmp):
+    """Phase 14 on each plane: (a) the deterministic drive of CS_HEIGHTS
+    heights, (b) the admission batches (ed25519), (c) the refusals, (d) the
+    restart, (e) the live run; every call of the node held to its launches.
+    The network signs on a process pool of its own."""
+    import multiprocessing
+
+    m = consensus_modules()
+    totals = {}
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
+        sign = pool_signer(pool)
+        log(f"phase 14: the network's signing pool started in {time.perf_counter() - t0:.1f} s")
+        for kind, P in planes.items():
+            _consensus_plane(m, kind, P, chain_id, built[kind], sign, runs, totals, os.path.join(tmp, kind))
+    check_path("phase 14", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()]
+               + [{P.rlc.__name__: 1} for kind, P in planes.items() if kind == "ed25519"])
+    return totals
+
+
+def _consensus_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
+    import torch
+
+    dev = torch.device("cuda", 0)
+    members = built.members
+    gen = cs_genesis(m, members, chain_id)
+    ni = node_member(m, gen, members)
+    priv = m.privs[kind](members[ni][2][1])
+    clock = SteppedClock(m)
+    os.makedirs(os.path.join(where, "node"))
+    node = cs_node(m, gen, file_dbs(m, os.path.join(where, "node")), priv, os.path.join(where, "node"), clock, dev)
+    shadow = cs_stores(m, gen, {name: m.kv.MemDB() for name in ("app", "state", "blocks", "evidence")}, dev)
+    calls = []
+
+    def step(label, fn, want):
+        expected = cs_expected(P, dev, want)
+        out, t = drive(f"phase 14: {kind} {label}", fn, expected, totals)
+        calls.append((label, t, expected))
+        return out, t
+
+    # (a) and (b)
+    net = ConsensusNet(m, node, members, sign, chain_id, clock, step, shadow)
+    batches = getattr(built, "batches", {})
+    for h in range(1, CS_HEIGHTS + 1):
+        label = CS_ADMIT.get(h)
+        admit = admission_batch(label, batches[label]) if label in batches else None
+        n0 = len(calls)
+        rec = net.height(h, admit)
+        if admit is not None:
+            oks = [o.code == 0 for o in rec.outcomes]
+            bad = [i for i, ok in enumerate(oks) if not ok]
+            want_bad = [CS_TAMPER_ENVELOPE] if label == "tampered" else []
+            if bad != want_bad or (bad and rec.outcomes[bad[0]].log != "tx signature pre-verification failed"):
+                raise AssertionError(f"phase 14: {kind} (b) {label}: refused {bad}, expected {want_bad}")
+            # the height's proposal reaped them; its commit removed them from the mempool
+            if not {tx for tx, ok in zip(admit[1], oks) if ok} <= set(rec.txs) or rec.mempool != 0:
+                raise AssertionError(f"phase 14: {kind} (b) height {h} did not commit the admitted txs "
+                                     f"({len(rec.txs)} txs in the block, {rec.mempool} left in the mempool)")
+        log(f"phase 14: {kind} (a) height {h}: {'the node' if rec.ours else 'the network'} proposed "
+            f"{rec.block_id[0].hex()[:16]} with {len(rec.txs)} txs, app hash {rec.app_hash.hex()}, as the "
+            f"shadow's; calls ms: " + json.dumps({c[0].split(': ', 1)[1]: [round(c[1] * 1e3, 2), c[2]]
+                                                  for c in calls[n0:]}))
+    wal = m.wal.WAL(node.wal_path)
+    missing = [h for h in range(1, CS_HEIGHTS + 1) if wal.search_for_end_height(h) is None]
+    wal.close()
+    if missing:
+        raise AssertionError(f"phase 14: {kind} the WAL has no EndHeight for {missing}")
+    # (c)
+    msg = f"no kernel for device {dev}"
+    seen = net.refusals(fault=failing_entries(msg))
+    want_err = f"ValueError: wrong signature (#{seen.tamper_index}):"
+    if not (seen.error or "").startswith(want_err) or not seen.forged_dropped \
+            or seen.reported != [(seen.conflict_index, seen.conflict_index)] \
+            or seen.fatal != [f"ValueError: {msg}"] or seen.prevote_r1 is not None:
+        raise AssertionError(f"phase 14: {kind} (c) refusals: {seen}")
+    log(f"phase 14: {kind} (c) the altered LastCommit prevoted nil ({seen.error[:60]}...); the forged prevote "
+        f"of validator {seen.bad_index} dropped; validator {seen.conflict_index}'s conflicting prevotes reported; "
+        f"with the device entry points failing, on_fatal got {seen.fatal} and no prevote of round 1 was signed")
+    # (d)
+    state, n_blocks, clean_before, clean_after, cs2 = cs_restart(m, net, gen, priv, clock, dev, step)
+    if (state.app_hash != node.cs.state.app_hash or n_blocks != CS_HEIGHTS or clean_before or not clean_after
+            or m.state_store.state_to_json(state) != m.state_store.state_to_json(node.cs.state)
+            or (cs2.rs.height, cs2.rs.round) != (CS_HEIGHTS + 1, 1)):
+        raise AssertionError(f"phase 14: {kind} (d) restart: n_blocks {n_blocks}, WAL clean {clean_before} -> "
+                             f"{clean_after}, at {cs2.rs.height}/{cs2.rs.round}")
+    cs2.wal.close()
+    log(f"phase 14: {kind} (d) the handshake replayed {n_blocks} heights to the node's app hash and state; the "
+        f"second node repaired the torn WAL and replayed it to {cs2.rs.height}/{cs2.rs.round}; calls ms: "
+        + json.dumps({c[0]: [round(c[1] * 1e3, 2), c[2]] for c in calls[-2:]}))
+    # (e)
+    live_gen = cs_genesis(m, members, chain_id + "-live", fast=True)
+    live_priv = m.privs[kind](members[node_member(m, live_gen, members)][2][1])
+    keys = [k for _, k, _ in members]
+    os.makedirs(os.path.join(where, "live"))
+    (decided, t0, spent), t = drive(
+        f"phase 14: {kind} (e) live run", lambda: live_run(m, live_gen, members, live_priv, sign, chain_id + "-live",
+                                                           os.path.join(where, "live"), device=dev),
+        cs_expected(P, dev, [("rows", keys, True)] * (CS_HEIGHTS - 1)), totals)
+    hps = CS_HEIGHTS / (decided[-1][1] - t0)
+    split = {part: round(spent.get(part, 0.0) * 1e3 / CS_HEIGHTS, 2) for part in CS_PARTS}
+    split["rest"] = round((spent["node"] - sum(spent[part] for part in CS_PARTS)) * 1e3 / CS_HEIGHTS, 2)
+    # the wall clock's heights/s counts the network stand-in's work too; the
+    # node's own time a height is its consensus thread's busy time (with its
+    # CPU time, which leaves out the GIL it waits for while the stand-in runs)
+    log(f"phase 14: {kind} (e) live run of {CS_HEIGHTS} heights over {len(members)} validators: {hps:.2f} heights/s "
+        f"({(decided[-1][1] - t0) * 1e3:.1f} ms); the node busy {spent['node'] * 1e3 / CS_HEIGHTS:.2f} ms a height "
+        f"({CS_HEIGHTS / spent['node']:.2f} node-only heights/s), its CPU {spent['node_cpu'] * 1e3 / CS_HEIGHTS:.2f} "
+        f"ms a height; the network stand-in's {spent['network'] * 1e3 / CS_HEIGHTS:.2f} ms a height; the node's "
+        f"ms a height: {json.dumps(split)} on {card()}")
+    runs.append({"plane": kind, "run": "consensus (e)", "commit": len(members), "s": decided[-1][1] - t0,
+                 "heights_per_s": hps, "node_s": spent["node"], "node_cpu_s": spent["node_cpu"],
+                 "network_s": spent["network"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -4797,9 +5648,9 @@ def main() -> int:
         return 0
 
     chain_id = "chip-smoke"
-    tmp12 = tempfile.mkdtemp(prefix="chip-smoke-state-")
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
+    tmp12 = tempfile.mkdtemp(prefix="chip-smoke-state-")
     with ctx.Pool(workers) as pool:
         keys = {}
         for kind in PLANES:
@@ -4824,6 +5675,9 @@ def main() -> int:
         t0 = time.perf_counter()
         blocksync_setup(pool, chain_id, built12)
         log(f"phase 13: its extended commits' extension signatures signed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        built14 = consensus_setup(pool, rng, chain_id)
+        log(f"phase 14: its validator keys and signed-tx envelopes made in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for kind, P in planes.items():
         kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
@@ -4871,6 +5725,10 @@ def main() -> int:
     shutil.rmtree(tmp12, ignore_errors=True)
     log(f"phase 13: blocksync's hand-driven sync, refusals, extended commits and threaded sync in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-consensus-") as tmp:
+        consensus_phase(planes, chain_id, built14, runs, tmp)
+    log(f"phase 14: consensus on one node in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

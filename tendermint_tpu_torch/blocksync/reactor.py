@@ -31,13 +31,12 @@ from .. import trace as _trace
 from ..p2p.types import CHANNEL_BLOCKSYNC, ChannelDescriptor, PEER_STATUS_UP, PeerError
 from ..proto import messages as pb
 from ..types.block import Block, BlockID
-from ..types.validation import CommitVerificationError, verify_commit_light, verify_commit_light_async
-from ..types.validator_set import NotEnoughVotingPowerError
+from ..types.validation import VERDICT_ERRORS, verify_commit_light, verify_commit_light_async
 from .pool import BlockPool
 
-# what a commit that does not verify raises (types/validation.py); any other
-# error is a fault of this node, not of the peer that sent the block
-VERDICT_ERRORS = (CommitVerificationError, NotEnoughVotingPowerError)
+# VERDICT_ERRORS: what a commit that does not verify raises
+# (types/validation.py); any other error is a fault of this node, not of the
+# peer that sent the block
 
 
 # ------------------------------------------------------------------ messages

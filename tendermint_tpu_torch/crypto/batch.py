@@ -29,3 +29,20 @@ def supports_batch_verifier(pk: PubKey | None) -> bool:
     if pk is None:
         return False
     return pk.type_name in (ED25519_TYPE, SR25519_TYPE)
+
+
+def mark_fault(exc: BaseException) -> BaseException:
+    """Mark `exc`, raised beneath a batch verifier (its construction, its
+    dispatch or its collect), as a fault of the verifier: a kernel wrapper's
+    guard, a failed build or launch, a missing card. Such an error says
+    nothing about the signatures, so no caller may read it as a verdict.
+    The exception keeps its type and message; the mark is an attribute, so
+    the layers that read ordinary errors as verdicts (consensus's prevote
+    and vote handling, the mempool's deferred admission) can re-raise it."""
+    exc.tm_verifier_fault = True
+    return exc
+
+
+def is_fault(exc: BaseException) -> bool:
+    """Whether `exc` was marked by mark_fault."""
+    return getattr(exc, "tm_verifier_fault", False)

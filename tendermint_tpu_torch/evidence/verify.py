@@ -25,8 +25,7 @@ import time
 
 from ..types.evidence import DuplicateVoteEvidence, LightClientAttackEvidence
 from ..types.light_block import SignedHeader
-from ..types.validation import Fraction, verify_commit_light, verify_commit_light_trusting
-from ..types.validator_set import NotEnoughVotingPowerError
+from ..types.validation import VERDICT_ERRORS, Fraction, verify_commit_light, verify_commit_light_trusting
 
 
 class EvidenceVerifyError(Exception):
@@ -211,7 +210,8 @@ def verify_light_client_attack(
 ) -> None:
     """ref: verify.go:115 VerifyLightClientAttack. A failed commit check
     (a forged signature, short power, another chain id) is raised as
-    EvidenceVerifyError, the error every consumer of this path catches."""
+    EvidenceVerifyError, the error every consumer of this path catches; a
+    fault of the verifier is not a failed check and keeps its own type."""
     sh = ev.conflicting_block.signed_header
     try:
         if common_header is not None and common_header.height != sh.header.height:
@@ -234,7 +234,10 @@ def verify_light_client_attack(
                 sh.commit,
                 device,
             )
-    except (ValueError, OverflowError, NotEnoughVotingPowerError) as e:
+    except (*VERDICT_ERRORS, OverflowError) as e:
+        # only the commit checks' verdicts refuse the evidence; a fault of
+        # the verifier (a kernel wrapper's ValueError, a failed launch)
+        # propagates as itself
         raise EvidenceVerifyError(f"verifying conflicting commit: {e}") from e
 
     # a conflicting block past our head must violate monotonic time to be

@@ -11,13 +11,18 @@ Both commit checks run through the port's batch verifiers
 (types/validation.py verify_commit_light / verify_commit_light_trusting):
 on the card by default, on the host's plain versions with device="cpu".
 Every entry point takes `device` and passes it on. Below the device
-cutover (64 signatures) a batch verifies on the host either way.
+cutover (64 signatures) a batch verifies on the host either way. Only the
+commit checks' verdicts (`VERDICT_ERRORS`, and the trusting check's int64
+overflow) become ErrInvalidHeader or ErrNewValSetCantBeTrusted; a fault of
+the verifier (a kernel wrapper's ValueError, a failed build or launch)
+propagates as itself.
 """
 
 from __future__ import annotations
 
 from ..types.light_block import SignedHeader
 from ..types.validation import (
+    VERDICT_ERRORS,
     Fraction,
     verify_commit_light,
     verify_commit_light_trusting,
@@ -116,7 +121,7 @@ def verify_non_adjacent(
                                      device=device)
     except NotEnoughVotingPowerError as e:
         raise ErrNewValSetCantBeTrusted(str(e))
-    except Exception as e:
+    except (*VERDICT_ERRORS, OverflowError) as e:
         raise ErrInvalidHeader(str(e))
 
     # the new validator set signed its own header with 2/3 (:85)
@@ -129,7 +134,7 @@ def verify_non_adjacent(
             untrusted_header.commit,
             device,
         )
-    except Exception as e:
+    except VERDICT_ERRORS as e:
         raise ErrInvalidHeader(str(e))
 
 
@@ -167,7 +172,7 @@ def verify_adjacent(
             untrusted_header.commit,
             device,
         )
-    except Exception as e:
+    except VERDICT_ERRORS as e:
         raise ErrInvalidHeader(str(e))
 
 

@@ -15,7 +15,9 @@ builds and the tree cache), the evidence plane's EvidenceMetrics
 state layer's StateMetrics (tendermint_state_*: state/execution.py), and
 the P2PMetrics (tendermint_p2p_*: p2p/router.py, p2p/peermanager.py) and
 BlockSyncMetrics (tendermint_blocksync_*: blocksync/reactor.py) of
-blocksync and the p2p layer beneath it. Names,
+blocksync and the p2p layer beneath it, and ConsensusMetrics
+(tendermint_consensus_*: consensus/state.py) and MempoolMetrics
+(tendermint_mempool_*: mempool/mempool.py) of consensus on one node. Names,
 labels, help strings and buckets are the reference's, so one scrape reads
 both packages alike.
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 import functools
 import sys
 import threading
+import time
 from typing import Sequence
 
 NAMESPACE = "tendermint"  # ref: config.Instrumentation.Namespace default
@@ -115,6 +118,30 @@ class Gauge(_Metric):
         k = self._key(label_values)
         with self._lock:
             self._children[k] = self._children.get(k, 0.0) + delta
+
+
+class AgeGauge(Gauge):
+    """Gauge whose exported value is the seconds since the last mark().
+
+    The freshness-at-scrape-time problem: a plain "last block committed
+    at T" gauge needs the scraper to know its own wall clock AND trust
+    the node's, while "seconds since" computed at sample time needs
+    neither — tmlens reads a persisted exposition long after the run
+    and still sees how stale the chain head was when the scrape
+    happened (the liveness-stall gate keys off exactly this)."""
+
+    @_never_raise
+    def mark(self, ts: float | None = None) -> None:
+        """Record the event (default: now, wall clock)."""
+        with self._lock:
+            self._children[()] = float(ts if ts is not None else time.time())
+
+    def samples(self):
+        with self._lock:
+            marked = self._children.get(())
+        if marked is None:
+            return []
+        return [(self.name, {}, max(0.0, time.time() - marked))]
 
 
 def bucket_quantile(q: float, bounds, cumulative, total) -> float | None:
@@ -656,6 +683,167 @@ class BlockSyncMetrics:
         self.num_blocks = reg.counter(f"{ns}_num_blocks", "Blocks synced and applied")
         self.latest_height = reg.gauge(f"{ns}_latest_block_height", "Pool verify height")
         self.sync_rate = reg.gauge(f"{ns}_sync_rate", "Recent blocks/sec estimate")
+
+
+class ConsensusMetrics:
+    """ref: internal/consensus/metrics.go:20 (metricsgen struct)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_consensus"
+        self.height = reg.gauge(f"{ns}_height", "Height of the chain")
+        self.rounds = reg.gauge(f"{ns}_rounds", "Round of the current height")
+        self.round_duration = reg.histogram(
+            f"{ns}_round_duration_seconds", "Time spent in a round"
+        )
+        self.step_duration = reg.histogram(
+            f"{ns}_step_duration_seconds", "Time spent per step", labels=("step",)
+        )
+        self.block_interval = reg.histogram(
+            f"{ns}_block_interval_seconds",
+            "Time between this and the last block",
+            buckets=(0.1, 0.25, 0.5, 1, 2, 5, 10, 30),
+        )
+        self.validators = reg.gauge(f"{ns}_validators", "Number of validators")
+        self.validators_power = reg.gauge(f"{ns}_validators_power", "Total voting power")
+        self.num_txs = reg.gauge(f"{ns}_num_txs", "Transactions in the latest block")
+        self.block_size = reg.gauge(f"{ns}_block_size_bytes", "Size of the latest block")
+        self.total_txs = reg.counter(f"{ns}_total_txs", "Total committed transactions")
+        self.commit_sigs = reg.gauge(
+            f"{ns}_commit_signatures", "Signatures in the latest commit"
+        )
+        self.proposal_receive_count = reg.counter(
+            f"{ns}_proposal_receive_count", "Proposals received", labels=("status",)
+        )
+        self.proposal_create_count = reg.counter(
+            f"{ns}_proposal_create_count", "Proposals created by this node"
+        )
+        # Per-commit validator participation (ref: metrics.go
+        # MissingValidators/ByzantineValidators and their power gauges).
+        self.missing_validators = reg.gauge(
+            f"{ns}_missing_validators", "Validators absent from the last commit"
+        )
+        self.missing_validators_power = reg.gauge(
+            f"{ns}_missing_validators_power", "Voting power absent from the last commit"
+        )
+        self.byzantine_validators = reg.gauge(
+            f"{ns}_byzantine_validators", "Validators with committed evidence this block"
+        )
+        self.byzantine_validators_power = reg.gauge(
+            f"{ns}_byzantine_validators_power", "Voting power with committed evidence"
+        )
+        self.late_votes = reg.counter(
+            f"{ns}_late_votes", "Votes for earlier rounds/heights", labels=("vote_type",)
+        )
+        self.duplicate_vote = reg.counter(f"{ns}_duplicate_vote", "Exact-duplicate votes")
+        self.duplicate_block_part = reg.counter(
+            f"{ns}_duplicate_block_part", "Block parts already held"
+        )
+        self.vote_extension_receive_count = reg.counter(
+            f"{ns}_vote_extension_receive_count",
+            "Precommit vote extensions received",
+            labels=("status",),
+        )
+        # Gossip propagation latency (no reference analog): senders
+        # stamp origin wall-clock on proposal/vote/block-part frames
+        # (consensus/reactor.py) and the receive side observes
+        # now - origin here. Meaningful on shared-clock local testnets
+        # (e2e/bench); splits a slow consensus step into network
+        # propagation vs local compute (docs/observability.md#flight).
+        self.msg_propagation = reg.histogram(
+            f"{ns}_msg_propagation_seconds",
+            "Origin-to-receive latency of gossiped consensus messages (shared-clock testnets)",
+            labels=("type",),
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0),
+        )
+        # tmpath journey plane (docs/observability.md#tmpath): stamped
+        # data-plane frames by direction, and journey span emissions by
+        # stage — the counters that prove the journey plane is live on
+        # a node even when span tracing itself is off.
+        self.journey_frames = reg.counter(
+            f"{ns}_journey_frames_total",
+            "Journey-stamped consensus frames (proposal/block_part/vote) by direction",
+            labels=("type", "dir"),
+        )
+        self.journey_spans = reg.counter(
+            f"{ns}_journey_spans_total",
+            "tmpath journey span emissions by stage",
+            labels=("stage",),
+        )
+        # First vote seen for (height, round, type) -> 2/3 majority
+        # assembled — the quorum-formation half of a step's wall time
+        # (the other half is msg_propagation + verify compute).
+        self.quorum_assembly = reg.histogram(
+            f"{ns}_quorum_assembly_seconds",
+            "First vote to 2/3 majority per (height, round, vote type)",
+            labels=("type",),
+            buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0),
+        )
+        # Chain-head freshness at scrape time (no reference analog; the
+        # tmlens liveness-stall gate reads this from persisted
+        # artifacts — docs/observability.md). Marked at every
+        # finalize_commit; the exported value is seconds-since.
+        self.last_block_age = reg.register(AgeGauge(
+            f"{ns}_last_block_age_seconds",
+            "Seconds since this node last committed a block (computed at scrape)",
+        ))
+        self._step_start = time.monotonic()
+        self._round_start = time.monotonic()
+        self._last_step: str | None = None
+
+    def mark_step(self, step: str) -> None:
+        """Observe the duration of the step we're leaving (ref:
+        metrics.go MarkStep)."""
+        now = time.monotonic()
+        if self._last_step is not None:
+            self.step_duration.observe(now - self._step_start, self._last_step)
+        self._step_start = now
+        self._last_step = step
+
+    def mark_round(self) -> None:
+        now = time.monotonic()
+        self.round_duration.observe(now - self._round_start)
+        self._round_start = now
+
+
+class MempoolMetrics:
+    """ref: internal/mempool/metrics.go."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_mempool"
+        self.size = reg.gauge(f"{ns}_size", "Number of uncommitted transactions")
+        self.tx_size_bytes = reg.histogram(
+            f"{ns}_tx_size_bytes", "Transaction sizes", buckets=(32, 256, 1024, 65536, 1048576)
+        )
+        self.failed_txs = reg.counter(f"{ns}_failed_txs", "Rejected transactions")
+        self.evicted_txs = reg.counter(f"{ns}_evicted_txs", "Evicted transactions")
+        self.recheck_times = reg.counter(f"{ns}_recheck_times", "Recheck runs")
+        self.recheck_duration = reg.histogram(
+            f"{ns}_recheck_duration_seconds",
+            "Wall time of one post-commit recheck sweep",
+            buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        # Coalesced admission pipeline (docs/mempool.md): batch shape,
+        # per-batch latency, and how deep the pipelined ABCI CheckTx
+        # window / async-RPC admission queue run under flood.
+        self.admit_batch_size = reg.histogram(
+            f"{ns}_admit_batch_size",
+            "Txs per check_tx_batch admission",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096),
+        )
+        self.admit_seconds = reg.histogram(
+            f"{ns}_admit_seconds",
+            "Wall time of one batched admission (hash + pre-verify + pipelined CheckTx + settle)",
+            buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        self.admit_pipeline_depth = reg.gauge(
+            f"{ns}_admit_pipeline_depth",
+            "CheckTx requests currently in flight on the ABCI client",
+        )
+        self.admit_queue_depth = reg.gauge(
+            f"{ns}_admit_queue_depth",
+            "Txs waiting in the bounded async-RPC admission queue",
+        )
 
 
 # Process-global registry: the engine, the device plane and the hash plane

@@ -204,6 +204,12 @@ class Message:
         parts = ", ".join(f"{f.name}={getattr(self, f.name)!r}" for f in type(self).fields)
         return f"{type(self).__name__}({parts})"
 
+    @classmethod
+    def decode_delimited(cls, buf: bytes, offset: int = 0):
+        """The inverse of encode_delimited: (message, offset past it)."""
+        body, pos = wire.unmarshal_delimited(buf, offset)
+        return cls.decode(body), pos
+
     def copy(self):
         return type(self).decode(self.encode())
 

@@ -210,6 +210,18 @@ class ExtendedCommit(Message):
     ]
 
 
+class Proposal(Message):
+    fields = [
+        Field(1, "enum", "type"),
+        Field(2, "int64", "height"),
+        Field(3, "int32", "round"),
+        Field(4, "int32", "pol_round"),
+        Field(5, "message", "block_id", always_emit=True, msg_cls=BlockID),
+        Field(6, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
+        Field(7, "bytes", "signature"),
+    ]
+
+
 class Validator(Message):
     fields = [
         Field(1, "bytes", "address"),
@@ -279,6 +291,18 @@ class CanonicalVote(Message):
         Field(4, "message", "block_id", msg_cls=CanonicalBlockID),  # nullable
         Field(5, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
         Field(6, "string", "chain_id"),
+    ]
+
+
+class CanonicalProposal(Message):
+    fields = [
+        Field(1, "enum", "type"),
+        Field(2, "sfixed64", "height"),
+        Field(3, "sfixed64", "round"),
+        Field(4, "int64", "pol_round"),
+        Field(5, "message", "block_id", msg_cls=CanonicalBlockID),  # nullable
+        Field(6, "message", "timestamp", always_emit=True, msg_cls=Timestamp),
+        Field(7, "string", "chain_id"),
     ]
 
 

@@ -108,3 +108,7 @@ def decode_bytes(buf: bytes, offset: int = 0) -> tuple[bytes, int]:
 def marshal_delimited(payload: bytes) -> bytes:
     """Varint length-prefix a message (ref: protoio.MarshalDelimited)."""
     return encode_varint(len(payload)) + payload
+
+
+def unmarshal_delimited(buf: bytes, offset: int = 0) -> tuple[bytes, int]:
+    return decode_bytes(buf, offset)

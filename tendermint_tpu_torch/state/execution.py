@@ -3,8 +3,8 @@ internal/state/execution.go:27).
 
 CreateProposalBlock (then PrepareProposal), ProcessProposal, ValidateBlock
 (whose LastCommit check runs the batch verifiers, on the card unless the
-executor was given device="cpu"), and ApplyBlock (FinalizeBlock, then
-State.update, then Commit). The vote-extension calls come with consensus.
+executor was given device="cpu"), ApplyBlock (FinalizeBlock, then
+State.update, then Commit), and the vote-extension calls consensus makes.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from ..proto import wire
 from ..types.block import Block, BlockID, Commit
 from ..types.evidence import evidence_to_abci
 from ..types.validator_set import Validator
+from ..types.vote import Vote
 from .state import State
 from .store import StateStore
 from .validation import validate_block
@@ -289,6 +290,25 @@ class BlockExecutor:
             return res.retain_height
         finally:
             self.mempool.unlock()
+
+    # -------------------------------------------------- vote extensions
+
+    def extend_vote(self, vote: Vote) -> bytes:
+        """ref: ExtendVote (execution.go:307)."""
+        resp = self.app.extend_vote(abci.RequestExtendVote(hash=vote.block_id.hash, height=vote.height))
+        return resp.vote_extension
+
+    def verify_vote_extension(self, vote: Vote) -> bool:
+        """ref: VerifyVoteExtension (execution.go:318)."""
+        resp = self.app.verify_vote_extension(
+            abci.RequestVerifyVoteExtension(
+                hash=vote.block_id.hash,
+                validator_address=vote.validator_address,
+                height=vote.height,
+                vote_extension=vote.extension,
+            )
+        )
+        return resp.is_accepted
 
     # ----------------------------------------------------------- helpers
 

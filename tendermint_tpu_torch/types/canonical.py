@@ -1,4 +1,4 @@
-"""Canonical vote and vote-extension sign bytes (ref: types/canonical.go, types/vote.go:149).
+"""Canonical vote, vote-extension and proposal sign bytes (ref: types/canonical.go, types/vote.go:149).
 
 The byte layout is the contract every commit signature is checked over;
 it is byte-identical to the reference node's and to the JAX package's.
@@ -36,6 +36,19 @@ def canonicalize_vote(chain_id: str, vote: pb.Vote) -> pb.CanonicalVote:
     )
 
 
+def canonicalize_proposal(chain_id: str, proposal: pb.Proposal) -> pb.CanonicalProposal:
+    """ref: types/canonical.go:41 CanonicalizeProposal."""
+    return pb.CanonicalProposal(
+        type=pb.SIGNED_MSG_TYPE_PROPOSAL,
+        height=proposal.height,
+        round=proposal.round,
+        pol_round=proposal.pol_round,
+        block_id=canonicalize_block_id(proposal.block_id),
+        timestamp=proposal.timestamp.copy() if proposal.timestamp else pb.Timestamp(),
+        chain_id=chain_id,
+    )
+
+
 def canonicalize_vote_extension(chain_id: str, vote: pb.Vote) -> pb.CanonicalVoteExtension:
     return pb.CanonicalVoteExtension(
         extension=vote.extension,
@@ -54,6 +67,11 @@ def vote_sign_bytes(chain_id: str, vote: pb.Vote) -> bytes:
 def vote_extension_sign_bytes(chain_id: str, vote: pb.Vote) -> bytes:
     """ref: types/vote.go:167 VoteExtensionSignBytes."""
     return canonicalize_vote_extension(chain_id, vote).encode_delimited()
+
+
+def proposal_sign_bytes(chain_id: str, proposal: pb.Proposal) -> bytes:
+    """ref: types/proposal.go:92 ProposalSignBytes."""
+    return canonicalize_proposal(chain_id, proposal).encode_delimited()
 
 
 def vote_sign_bytes_template(chain_id: str, type_: int, height: int, round_: int, block_id: pb.BlockID | None):

@@ -39,11 +39,17 @@ BATCH_VERIFY_THRESHOLD = 2
 
 
 class CommitVerificationError(ValueError):
-    """A commit that does not verify: a nil commit, a wrong set size, height
-    or block ID, a double vote or a wrong signature, with the reference's
-    message. A fault of the verifier itself (a kernel wrapper's guard, a
-    build, a launch or a missing device) keeps its own type, so a caller
-    that refuses a block on this error does not refuse it on those."""
+    """A commit that does not verify: a nil commit or validator set, a zero
+    trust level, a wrong set size, height or block ID, a double vote or a
+    wrong signature, with the reference's message. A fault of the verifier
+    itself (a kernel wrapper's guard, a build, a launch or a missing device)
+    keeps its own type, so a caller that refuses a block on this error does
+    not refuse it on those."""
+
+
+# Every verdict the commit checks give on their input: a caller that refuses
+# a block, a header or evidence refuses it on these and on nothing else.
+VERDICT_ERRORS = (CommitVerificationError, NotEnoughVotingPowerError)
 
 
 @dataclass(frozen=True)
@@ -132,9 +138,9 @@ def verify_commit_light_trusting(
     validators up by address (ref: VerifyCommitLightTrusting,
     types/validation.go:96)."""
     if vals is None:
-        raise ValueError("nil validator set")
+        raise CommitVerificationError("nil validator set")
     if trust_level.denominator == 0:
-        raise ValueError("trustLevel has zero Denominator")
+        raise CommitVerificationError("trustLevel has zero Denominator")
     if commit is None:
         raise CommitVerificationError("nil commit")
     product = vals.total_voting_power() * trust_level.numerator
@@ -169,7 +175,11 @@ def _verify_commit_batch(
     completion callable is returned (raising with the same errors the
     synchronous path would); host-side failures still raise immediately."""
     proposer = vals.get_proposer()
-    bv = crypto_batch.create_batch_verifier(proposer.pub_key, device=device)
+    try:
+        bv = crypto_batch.create_batch_verifier(proposer.pub_key, device=device)
+    except Exception as e:
+        crypto_batch.mark_fault(e)
+        raise
     if _trace.enabled():
         # the journey tag rides the engine submit, so the coalesced launch's
         # dispatch and collect spans list this commit's height
@@ -218,12 +228,20 @@ def _verify_commit_batch(
 
     with _trace.span("verify.commit_dispatch", "verify",
                      height=commit.height, nsigs=len(batch_sig_idxs)):
-        pending = bv.verify_async()
+        try:
+            pending = bv.verify_async()
+        except Exception as e:
+            crypto_batch.mark_fault(e)
+            raise
 
     def complete() -> None:
         with _trace.span("verify.commit_collect", "verify",
                          height=commit.height, nsigs=len(batch_sig_idxs)):
-            ok, valid_sigs = pending()
+            try:
+                ok, valid_sigs = pending()
+            except Exception as e:
+                crypto_batch.mark_fault(e)
+                raise
         if ok:
             return
         for i, sig_ok in enumerate(valid_sigs):
@@ -277,7 +295,7 @@ def _verify_commit_single(
 def _verify_basic_vals_and_commit(vals: ValidatorSet, commit: Commit, height: int, block_id: BlockID) -> None:
     """ref: verifyBasicValsAndCommit (types/validation.go:328)."""
     if vals is None:
-        raise ValueError("nil validator set")
+        raise CommitVerificationError("nil validator set")
     if commit is None:
         raise CommitVerificationError("nil commit")
     if vals.size() != len(commit.signatures):

@@ -2,12 +2,14 @@
 importing every module of tendermint_tpu_torch (the sr25519 plane's, the
 engine's, the telemetry's, the secp256k1 key type's, the merkle plane's, the
 light client's with its stores and providers, evidence's, the state
-layer's with its stores, evidence pool and ABCI app, and blocksync's with
-the p2p layer beneath it included) loads no JAX
+layer's with its stores, evidence pool and ABCI app, blocksync's with
+the p2p layer beneath it, and consensus's with its vote sets, file signer,
+mempool, WAL, ticker and handshake included) loads no JAX
 and nothing of tendermint_tpu, the native host prep and merkle plane load
 the port's own library (never the reference's prep.so), a default-device
-verifier and a default-device BlockSyncReactor's light check raise without
-CUDA instead of running on the host, and
+verifier, a default-device BlockSyncReactor's light check and a
+default-device EngineTxPreVerifier raise without CUDA instead of running
+on the host, and
 TM_TPU_ENGINE selects the engine or direct dispatch as the reference's
 does."""
 
@@ -47,11 +49,16 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "state.state", "state.store", "state.validation", "state.execution", "store.blockstore",
              "types.params", "types.genesis", "types.part_set", "utils.bits", "evidence.pool", "p2p",
              "p2p.types", "p2p.channel", "p2p.transport", "p2p.transport_memory", "p2p.conn_tracker",
-             "p2p.peermanager", "p2p.router", "blocksync", "blocksync.pool", "blocksync.reactor"):
+             "p2p.peermanager", "p2p.router", "blocksync", "blocksync.pool", "blocksync.reactor",
+             "utils.log", "types.proposal", "types.vote_set", "privval", "privval.file_pv", "mempool",
+             "mempool.mempool", "mempool.preverify", "consensus", "consensus.messages", "consensus.round_state",
+             "consensus.wal", "consensus.ticker", "consensus.state", "consensus.handshake"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
 from tendermint_tpu_torch import abci, blocksync, devobs, evidence, light, metrics, native, p2p, state, store, trace
+from tendermint_tpu_torch import consensus, mempool, privval
+from tendermint_tpu_torch.mempool import preverify
 from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
@@ -75,7 +82,11 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (p2p, ("Router", "RouterOptions", "PeerManager", "MemoryNetwork", "Endpoint", "NodeInfo",
                         "ConnTracker", "Channel")),
                  (blocksync, ("BlockSyncReactor", "BlockPool", "blocksync_channel_descriptor")),
-                 (metrics, ("P2PMetrics", "BlockSyncMetrics"))):
+                 (metrics, ("P2PMetrics", "BlockSyncMetrics")),
+                 (consensus, ("ConsensusState", "Handshaker", "WAL", "TimeoutTicker", "HeightVoteSet")),
+                 (mempool, ("TxMempool", "LRUTxCache")), (preverify, ("EngineTxPreVerifier", "make_sig_tx")),
+                 (privval, ("FilePV",)), (metrics, ("ConsensusMetrics", "MempoolMetrics")),
+                 (state.BlockExecutor, ("extend_vote", "verify_vote_extension"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
@@ -145,6 +156,34 @@ def test_default_device_blocksync_light_check_raises(monkeypatch):
             assert ch.errors == [] and reactor.state.last_block_height == 0
         else:
             assert reactor._try_sync_one() and reactor.state.last_block_height == 1
+
+
+@pytest.mark.parametrize("engine", ["auto", "off"])
+def test_default_device_preverifier_raises(monkeypatch, engine):
+    """An EngineTxPreVerifier built without `device` sends a batch at or
+    above the cutover to the card, through the engine or, with the engine
+    off, the direct dispatch: without CUDA it raises from the mempool's
+    admission, which admits nothing; with device="cpu" the same batch is
+    verified by the plain versions."""
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.mempool import TxMempool
+    from tendermint_tpu_torch.mempool.preverify import EngineTxPreVerifier, make_sig_tx
+
+    class App:
+        def check_tx(self, req):
+            return abci.ResponseCheckTx(code=0, gas_wanted=1)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TM_TPU_CRYPTO", "auto")
+    monkeypatch.setenv("TM_TPU_ENGINE", engine)
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
+    txs = [make_sig_tx(bytes([i + 1]) * 32, b"k%d=v" % i) for i in range(3)]
+    pool = TxMempool(App(), pre_verify=EngineTxPreVerifier())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pool.check_tx_batch(txs)
+    assert pool.size() == 0
+    pool = TxMempool(App(), pre_verify=EngineTxPreVerifier(device="cpu"))
+    assert [o.code for o in pool.check_tx_batch(txs)] == [0, 0, 0] and pool.size() == 3
 
 
 def _state_members():

@@ -1,0 +1,96 @@
+"""The reference's own test cases run on the port: tests/<name>.py loaded
+again with every import of the JAX package pointed at the port's module of
+the same name (tests/helpers.py and tests/test_consensus.py, which other
+test files import, likewise), so each assertion the reference makes of
+its mempool, private validator, consensus state machine, WAL, ticker and
+handshake is made of the port's. test_torch_mempool.py,
+test_torch_privval.py and test_torch_consensus.py collect the cases
+through `reference_cases` and run them through `run_reference_case`; the
+reference's files themselves are not changed. The port's entry points take
+their default device: the cases verify below the device cutover, on the
+host."""
+
+from __future__ import annotations
+
+import inspect
+import os
+import re
+import sys
+import types
+
+import pytest
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the test modules other reference test files import by name
+SHARED = ("helpers", "test_consensus")
+_COPIES: dict[str, types.ModuleType] = {}
+
+
+def port_source(name: str) -> str:
+    """tests/<name>.py with `tendermint_tpu` read as `tendermint_tpu_torch`
+    and the SHARED modules' imports pointed at their port copies."""
+    with open(os.path.join(HERE, name + ".py")) as f:
+        src = f.read()
+    src = re.sub(r"\btendermint_tpu\b", "tendermint_tpu_torch", src)
+    shared = "|".join(SHARED)
+    return re.sub(rf"^from ({shared}) import", r"from \1__port import", src, flags=re.M)
+
+
+def port_copy(name: str) -> types.ModuleType:
+    """The port copy of tests/<name>.py, loaded once a process."""
+    if name not in _COPIES:
+        src = port_source(name)
+        for dep in SHARED:
+            if re.search(rf"^from {dep}__port import", src, flags=re.M):
+                port_copy(dep)
+        mod = types.ModuleType(name + "__port")
+        mod.__file__ = os.path.join(HERE, name + ".py")
+        sys.modules[mod.__name__] = mod
+        _COPIES[name] = mod
+        exec(compile(src, mod.__file__, "exec"), mod.__dict__)
+    return _COPIES[name]
+
+
+def reference_cases(name: str, skip=()):
+    """pytest params (module, test, kwargs) for every test function of
+    tests/<name>.py outside `skip`, each case of a parametrized one apart;
+    none is marked slow in the reference (a slow one would be left out)."""
+    out = []
+    for test, fn in vars(port_copy(name)).items():
+        if not test.startswith("test_") or not inspect.isfunction(fn) or test in skip:
+            continue
+        marks = getattr(fn, "pytestmark", [])
+        if any(mk.name == "slow" for mk in marks):
+            continue
+        grid = [mk for mk in marks if mk.name == "parametrize"]
+        if not grid:
+            out.append(pytest.param(name, test, {}, id=test))
+            continue
+        (mark,) = grid
+        argnames = [a.strip() for a in mark.args[0].split(",")] if isinstance(mark.args[0], str) else mark.args[0]
+        for i, values in enumerate(mark.args[1]):
+            values = values.values if hasattr(values, "values") else values
+            kw = dict(zip(argnames, values if len(argnames) > 1 else (values,)))
+            out.append(pytest.param(name, test, kw, id=f"{test}[{i}]"))
+    return out
+
+
+def run_reference_case(name: str, test: str, kw: dict, request) -> None:
+    """Run one reference case on the port, its other arguments (tmp_path,
+    monkeypatch) from pytest's fixtures."""
+    fn = getattr(port_copy(name), test)
+    args = {p: request.getfixturevalue(p) for p in inspect.signature(fn).parameters if p not in kw}
+    fn(**kw, **args)
+
+
+@pytest.mark.parametrize("name", ["helpers", "test_consensus", "test_consensus_locking", "test_handshake",
+                                  "test_mempool", "test_privval"])
+def test_port_copies_reach_only_the_port(name):
+    """A port copy names no module of the JAX package, and every package
+    module in its namespace is the port's."""
+    assert not re.search(r"\btendermint_tpu\b(?!_torch)", port_source(name))
+    mod = port_copy(name)
+    for value in vars(mod).values():
+        owner = getattr(value, "__module__", None) if not isinstance(value, types.ModuleType) else value.__name__
+        if isinstance(owner, str) and owner.startswith("tendermint_tpu"):
+            assert owner.startswith("tendermint_tpu_torch"), (name, owner)
