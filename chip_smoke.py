@@ -236,9 +236,36 @@ Both signature planes run the same phases, each fatal on failure:
      host vote checks, validate_block, process_proposal, apply_block,
      save_block, the WAL's fsyncs, create_proposal_block, make_part_set),
      the node's own time a height (its consensus thread's busy time) and
-     the network stand-in's, beside the card's name and power limit.
+     the network stand-in's, beside the card's name and power limit;
+ 15. a network over TCP (p2p/transport_tcp.py, secret_connection.py,
+     pex.py, the consensus, mempool and evidence reactors), on each plane:
+     phase 14's 150 validators at generous timeouts; four validator nodes,
+     each a process of its own (NetNode: phase 14's node layers on the card,
+     a router on a TcpTransport at 127.0.0.1 with a secret connection on
+     every link, the four reactors), holding the keys that propose heights
+     2-5; NetHarness, in this process, plays the other 146 over TCP (its
+     proposals, then every prevote and precommit, on phase 14's signing
+     pool). (a) every node and the harness start from node 0's address and
+     PEX completes the mesh: each link's handshake ms, the AEAD route; (b)
+     8 heights (ed25519) or 4 (sr25519), every node committing the same
+     blocks and the replica's app hash and state, each node's launches held
+     height by height to the model of the batches it dispatched (rows
+     printed) and to the prediction (none at 1; a fill and a hit at 2; a
+     hit a height); (c) ed25519: at height 2 node 0 admits 1,024 envelopes
+     (one RLC) and a batch with #517 tampered (RLC, fill, hit), the others
+     admit both from the mempool gossip in 2-8 RLCs, each envelope once on
+     the card, #517 never gossiped; (d) a validator's two prevotes sent to
+     two nodes become DuplicateVoteEvidence, gossiped and committed (host
+     checks); a lunatic attack at a committed height, added at node 0, is
+     gossiped and checked on the card by every node (one hit); (e) with
+     node 3's device entry points failing, a gossiped admission's, a
+     gossiped attack's and its consensus's faults reach its on_fatal, no
+     peer is reported and it signs no prevote; (f) heights/s of the
+     network, each node's busy and CPU ms, AEAD seal and open ms and bytes,
+     votes and duplicates received and the card's ms a height, beside the
+     card's name and power limit.
 
-Phases 3, 5, 6, 7, 10, 11, 12, 13 and 14 are each a main path: every call in them runs
+Phases 3, 5, 6, 7, 10, 11, 12, 13, 14 and 15 are each a main path: every call in them runs
 with the launch counters set to 0 just before it and read just after, and
 each phase fails if one of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
@@ -4337,10 +4364,10 @@ def blocksync_modules():
 
 class StubChannel:
     """A reactor's channel that records what it sends and the peer errors it
-    reports, and delivers nothing."""
+    reports, and delivers the envelopes of `inbox`, in order."""
 
-    def __init__(self):
-        self.sent, self.errors = [], []
+    def __init__(self, inbox=()):
+        self.sent, self.errors, self.inbox = [], [], list(inbox)
 
     def send_to(self, peer_id, message, timeout=None):
         self.sent.append((peer_id, message))
@@ -4354,6 +4381,8 @@ class StubChannel:
         self.errors.append(err)
 
     def receive_one(self, timeout=None):
+        if self.inbox:
+            return self.inbox.pop(0)
         time.sleep(timeout or 0)
 
 
@@ -4365,6 +4394,9 @@ class StubPeers:
 
     def unsubscribe(self, callback):
         pass
+
+    def peers(self):
+        return []
 
 
 def sync_node(m, gen, dbs, device=None):
@@ -5249,17 +5281,18 @@ def cs_restart(m, net, gen, priv_key, clock, device=None, step=None):
     return state, handshaker.n_blocks, clean_before, clean_after, cs2
 
 
-def cs_expected(P, dev, want):
+def cs_expected(P, dev, want, present=None):
     """The launches a node call must make from the device checks it runs,
     want [("rows", keys, valid)]: below the device cutover a check runs on
     the host; at or above the MSM cutover the RLC, then on a bad batch the
     bitmap plane; the bitmap plane up to the cache's capacity is the cached
-    bitmap: a fill when a key is missing from the plane's cache (keys an
+    bitmap: a fill when a key is missing from the plane's cache (`present`,
+    its keys as the call found them, by default as they are now; keys an
     earlier check of the call filled count as present), then a hit."""
     from tendermint_tpu_torch.crypto import ed25519 as ted
 
     cache = P.cache(dev)
-    present, out = set(cache._lru), {}
+    present, out = set(cache._lru if present is None else present), {}
 
     def add(fn):
         out[fn.__name__] = out.get(fn.__name__, 0) + 1
@@ -5350,6 +5383,17 @@ def thread_times(targets, thread="consensus"):
                 setattr(obj, name, raw)
 
 
+def cs_parts(m, node):
+    """thread_times' targets for a node's consensus thread: CS_PARTS, and its
+    whole busy time ("node": every input it dispatched)."""
+    return [(m.vote_set.VoteSet, "add_vote", "add_vote"), (node.executor, "validate_block", "validate_block"),
+            (node.executor, "process_proposal", "process_proposal"), (node.executor, "apply_block", "apply_block"),
+            (node.blocks, "save_block", "save_block"), (node.cs.wal, "write", "wal_write"),
+            (node.cs.wal, "write_sync", "wal_fsync"), (node.cs.wal, "flush_and_sync", "wal_fsync"),
+            (node.executor, "create_proposal_block", "create_proposal_block"),
+            (m.part_set.PartSet, "from_data", "make_part_set"), (node.cs, "_dispatch", "node")]
+
+
 def live_run(m, gen, members, priv_key, sign, chain_id, where, heights=CS_HEIGHTS, device=None,
              timeout=CS_LIVE_TIMEOUT_S):
     """(e): a node over fresh stores started with start() and the real
@@ -5407,15 +5451,8 @@ def live_run(m, gen, members, priv_key, sign, chain_id, where, heights=CS_HEIGHT
             errors.append(e)
             done.set()
 
-    targets = [(m.vote_set.VoteSet, "add_vote", "add_vote"), (node.executor, "validate_block", "validate_block"),
-               (node.executor, "process_proposal", "process_proposal"), (node.executor, "apply_block", "apply_block"),
-               (node.blocks, "save_block", "save_block"), (node.cs.wal, "write", "wal_write"),
-               (node.cs.wal, "write_sync", "wal_fsync"),
-               (node.cs.wal, "flush_and_sync", "wal_fsync"),
-               (node.executor, "create_proposal_block", "create_proposal_block"),
-               (m.part_set.PartSet, "from_data", "make_part_set"), (node.cs, "_dispatch", "node")]
     driver = threading.Thread(target=answer, name="net", daemon=True)
-    with thread_times(targets) as spent:
+    with thread_times(cs_parts(m, node)) as spent:
         driver.start()
         t0 = time.perf_counter()
         node.cs.start()
@@ -5446,14 +5483,15 @@ def consensus_setup(pool, rng, chain_id):
                                              for seed, pub in zip(seeds, make_keys(pool, kind, seeds))])
     payload = lambda i, r: b"acct-%d=n%d" % (i, r)
     seeds = [rng.bytes(32) for _ in range(CS_ENVELOPES)]
-    jobs = [("ed25519", s, [payload(i, 1), payload(i, 2)] + ([payload(i, 3)] if i < CS_SMALL_BATCH else []))
-            for i, s in enumerate(seeds)]
+    rounds = lambda i: [1, 2] + ([3] if i < CS_SMALL_BATCH else []) + ([4] if i < NET_FAULT_ENVELOPES else [])
+    jobs = [("ed25519", s, [payload(i, r) for r in rounds(i)]) for i, s in enumerate(seeds)]
     signed = pool.map(_sign_worker, jobs, chunksize=64)
     from tendermint_tpu_torch.mempool.preverify import SIGTX_MAGIC
 
-    env = lambda r: [(pub, SIGTX_MAGIC + pub + sigs[r - 1] + payload(i, r)) for i, (pub, sigs) in enumerate(signed)
-                     if r < 3 or i < CS_SMALL_BATCH]
-    out["ed25519"].batches = {"valid": env(1), "tampered": env(2), "small": env(3)}
+    env = lambda r: [(pub, SIGTX_MAGIC + pub + sigs[rounds(i).index(r)] + payload(i, r))
+                     for i, (pub, sigs) in enumerate(signed) if r in rounds(i)]
+    # "fault": phase 15 (e)'s fresh batch
+    out["ed25519"].batches = {"valid": env(1), "tampered": env(2), "small": env(3), "fault": env(4)}
     return out
 
 
@@ -5579,6 +5617,998 @@ def _consensus_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
     runs.append({"plane": kind, "run": "consensus (e)", "commit": len(members), "s": decided[-1][1] - t0,
                  "heights_per_s": hps, "node_s": spent["node"], "node_cpu_s": spent["node_cpu"],
                  "network_s": spent["network"]})
+
+
+# -- phase 15: a 150-validator network of node processes over TCP ------------
+
+NET_NODES = 4
+NET_HEIGHTS = {"ed25519": 8, "sr25519": 4}
+# the height whose round-0 proposer each node's validator key is: node 0, the
+# address every other node starts from, proposes the height after (c)'s flood
+NET_PROPOSES = (3, 2, 4, 5)
+NET_FLOOD_AT = 2  # (c), ed25519: this height's precommits wait for the flood's admissions
+NET_EQUIVOCATE_AT = {"ed25519": 4, "sr25519": 2}  # (d): its precommits wait for the conflict's report
+NET_LUNATIC_AT = {"ed25519": 6, "sr25519": 4}  # (d): its precommits wait for every node's verdict
+NET_FAULT_NODE = 3  # (e)
+NET_FAULT_ENVELOPES = 256  # (e): a fresh batch, one gossip frame
+NET_CONFLICT_VALIDATOR = 7  # (d): the index among the harness's validators of the one that prevotes twice
+# generous round timeouts: a height moves on its votes (bypass_commit_timeout once
+# all 150 precommits are in), never on a timeout, so every height closes in round 0
+NET_TIMEOUTS = {"propose": 5_000_000_000, "propose_delta": 1_000_000_000, "vote": 1_000_000_000,
+                "vote_delta": 500_000_000, "commit": 5_000_000_000, "bypass_commit_timeout": True}
+NET_STEP_S = 60  # the deadline of each wait of the harness
+NET_MESH_S = 30
+NET_START_S = 120  # a node process's start-up (imports, its stores, its router)
+NET_NODE_SEEDS = tuple(bytes([0x60 + i]) * 32 for i in range(NET_NODES))  # the nodes' p2p keys
+NET_HARNESS_SEED = b"\x5a" * 32
+# a child's prelude (module, function), run first in each node process; None on the card
+NET_CHILD_PRELUDE = None
+
+
+def network_modules():
+    """consensus_modules' and the node's p2p layer: the TCP transport, PEX and
+    the consensus, mempool and evidence reactors."""
+    from tendermint_tpu_torch import p2p
+    from tendermint_tpu_torch.consensus import reactor as cs_reactor
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.evidence import reactor as ev_reactor
+    from tendermint_tpu_torch.mempool import reactor as mp_reactor
+    from tendermint_tpu_torch.p2p import secret_connection, transport_tcp
+    from tendermint_tpu_torch.proto import messages as pb
+
+    return SimpleNamespace(**vars(consensus_modules()), p2p=p2p, cs_reactor=cs_reactor, ev_reactor=ev_reactor,
+                           mp_reactor=mp_reactor, tcp=transport_tcp, secret_connection=secret_connection, pb=pb,
+                           node_key=ed25519.Ed25519PrivKey)
+
+
+def net_genesis(m, members, chain_id):
+    """cs_genesis with NET_TIMEOUTS."""
+    import dataclasses
+
+    gen = cs_genesis(m, members, chain_id)
+    gen.consensus_params = dataclasses.replace(gen.consensus_params,
+                                               timeout=m.params.TimeoutParams(**NET_TIMEOUTS))
+    return gen
+
+
+def net_channels(m, origin="", metrics=None):
+    """A node's channel descriptors: consensus's four, the mempool's, evidence's and PEX's."""
+    return (m.cs_reactor.consensus_channel_descriptors(origin, metrics)
+            + [m.mp_reactor.mempool_channel_descriptor(), m.ev_reactor.evidence_channel_descriptor(),
+               m.p2p.pex_channel_descriptor()])
+
+
+def net_router(m, key, chain_id, descs):
+    """A router on a TcpTransport bound to 127.0.0.1, its listen address in its
+    NodeInfo (what PEX advertises); returns (router, transport, peer manager, channels by ID)."""
+    nid = m.p2p.node_id_from_pubkey(key.pub_key())
+    transport = m.tcp.TcpTransport(descs, bind_host="127.0.0.1")
+    ep = transport.endpoint()
+    pm = m.p2p.PeerManager(nid, m.p2p.PeerManagerOptions(max_connected=16))
+    router = m.p2p.Router(m.p2p.NodeInfo(node_id=nid, network=chain_id, listen_addr=f"{ep.host}:{ep.port}"),
+                          key, pm, [transport])
+    chans = {d.id: router.open_channel(d) for d in descs}
+    return router, transport, pm, chans
+
+
+@contextlib.contextmanager
+def dispatch_records(dev, height):
+    """Each batch a node hands its verifier (crypto/ed25519.dispatch_batch,
+    both planes' and the pre-verifier's one entry), recorded with the node's
+    height, its rows, its distinct keys, its verdict and the launches
+    cs_expected gives it from the plane's cache as it stood at the call."""
+    import threading
+
+    from tendermint_tpu_torch.crypto import ed25519 as ted
+
+    records, real = [], ted.dispatch_batch
+    planes = {}
+
+    def recorded(kind, pks, msgs, sigs, device=None, journey=None):
+        P = planes.setdefault(kind, plane(kind))
+        keys = [bytes(k) for k in pks]
+        present = set(P.cache(dev)._lru)
+        rec = SimpleNamespace(height=height(), plane=kind, rows=len(keys), distinct=len(set(keys)), valid=None,
+                              present=present, keys=keys, P=P, thread=threading.current_thread().name)
+        records.append(rec)
+        complete = real(kind, pks, msgs, sigs, device, journey)
+
+        def done():
+            ok, bools = complete()
+            rec.valid = ok
+            return ok, bools
+        return done
+
+    ted.dispatch_batch = recorded
+    try:
+        yield records
+    finally:
+        ted.dispatch_batch = real
+
+
+def record_launches(rec, dev):
+    """The launches cs_expected gives a dispatch record; none where the
+    dispatch gave no verdict (it raised)."""
+    if rec.valid is None:
+        return {}
+    return cs_expected(rec.P, dev, [("rows", rec.keys, rec.valid)], present=rec.present)
+
+
+@contextlib.contextmanager
+def aead_timer(sc):
+    """Every seal and open of the secret connections made after entry (their
+    AEADs come from secret_connection._aead), timed with their sealed bytes."""
+    spent = {"seal_s": 0.0, "open_s": 0.0, "seal_bytes": 0, "open_bytes": 0, "seals": 0, "opens": 0}
+    real = sc._aead
+
+    class Timed:
+        def __init__(self, key):
+            self.inner = real(key)
+
+        def encrypt(self, nonce, data, aad):
+            t0 = time.perf_counter()
+            out = self.inner.encrypt(nonce, data, aad)
+            spent["seal_s"] += time.perf_counter() - t0
+            spent["seal_bytes"] += len(out)
+            spent["seals"] += 1
+            return out
+
+        def decrypt(self, nonce, data, aad):
+            t0 = time.perf_counter()
+            out = self.inner.decrypt(nonce, data, aad)
+            spent["open_s"] += time.perf_counter() - t0
+            spent["open_bytes"] += len(data)
+            spent["opens"] += 1
+            return out
+
+    sc._aead = Timed
+    try:
+        yield spent
+    finally:
+        sc._aead = real
+
+
+@contextlib.contextmanager
+def card_timer():
+    """CUDA events around each kernel wrapper's call, on the calling thread's
+    current stream; yields a list that holds each launch's (wrapper, ms) after
+    exit. No-op without a card."""
+    import torch
+
+    out = []
+    if not torch.cuda.is_available():
+        yield out
+        return
+    from tendermint_tpu_torch.ops import msm as M
+    from tendermint_tpu_torch.ops import verify as V
+    from tendermint_tpu_torch.ops import verify_sr as VS
+
+    events, saved = [], []
+    for mod in (V, VS, M):
+        for fn in kernel_wrappers():
+            name = fn.__name__
+            real = mod.__dict__.get(name)
+            if real is not fn:
+                continue
+
+            def timed(*a, _real=real, _name=name, **k):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    end.record()
+                    events.append((_name, start, end))
+
+            functools.update_wrapper(timed, real)
+            saved.append((mod, name, real))
+            setattr(mod, name, timed)
+    try:
+        yield out
+    finally:
+        for mod, name, real in saved:
+            real.launches = getattr(mod, name).launches
+            setattr(mod, name, real)
+        torch.cuda.synchronize()
+        out.extend((name, start.elapsed_time(end)) for name, start, end in events)
+
+
+class NetNode:
+    """One validator node of phase 15, in a process of its own: cs_node's
+    layers (a ConsensusState over BlockExecutor(device="cuda"), the kvstore,
+    FileDB stores, the evidence pool, a TxMempool with EngineTxPreVerifier, a
+    FilePV and a WAL), a router on TCP with a secret connection on every link,
+    and the consensus, mempool, evidence and PEX reactors. Commands from the
+    parent (cmd_*) arrive over a pipe; what the node saw is instrumented from
+    the start: each verifier dispatch, the launch counts at each decided
+    height, the consensus thread's busy and CPU time, the AEAD's seals and
+    opens, the votes received, the card's time by launch, the handshakes, the
+    peer errors reported and the votes it signed."""
+
+    def __init__(self, spec):
+        import threading
+
+        import torch
+
+        m = self.m = network_modules()
+        self.dev = torch.device("cuda", 0)
+        gen = m.genesis.GenesisDoc.from_json(spec["genesis"])
+        kind, _, secret = spec["member"]
+        where = spec["where"]
+        os.makedirs(where, exist_ok=True)
+        self.stack = contextlib.ExitStack()
+        self.node = node = cs_node(m, gen, file_dbs(m, where), m.privs[kind](secret[1]), where, WallClock(m), self.dev)
+        self.decided, self.faults, self.peer_errors, self.own_votes, self.handshakes = [], [], [], [], []
+        self.votes_in, self.conflicts = {}, []
+        self.lock = threading.Lock()
+        self.records = self.stack.enter_context(dispatch_records(self.dev, lambda: node.cs.rs.height))
+        self.aead = self.stack.enter_context(aead_timer(m.secret_connection))
+        self.card = self.stack.enter_context(card_timer())
+        self.spent = self.stack.enter_context(thread_times(cs_parts(m, node)))
+        key = m.node_key.generate(spec["node_seed"])
+        self.nid = m.p2p.node_id_from_pubkey(key.pub_key())
+        descs = net_channels(m, self.nid, node.cs.metrics)
+        self.router, self.transport, self.pm, chans = net_router(m, key, gen.chain_id, descs)
+        for ch in chans.values():
+            real = ch.send_error
+            ch.send_error = lambda err, _real=real, _ch=ch.name: (
+                self.peer_errors.append(f"{_ch}: {err.node_id[:8]}: {err.err}"), _real(err))
+        handshake = m.tcp.TcpConnection.handshake
+
+        def timed_handshake(conn, *a, **k):
+            t0 = time.perf_counter()
+            out = handshake(conn, *a, **k)
+            self.handshakes.append((out[0].node_id, time.perf_counter() - t0))
+            return out
+
+        m.tcp.TcpConnection.handshake = timed_handshake
+        P = m.p2p.types
+        self.cs_reactor = m.cs_reactor.ConsensusReactor(
+            node.cs, chans[P.CHANNEL_CONSENSUS_STATE], chans[P.CHANNEL_CONSENSUS_DATA],
+            chans[P.CHANNEL_CONSENSUS_VOTE], chans[P.CHANNEL_CONSENSUS_VOTE_SET_BITS], self.pm, node.blocks)
+        self.mp_reactor = m.mp_reactor.MempoolReactor(node.mempool, chans[P.CHANNEL_MEMPOOL], self.pm,
+                                                      on_fatal=lambda e: self.faults.append(("mempool", e)))
+        self.ev_reactor = m.ev_reactor.EvidenceReactor(node.pool, chans[P.CHANNEL_EVIDENCE], self.pm,
+                                                       on_fatal=lambda e: self.faults.append(("evidence", e)))
+        self.pex = m.p2p.PexReactor(self.pm, chans[P.CHANNEL_PEX])
+        broadcast = node.cs.broadcast  # the consensus reactor's hook
+
+        def sent(msg):
+            vote = getattr(msg, "vote", None)
+            if vote is not None:
+                self.own_votes.append((vote.height, vote.round, vote.type, vote.block_id.is_nil()))
+            broadcast(msg)
+
+        node.cs.broadcast = sent
+        node.cs.on_fatal = lambda e: self.faults.append(("consensus", e))
+        node.cs.on_decided = self.on_decided
+        add = node.cs.add_peer_message
+
+        def counted(msg, peer_id):
+            vote = getattr(msg, "vote", None)
+            if vote is not None:
+                k = (vote.height, vote.round, vote.type, vote.validator_index)
+                with self.lock:
+                    self.votes_in[k] = self.votes_in.get(k, 0) + 1
+            return add(msg, peer_id)
+
+        node.cs.add_peer_message = counted
+        report = node.pool.report_conflicting_votes
+        node.pool.report_conflicting_votes = lambda a, b: (self.conflicts.append((a.height, a.validator_index)),
+                                                           report(a, b))
+        self.router.start()
+        for r in (self.pex, self.cs_reactor, self.mp_reactor, self.ev_reactor):
+            r.start()
+
+    def on_decided(self, h, block, bid):
+        self.decided.append((h, time.monotonic(), {k: v for k, v in read_counts().items() if v}))
+        self.node.decided.append((h, time.perf_counter()))
+
+    def address(self):
+        ep = self.transport.endpoint()
+        return self.nid, f"mconn://{self.nid}@{ep.host}:{ep.port}"
+
+    # -- the parent's commands
+
+    def cmd_status(self):
+        cs = self.node.cs
+        return {"height": cs.rs.height, "round": cs.rs.round, "mempool": self.node.mempool.size(),
+                "peers": sorted(self.pm.peers()), "conflicts": list(self.conflicts),
+                "pending": [ev.hash().hex() for ev in self.node.pool.pending_evidence(1 << 20)[0]],
+                "faults": [(where, f"{type(e).__name__}: {e}") for where, e in self.faults],
+                "peer_errors": list(self.peer_errors), "decided": len(self.decided)}
+
+    def cmd_start(self):
+        self.node.cs.start()
+
+    def cmd_dial(self, addr):
+        self.pm.add(self.m.p2p.Endpoint.parse(addr))
+
+    def cmd_handshakes(self):
+        return list(self.handshakes)
+
+    def cmd_route(self):
+        return self.m.secret_connection.route()
+
+    def cmd_submit(self, txs):
+        """check_tx_batch of txs at this node: (each outcome's code, the refused ones' logs)."""
+        outcomes = self.node.mempool.check_tx_batch(txs)
+        return [o.code for o in outcomes], {i: o.log for i, o in enumerate(outcomes) if o.code}
+
+    def cmd_knows(self, tx):
+        """Whether this node's mempool or its cache holds tx."""
+        key = self.m.mempool.tx_key(tx)
+        return self.node.mempool.get_tx(key) is not None or self.node.mempool._cache.has(key)
+
+    def cmd_add_evidence(self, raw):
+        ev = self.m.evidence.evidence_from_proto(self.m.pb.Evidence.decode(raw))
+        return outcome(lambda: self.node.pool.add_evidence(ev))
+
+    def cmd_pending_evidence(self):
+        return [self.m.evidence.evidence_to_proto(ev).encode() for ev in self.node.pool.pending_evidence(1 << 20)[0]]
+
+    def cmd_block(self, h):
+        block = self.node.blocks.load_block(h)
+        return None if block is None else block.to_proto().encode()
+
+    def cmd_fault(self, message):
+        self.stack.enter_context(failing_entries(message))
+
+    def cmd_stop(self):
+        """Stop the node and return what it saw."""
+        node = self.node
+        for r in (self.pex, self.ev_reactor, self.mp_reactor, self.cs_reactor):
+            r.stop()
+        node.cs.stop()
+        self.router.stop()
+        self.stack.close()
+        heights = node.blocks.height()
+        state = node.cs.state
+        return {"nid": self.nid, "decided": self.decided,
+                "blocks": {h: node.blocks.load_block_meta(h).block_id.hash.hex() for h in range(1, heights + 1)},
+                "evidence": {h: [(type(ev).__name__, ev.hash().hex()) for ev in node.blocks.load_block(h).evidence]
+                             for h in range(1, heights + 1)},
+                "final_counts": {k: v for k, v in read_counts().items() if v},
+                "txs": {h: len(node.blocks.load_block(h).txs) for h in range(1, heights + 1)},
+                "app_hash": state.app_hash.hex(), "state": self.m.state_store.state_to_json(state),
+                "records": [{"height": r.height, "plane": r.plane, "rows": r.rows, "distinct": r.distinct,
+                             "valid": r.valid, "thread": r.thread, "launches": record_launches(r, self.dev)}
+                            for r in self.records],
+                "node_s": self.spent["node"], "node_cpu_s": self.spent["node_cpu"],
+                "parts_s": {part: self.spent[part] for part in CS_PARTS},
+                "parts_cpu_s": {part: self.spent[part + "_cpu"] for part in CS_PARTS}, "aead": dict(self.aead),
+                "card": list(self.card), "votes_in": sum(self.votes_in.values()), "vote_keys": len(self.votes_in),
+                "own_votes": self.own_votes, "handshakes": self.handshakes, "peer_errors": self.peer_errors,
+                "faults": [(where, f"{type(e).__name__}: {e}") for where, e in self.faults],
+                "route": self.m.secret_connection.route()}
+
+
+def net_node_main(conn, spec):
+    """A node process of phase 15: runs NetNode, answering the parent's
+    commands (name, args) with ("ok", result) or ("error", traceback) until
+    "stop". Exits non-zero on an error outside a command."""
+    import traceback
+
+    os.environ["TM_LOG_LEVEL"] = "error"
+    try:
+        if spec.get("prelude"):
+            import importlib
+
+            mod, fn = spec["prelude"]
+            getattr(importlib.import_module(mod), fn)()
+        node = NetNode(spec)
+        conn.send(("ok", node.address()))
+        while True:
+            cmd, args = conn.recv()
+            try:
+                conn.send(("ok", getattr(node, "cmd_" + cmd)(*args)))
+            except Exception:  # noqa: BLE001 - the parent fails the phase with it
+                conn.send(("error", traceback.format_exc()))
+            if cmd == "stop":
+                return
+    except BaseException:
+        try:
+            conn.send(("error", traceback.format_exc()))
+        finally:
+            sys.exit(1)
+
+
+class NetChild:
+    """The parent's handle on a node process: call(cmd, *args) -> its result,
+    within a deadline; a child that errs, exits or misses it fails the phase."""
+
+    def __init__(self, ctx, index, spec):
+        parent, child = ctx.Pipe()
+        self.index, self.conn = index, parent
+        self.proc = ctx.Process(target=net_node_main, args=(child, spec), name=f"net-node-{index}", daemon=True)
+        self.proc.start()
+
+    def ready(self):
+        self.nid, self.addr = self._reply("start-up", NET_START_S)
+
+    def _reply(self, what, timeout):
+        if not self.conn.poll(timeout):
+            raise AssertionError(f"phase 15: node {self.index} did not answer {what} within {timeout} s "
+                                 f"(exit code {self.proc.exitcode})")
+        status, out = self.conn.recv()
+        if status != "ok":
+            raise AssertionError(f"phase 15: node {self.index} failed in {what}:\n{out}")
+        return out
+
+    def call(self, cmd, *args, timeout=NET_STEP_S):
+        self.conn.send((cmd, args))
+        return self._reply(cmd, timeout)
+
+    def kill(self):
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join(10)
+
+
+class NetHarness:
+    """The other validators of phase 15's network (all but the nodes' four),
+    played by the parent on a router of its own over TCP, which knows only
+    node 0's address and meets the rest by PEX. It speaks the consensus
+    channels: when one of its validators proposes, the proposal and its
+    parts; for each complete proposal, its prevotes, then its precommits,
+    signed by sign(secrets, msgs) -> sigs (phase 14's pool signer). A replica
+    (cs_stores over MemDBs) applies each committed block, as the nodes
+    validated it, to build the harness's proposals and attacks from."""
+
+    def __init__(self, m, gen, members, sign, children, dev):
+        import threading
+
+        self.m, self.gen, self.sign, self.children, self.dev = m, gen, sign, children, dev
+        self.chain_id = gen.chain_id
+        node_addrs = {child.member_addr for child in children}
+        self.secrets = {a: s for a, s in member_secrets(m, members).items() if a not in node_addrs}
+        self.replica = cs_stores(m, gen, {name: m.kv.MemDB() for name in ("app", "state", "blocks", "evidence")}, dev)
+        self.replica.executor.validate_block = lambda state, block: None  # the nodes checked it
+        self.builder = m.execution.BlockExecutor(self.replica.states, self.replica.client,
+                                                 evidence_pool=self.replica.pool, block_store=self.replica.blocks)
+        self.blocks, self.bids, self.spent = {}, {}, {}  # spent: seconds signing and sending votes, by height
+        self.steps, self.proposals, self.votes = {}, {}, {}
+        self.cond, self.stop = threading.Condition(), threading.Event()
+        key = m.node_key.generate(NET_HARNESS_SEED)
+        self.nid = m.p2p.node_id_from_pubkey(key.pub_key())
+        descs = m.cs_reactor.consensus_channel_descriptors() + [m.p2p.pex_channel_descriptor()]
+        self.router, self.transport, self.pm, chans = net_router(m, key, self.chain_id, descs)
+        T = m.p2p.types
+        self.data, self.vote = chans[T.CHANNEL_CONSENSUS_DATA], chans[T.CHANNEL_CONSENSUS_VOTE]
+        self.pex = m.p2p.PexReactor(self.pm, chans[T.CHANNEL_PEX])
+        self.threads = [threading.Thread(target=self._recv, args=(ch,), daemon=True, name=f"net-harness-{cid}")
+                        for cid, ch in chans.items() if cid != T.CHANNEL_PEX]
+        self.router.start()
+        self.pex.start()
+        for t in self.threads:
+            t.start()
+        self.pm.add(m.p2p.Endpoint.parse(children[0].addr))
+
+    def close(self):
+        self.stop.set()
+        self.pex.stop()
+        self.router.stop()
+        for t in self.threads:
+            t.join(10)
+
+    def _recv(self, ch):
+        Msgs = self.m.messages
+        while not self.stop.is_set():
+            env = ch.receive_one(timeout=0.1)
+            if env is None:
+                continue
+            msg = env.message
+            with self.cond:
+                if isinstance(msg, Msgs.NewRoundStepMessage):
+                    self.steps[env.from_] = max(self.steps.get(env.from_, (0, 0, 0)), (msg.height, msg.round, msg.step))
+                elif isinstance(msg, Msgs.ProposalMessage):
+                    self.proposals[(msg.proposal.height, msg.proposal.round)] = msg.proposal
+                elif isinstance(msg, Msgs.VoteMessage):
+                    v = msg.vote
+                    self.votes.setdefault((v.height, v.round, v.type), {})[v.validator_index] = v
+                self.cond.notify_all()
+
+    def wait(self, what, pred, timeout=NET_STEP_S):
+        with self.cond:
+            if not self.cond.wait_for(pred, timeout):
+                raise AssertionError(f"phase 15: {what} within {timeout} s (the nodes at "
+                                     f"{sorted(self.steps.values())})")
+
+    def _votes(self, type_, h, block_id, skip=()):
+        vals = self.replica.state.validators
+        t = self.m.tmtime.Time.now()
+        out = [self.m.vote.Vote(type=type_, height=h, round=0, block_id=block_id, timestamp=t,
+                                validator_address=v.address, validator_index=i)
+               for i, v in enumerate(vals.validators) if v.address in self.secrets and i not in skip]
+        for v, sig in zip(out, self.sign([self.secrets[v.validator_address] for v in out],
+                                         [v.sign_bytes(self.chain_id) for v in out])):
+            v.signature = sig
+        return out
+
+    def _last_commit(self, h):
+        m = self.m
+        if h == self.replica.state.initial_height:
+            return m.block.Commit()
+        vals = self.replica.states.load_validators(h - 1)
+        key = (h - 1, 0, m.vote.PRECOMMIT)
+        self.wait(f"all {vals.size()} precommits of height {h - 1}",
+                  lambda: len(self.votes.get(key, {})) == vals.size())
+        pcs = self.votes[key]
+        return m.block.Commit(height=h - 1, round=0, block_id=self.bids[h - 1],
+                              signatures=[pcs[i].to_commit_sig() for i in range(vals.size())])
+
+    def height(self, h, live, before_precommits=None, equivocate=None):
+        """Drive height h in round 0 among the nodes `live` (children);
+        returns when each has committed it, the replica with it."""
+        m, st = self.m, self.replica.state
+        PV, PC = m.vote.PREVOTE, m.vote.PRECOMMIT
+        proposer = st.validators.get_proposer().address
+        if proposer in self.secrets:
+            block = self.builder.create_proposal_block(h, st, self._last_commit(h), proposer,
+                                                       block_time=m.tmtime.Time.now())
+            parts = block.make_part_set(m.block.BLOCK_PART_SIZE_BYTES)
+            bid = m.block.BlockID(block.hash(), parts.header)
+            prop = m.proposal.Proposal(height=h, round=0, pol_round=-1, block_id=bid, timestamp=block.header.time)
+            prop.signature = self.sign([self.secrets[proposer]], [prop.sign_bytes(self.chain_id)])[0]
+            for msg in [m.messages.ProposalMessage(prop)] + [
+                    m.messages.BlockPartMessage(h, 0, parts.get_part(i)) for i in range(parts.total())]:
+                self.data.broadcast(msg, timeout=5)
+        else:
+            self.wait(f"the proposal of height {h}", lambda: (h, 0) in self.proposals)
+            bid = self.proposals[(h, 0)].block_id
+        skip = ()
+        t0 = time.perf_counter()
+        prevotes = self._votes(PV, h, bid)
+        if equivocate is not None:
+            val_index, to_a, to_b = equivocate
+            (honest,) = [v for v in prevotes if v.validator_index == val_index]
+            (other,) = self._votes(PV, h, m.block.BlockID(), skip=[i for i in range(st.validators.size())
+                                                                    if i != val_index])
+            self.vote.send_to(to_a, m.messages.VoteMessage(honest), timeout=5)
+            self.vote.send_to(to_b, m.messages.VoteMessage(other), timeout=5)
+            skip = (val_index,)
+        for v in prevotes:
+            if v.validator_index not in skip:
+                self.vote.broadcast(m.messages.VoteMessage(v), timeout=5)
+        self.spent[h] = time.perf_counter() - t0
+        if before_precommits is not None:
+            # every node has checked the proposal (a hook's checks must not
+            # share an engine group with a LastCommit check)
+            idx = [st.validators.get_by_address(c.member_addr)[0] for c in live]
+            self.wait(f"the nodes' prevotes of height {h}",
+                      lambda: all(i in self.votes.get((h, 0, PV), {}) for i in idx))
+            before_precommits()
+        t0 = time.perf_counter()
+        precommits = self._votes(PC, h, bid)
+        with self.cond:
+            self.votes.setdefault((h, 0, PC), {}).update({v.validator_index: v for v in precommits})
+        for v in precommits:
+            self.vote.broadcast(m.messages.VoteMessage(v), timeout=5)
+        self.spent[h] += time.perf_counter() - t0
+        nids = [c.nid for c in live]
+        self.wait(f"every node's commit of height {h}", lambda: all(self.steps.get(n, (0,))[0] > h for n in nids))
+        raw = live[0].call("block", h)
+        block = m.block.Block.from_proto(m.pb.Block.decode(raw))
+        if block.hash() != bid.hash:
+            raise AssertionError(f"phase 15: height {h} committed {block.hash().hex()}, proposed {bid.hash.hex()}")
+        self.blocks[h], self.bids[h] = block, bid
+        with self.cond:
+            pcs = dict(self.votes[(h, 0, PC)])
+        seen = m.block.Commit(height=h, round=0, block_id=bid, signatures=[
+            pcs[i].to_commit_sig() if i in pcs else m.block.CommitSig.new_absent()
+            for i in range(st.validators.size())])
+        self.replica.blocks.save_block(block, block.make_part_set(m.block.BLOCK_PART_SIZE_BYTES), seen)
+        with env_setting("TM_TPU_CRYPTO", "off"):
+            self.replica.state = self.replica.executor.apply_block(self.replica.state, bid, block)
+        return block
+
+    def lunatic(self, c, tag):
+        """LightClientAttackEvidence against committed height c: its header
+        with a forged app hash, signed by this harness's validators (the
+        nodes' slots absent), its common height c itself, so that a node's
+        check is the conflicting commit's 2/3 light check."""
+        import dataclasses
+
+        m = self.m
+        header = self.blocks[c].header
+        vals = self.replica.states.load_validators(c)
+        forged = dataclasses.replace(header, app_hash=tagged(tag, c))
+        bid = m.block.BlockID(forged.hash(), m.block.PartSetHeader(1, tagged(tag + b" parts", c)))
+        commit = m.block.Commit(height=c, round=0, block_id=bid, signatures=[
+            m.block.CommitSig.new_commit(v.address, header.time, b"") if v.address in self.secrets
+            else m.block.CommitSig.new_absent() for v in vals.validators])
+        signers = [i for i, v in enumerate(vals.validators) if v.address in self.secrets]
+        sigs = self.sign([self.secrets[vals.validators[i].address] for i in signers],
+                         [commit.vote_sign_bytes(self.chain_id, i) for i in signers])
+        for i, sig in zip(signers, sigs):
+            commit.signatures[i].signature = sig
+        ev = m.evidence.LightClientAttackEvidence(
+            conflicting_block=m.light_block.LightBlock(m.light_block.SignedHeader(forged, commit), vals),
+            common_height=c)
+        trusted = m.light_block.SignedHeader(header, self.blocks[c + 1].last_commit if c + 1 in self.blocks
+                                             else m.block.Commit(height=c, round=0, block_id=self.bids[c],
+                                                                 signatures=[self.votes[(c, 0, m.vote.PRECOMMIT)][i]
+                                                                             .to_commit_sig()
+                                                                             for i in range(vals.size())]))
+        ev.generate_abci(vals, trusted, header.time)
+        return ev
+
+    def add_evidence(self, ev):
+        """The evidence into the replica's pool too (for the harness's next
+        proposal), checked on the host."""
+        with env_setting("TM_TPU_CRYPTO", "off"):
+            self.replica.pool.add_evidence(ev)
+
+
+def net_light_rows(vals, absent):
+    """The rows of a 2/3 light check of a commit of vals with `absent`'s
+    addresses absent: the signatures it tallies before passing 2/3."""
+    needed = vals.total_voting_power() * 2 // 3
+    tallied = rows = 0
+    for v in vals.validators:
+        if v.address in absent:
+            continue
+        rows += 1
+        tallied += v.voting_power
+        if tallied > needed:
+            return rows
+    return rows
+
+
+def net_statuses(children, what, pred, timeout=NET_STEP_S):
+    """Poll the children's statuses until pred(statuses) holds; returns them."""
+    deadline = time.monotonic() + timeout
+    while True:
+        statuses = [c.call("status") for c in children]
+        if pred(statuses):
+            return statuses
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 15: {what} within {timeout} s: " + json.dumps(statuses)[:2000])
+        time.sleep(0.05)
+
+
+def network_phase(planes, chain_id, built, runs, tmp):
+    """Phase 15 on each plane: four node processes and the harness meet by
+    PEX over TCP with secret connections, then drive NET_HEIGHTS heights
+    with (c)'s flood, (d)'s equivocation and lunatic attack, and (e)'s
+    faults; every node's launches held per height; (f) the timings."""
+    import multiprocessing
+
+    m = network_modules()
+    totals = {}
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
+        sign = pool_signer(pool)
+        log(f"phase 15: the harness's signing pool started in {time.perf_counter() - t0:.1f} s")
+        for kind, P in planes.items():
+            _network_plane(m, kind, P, chain_id, built, sign, runs, totals, os.path.join(tmp, kind))
+    check_path("phase 15", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()]
+               + [{plane("ed25519").rlc.__name__: 1}])  # the envelopes' plane, whatever the validators'
+    return totals
+
+
+def _network_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
+    import multiprocessing
+
+    import torch
+
+    dev = torch.device("cuda", 0)
+    ctx = multiprocessing.get_context("spawn")
+    members = built[kind].members
+    gen = net_genesis(m, members, f"{chain_id}-net-{kind}")
+    heights = NET_HEIGHTS[kind]
+    flood = kind == "ed25519"
+    E, L = NET_EQUIVOCATE_AT[kind], NET_LUNATIC_AT[kind]
+    sched = proposer_schedule(m, gen, max(NET_PROPOSES))
+    index_of = {m.keys[k](pub).address(): i for i, (k, pub, _) in enumerate(members)}
+    node_members = [members[index_of[sched[h - 1]]] for h in NET_PROPOSES]
+    node_addrs = {m.keys[k](pub).address() for k, pub, _ in node_members}
+    ed = plane("ed25519")
+    children, harness = [], None
+    t_start = time.perf_counter()
+    try:
+        specs = [{"kind": kind, "genesis": gen.to_json(), "member": member, "where": os.path.join(where, f"node{i}"),
+                  "node_seed": NET_NODE_SEEDS[i], "prelude": NET_CHILD_PRELUDE}
+                 for i, member in enumerate(node_members)]
+        children = [NetChild(ctx, i, spec) for i, spec in enumerate(specs)]
+        for c in children:
+            c.ready()
+        for c, member in zip(children, node_members):
+            c.member_addr = m.keys[member[0]](member[1]).address()
+        log(f"phase 15: {kind} four node processes up in {time.perf_counter() - t_start:.1f} s")
+        # (a) every node and the harness start from node 0's address alone
+        t0 = time.perf_counter()
+        for c in children[1:]:
+            c.call("dial", children[0].addr)
+        harness = NetHarness(m, gen, members, sign, children, dev)
+        net_statuses(children, "the mesh",
+                                lambda s: all(len(st["peers"]) == NET_NODES for st in s)
+                                and len(harness.pm.peers()) == NET_NODES, NET_MESH_S)
+        mesh_s = time.perf_counter() - t0
+        shakes = [c.call("handshakes") for c in children]
+        log(f"phase 15: {kind} (a) the mesh of {NET_NODES} nodes and the harness by PEX over TCP in "
+            f"{mesh_s * 1e3:.1f} ms; secret-connection handshakes, ms: "
+            + json.dumps({f"node {c.index}": sorted(round(s * 1e3, 2) for _, s in sh)
+                          for c, sh in zip(children, shakes)})
+            + f"; the AEAD route {children[0].call('route')}, the harness's {m.secret_connection.route()}")
+        for c in children:
+            c.call("start")
+        # (b)-(d)
+        seen = {}
+
+        def flood_hook():
+            batches = built["ed25519"].batches
+            label, txs, _ = admission_batch("valid", batches["valid"])
+            codes, refused = children[0].call("submit", txs)
+            if any(codes):
+                raise AssertionError(f"phase 15: (c) node 0 refused {refused}")
+            net_statuses(children, "(c) the flood's admission at every node",
+                         lambda s: all(st["mempool"] == len(txs) for st in s))
+            label, bad, _ = admission_batch("tampered", batches["tampered"])
+            codes, refused = children[0].call("submit", bad)
+            want = {CS_TAMPER_ENVELOPE: "tx signature pre-verification failed"}
+            if refused != want:
+                raise AssertionError(f"phase 15: (c) the tampered batch: node 0 refused {refused}, expected {want}")
+            net_statuses(children, "(c) the second batch's admission at every node",
+                         lambda s: all(st["mempool"] == 2 * len(txs) - 1 for st in s))
+            if any(c.call("knows", bad[CS_TAMPER_ENVELOPE]) for c in children[1:]):
+                raise AssertionError(f"phase 15: (c) envelope #{CS_TAMPER_ENVELOPE} was gossiped")
+            seen["flood"] = len(txs)
+
+        # (d): the node proposing E + 1 gets the nil prevote; the maj23 gossip
+        # brings it the other, and it reports the pair (the set is genesis's until then)
+        detector = children[NET_PROPOSES.index(E + 1)]
+        other = children[(detector.index + 2) % NET_NODES]
+        seen["equivocator"] = [i for i, v in enumerate(m.state.make_genesis_state(gen).validators.validators)
+                               if v.address not in node_addrs][NET_CONFLICT_VALIDATOR]
+
+        def equivocation_hook():
+            net_statuses([detector], f"(d) node {detector.index}'s report of the conflicting prevotes",
+                         lambda s: [E, seen["equivocator"]] in [list(x) for x in s[0]["conflicts"]])
+
+        def lunatic_hook():
+            ev = harness.lunatic(L - 1, b"lunatic")
+            seen["lunatic"] = ev
+            seen["lunatic_rows"] = net_light_rows(harness.replica.states.load_validators(L - 1), node_addrs)
+            got = children[0].call("add_evidence", m.evidence.evidence_to_proto(ev).encode())
+            if tuple(got) != ("accepted", ""):
+                raise AssertionError(f"phase 15: (d) node 0 refused the lunatic attack: {got}")
+            harness.add_evidence(ev)
+            net_statuses(children, "(d) the lunatic attack in every node's pool",
+                         lambda s: all(ev.hash().hex() in st["pending"] for st in s))
+
+        def fault_hook():
+            """(e), before the last height's precommits: node NET_FAULT_NODE's
+            device entry points fail; a fresh batch admitted at node 0 and
+            gossiped, then a second attack added at node 0 and gossiped, each
+            awaited (two checks at once would share an engine group)."""
+            if L == heights:
+                lunatic_hook()
+            message = seen["fault_message"] = f"no kernel for device {dev}"
+            fault = f"ValueError: {message}"
+            seen["errors_before"] = [c.call("status")["peer_errors"] for c in children]
+            children[NET_FAULT_NODE].call("fault", message)
+            faults = lambda s: {tuple(f) for f in s[NET_FAULT_NODE]["faults"]}
+            others = lambda s: [st for i, st in enumerate(s) if i != NET_FAULT_NODE]
+            txs = [tx for _, tx in built["ed25519"].batches["fault"]]
+            codes, refused = children[0].call("submit", txs)
+            if any(codes):
+                raise AssertionError(f"phase 15: (e) node 0 refused {refused}")
+            net_statuses(children, "(e) the gossiped admission: the others' and the faulty node's fault",
+                         lambda s: ("mempool", fault) in faults(s)
+                         and all(st["mempool"] >= len(txs) for st in others(s)))
+            ev = harness.lunatic(heights - 1, b"lunatic (e)")
+            got = children[0].call("add_evidence", m.evidence.evidence_to_proto(ev).encode())
+            if tuple(got) != ("accepted", ""):
+                raise AssertionError(f"phase 15: (e) node 0 refused the second attack: {got}")
+            harness.add_evidence(ev)
+            net_statuses(children, "(e) the gossiped attack: the others' checks and the faulty node's fault",
+                         lambda s: ("evidence", fault) in faults(s)
+                         and all(ev.hash().hex() in st["pending"] for st in others(s)))
+
+        for h in range(1, heights + 1):
+            hook = {NET_FLOOD_AT: flood_hook if flood else None, E: equivocation_hook, L: lunatic_hook,
+                    heights: fault_hook}.get(h)
+            equivocate = (seen["equivocator"], other.nid, detector.nid) if h == E else None
+            harness.height(h, children, before_precommits=hook, equivocate=equivocate)
+        harness.height(heights + 1, [c for i, c in enumerate(children) if i != NET_FAULT_NODE])
+        peers = [c.call("status")["peers"] for c in children]  # before any node stops
+        reports = [dict(c.call("stop"), peers=p) for c, p in zip(children, peers)]
+    finally:
+        if harness is not None:
+            harness.close()
+        for c in children:
+            c.kill()
+    _network_checks(m, kind, P, ed, reports, harness, heights, E, L, flood, seen, len(members), totals)
+    _network_timings(kind, reports, harness, heights, E, L, flood, mesh_s, len(members), runs)
+
+
+def net_expected(P, ed, heights, E, L, flood, node):
+    """The launches phase 15 predicts for a node, by height: none at height
+    1; at 2 the first LastCommit check, a split fill and a split hit; one hit
+    at each later height; (c), ed25519, at NET_FLOOD_AT: node 0 the valid
+    batch's RLC and the tampered one's RLC, fill and hit, the others the two
+    gossiped batches in RLCs whose count is given as a range (batching
+    follows frame arrival), and where the second batch's last frame (255
+    envelopes) is admitted alone, its fill and hit; (d) at L the lunatic check, one hit; (e) at the
+    last height, but on the faulty node: the second attack, one hit, and node
+    0 the fresh batch's RLC, the others it gossiped, 1-2 RLCs; at the height
+    after it the faulty node nothing. Values are ints or (low, high)
+    ranges."""
+    out = {}
+    for h in range(1, heights + 2):
+        want = {} if h == 1 else ({P.fill.__name__: 1, P.hit.__name__: 1} if h == 2 else {P.hit.__name__: 1})
+        if flood and h == NET_FLOOD_AT:
+            if node == 0:
+                want = merge_counts(want, {ed.rlc.__name__: 2, ed.fill.__name__: 1, ed.hit.__name__: 1})
+            else:
+                # the second batch's 1,023 envelopes come in frames of 256, 256,
+                # 256 and 255: a batch of the last frame alone is under the
+                # RLC's cutover, so the bitmap plane takes it (a fill of the
+                # account keys, then a hit)
+                want = merge_counts(want, {ed.rlc.__name__: (2, 8), ed.fill.__name__: (0, 1),
+                                           ed.hit.__name__: (0, 1)})
+        if h == L:
+            want = merge_counts(want, {P.hit.__name__: 1})
+        if h == heights and node != NET_FAULT_NODE:
+            want = merge_counts(want, {P.hit.__name__: 1, ed.rlc.__name__: 1 if node == 0 else (1, 2)})
+        if h == heights + 1 and node == NET_FAULT_NODE:
+            want = {}
+        out[h] = want
+    return out
+
+
+def merge_counts(a, b):
+    out = dict(a)
+    for k, v in b.items():
+        if k in out:
+            lo, hi = (out[k], out[k]) if isinstance(out[k], int) else out[k]
+            vlo, vhi = (v, v) if isinstance(v, int) else v
+            out[k] = lo + vlo if (lo, hi) == (lo, lo) and vlo == vhi else (lo + vlo, hi + vhi)
+        else:
+            out[k] = v
+    return out
+
+
+def counts_match(got, want):
+    if set(got) != set(want):
+        return False
+    return all(got[k] == v if isinstance(v, int) else v[0] <= got[k] <= v[1] for k, v in want.items())
+
+
+def _network_checks(m, kind, P, ed, reports, harness, heights, E, L, flood, seen, n_vals, totals):
+    """Every node committed the same blocks and state; each node's launches,
+    height by height, equal both the model of its dispatches and the
+    prediction; (c)'s rows; (d)'s evidence committed; (e)'s faults."""
+    for i, r in enumerate(reports):
+        top = heights if i == NET_FAULT_NODE else heights + 1
+        blocks = {int(h): b for h, b in r["blocks"].items()}
+        if sorted(blocks) != list(range(1, top + 1)) or any(b != harness.bids[h].hash.hex() for h, b in blocks.items()):
+            raise AssertionError(f"phase 15: {kind} node {i} committed {blocks}")
+        if i != NET_FAULT_NODE and (r["app_hash"] != harness.replica.state.app_hash.hex()
+                                    or r["state"] != m.state_store.state_to_json(harness.replica.state)):
+            raise AssertionError(f"phase 15: {kind} node {i}'s app hash or state differs from the replica's")
+    log(f"phase 15: {kind} (b) every node committed the same {heights} blocks, the live ones {heights + 1}; app "
+        f"hash {reports[0]['app_hash']} and state equal to the harness's replica")
+    by = lambda r, h, thread: [x for x in r["records"] if x["height"] == h and x["thread"] == thread]
+    for i, r in enumerate(reports):
+        want = net_expected(P, ed, heights, E, L, flood, i)
+        counts = {h: c for h, _, c in r["decided"]}
+        top = max(counts)
+        if i == NET_FAULT_NODE:
+            counts[top + 1] = r["final_counts"]
+            top += 1
+        elif r["final_counts"] != counts[top]:
+            raise AssertionError(f"phase 15: {kind} node {i} launched after its last height: {r['final_counts']}")
+        prev, lines = {}, {}
+        for h in range(1, top + 1):
+            delta = {k: v - prev.get(k, 0) for k, v in counts[h].items() if v - prev.get(k, 0)}
+            prev = counts[h]
+            model = {}
+            for rec in r["records"]:
+                if rec["height"] == h:
+                    model = merge_counts(model, rec["launches"])
+                    lines.setdefault(h, []).append([rec["thread"], rec["rows"], rec["distinct"], rec["launches"]])
+            if delta != model or not counts_match(delta, want[h]):
+                raise AssertionError(f"phase 15: {kind} node {i} height {h} launched {delta}, its dispatches "
+                                     f"{model}, predicted {want[h]}; {lines.get(h)}")
+            for k, v in delta.items():
+                totals[k] = totals.get(k, 0) + v
+        checks = [x["rows"] for h in range(2, top + 1) for x in by(r, h, "consensus")]
+        if not all(n_vals - NET_NODES <= n <= n_vals for n in checks):
+            raise AssertionError(f"phase 15: {kind} node {i}'s LastCommit checks carried {checks} rows")
+        log(f"phase 15: {kind} node {i} launches by height, each dispatch [thread, rows, distinct keys, launches]: "
+            + json.dumps(lines))
+        # (c): the gossiped batches, every envelope once on the card; (d) the attack's light check
+        if flood:
+            gossiped = by(r, NET_FLOOD_AT, "_recv_loop")
+            if i and sum(x["distinct"] for x in gossiped) != 2 * seen["flood"] - 1:
+                raise AssertionError(f"phase 15: {kind} (c) node {i} admitted {gossiped}")
+        attack = by(r, L, "MainThread" if i == 0 else "evidence-recv")[:1]
+        if [x["rows"] for x in attack] != [seen["lunatic_rows"]]:
+            raise AssertionError(f"phase 15: {kind} (d) node {i} checked the lunatic attack on {attack}")
+    if flood:
+        log(f"phase 15: {kind} (c) node 0 admitted {seen['flood']} envelopes (one RLC) and refused "
+            f"#{CS_TAMPER_ENVELOPE} of the second batch (RLC, fill, hit); the others admitted both batches "
+            f"from the gossip, each envelope once on the card; #{CS_TAMPER_ENVELOPE} reached none")
+    # (d): the duplicate vote committed in a block after E on every node; the attack checked on the card
+    for i, r in enumerate(reports):
+        dup = [h for h, evs in r["evidence"].items() if int(h) > E and any(t == "DuplicateVoteEvidence" for t, _ in evs)]
+        if not dup:
+            raise AssertionError(f"phase 15: {kind} (d) node {i} committed no duplicate-vote evidence after {E}")
+    log(f"phase 15: {kind} (d) validator {seen['equivocator']}'s two prevotes at {E}, sent to two nodes, became "
+        f"DuplicateVoteEvidence, gossiped and committed at height {dup[0]} (checked on the host); the lunatic "
+        f"attack at {L - 1} was checked on the card by every node, one hit of {seen['lunatic_rows']} rows")
+    # (e)
+    faulty = reports[NET_FAULT_NODE]
+    fault = f"ValueError: {seen['fault_message']}"
+    kinds = {tuple(f) for f in faulty["faults"]}
+    if not {("mempool", fault), ("evidence", fault), ("consensus", fault)} <= kinds:
+        raise AssertionError(f"phase 15: {kind} (e) the faulty node's on_fatal got {faulty['faults']}")
+    own = [v for v in faulty["own_votes"] if v[0] > heights]
+    # the peers the reactors reported while the faults ran (PEX's throttle may
+    # report a peer at any time under load: counted, not a fault's)
+    added = [e for r, before in zip(reports, seen["errors_before"]) for e in r["peer_errors"][len(before):]
+             if e.startswith(("mempool", "evidence"))]
+    if own or added:
+        raise AssertionError(f"phase 15: {kind} (e) the faulty node signed {own}; peers reported {added}")
+    reported = {}
+    for r in reports:
+        for e in r["peer_errors"]:
+            reported[e.split(":")[0]] = reported.get(e.split(":")[0], 0) + 1
+    log(f"phase 15: {kind} (e) with node {NET_FAULT_NODE}'s device entry points failing, the gossiped admission's "
+        f"and the gossiped attack's faults reached its on_fatal through the mempool and evidence reactors, "
+        f"then its consensus's at height {heights + 1}; the mempool and evidence reactors reported no peer, and "
+        f"it signed no prevote; its peers at the end {len(faulty['peers'])}, the others' "
+        f"{[len(r['peers']) for r in reports if r is not faulty]}; peers reported over the run, by channel: "
+        f"{json.dumps(reported)}")
+
+
+def card_floor(launches):
+    """The card's time of launches [(kernel, ms)] taken at each kernel's
+    fastest launch of the run: what the events' brackets say less the host
+    work some of them enclose (the wrapper's own steps, a wait for the GIL)."""
+    fastest = {}
+    for name, ms in launches:
+        fastest[name] = min(ms, fastest.get(name, ms))
+    return sum(fastest[name] for name, _ in launches)
+
+
+def _network_timings(kind, reports, harness, heights, E, L, flood, mesh_s, n_vals, runs):
+    """(f): heights/s of the network (every node's commit) over the heights
+    with no pause of the harness's, and over 2..heights; each node's busy and
+    CPU ms, AEAD, votes and card time a height."""
+    t = {h: max(tm for r in reports for hh, tm, _ in r["decided"] if hh == h) for h in range(1, heights + 1)}
+    paused = {E, L} | ({NET_FLOOD_AT} if flood else set())
+    spans = {h: t[h] - t[h - 1] for h in range(2, heights + 1)}
+    clean = [h for h in spans if h not in paused]
+    hps = len(clean) / sum(spans[h] for h in clean) if clean else float("nan")
+    hps_all = (heights - 1) / (t[heights] - t[1])
+    per = []
+    for i, r in enumerate(reports):
+        n = len(r["decided"])
+        a = r["aead"]
+        per.append({"node": i, "busy_ms": r["node_s"] * 1e3 / n, "cpu_ms": r["node_cpu_s"] * 1e3 / n,
+                    "seal_ms": a["seal_s"] * 1e3 / n, "open_ms": a["open_s"] * 1e3 / n,
+                    "wire_bytes": (a["seal_bytes"] + a["open_bytes"]) / n, "votes_in": r["votes_in"] / n,
+                    "duplicate_votes": (r["votes_in"] - r["vote_keys"]) / n,
+                    "card_ms": sum(ms for _, ms in r["card"]) / n, "card_floor_ms": card_floor(r["card"]) / n,
+                    "parts": {k: [round(v * 1e3 / n, 2), round(r["parts_cpu_s"][k] * 1e3 / n, 2)]
+                              for k, v in r["parts_s"].items()}, "heights": n})
+    log(f"phase 15: {kind} (f) {hps:.3f} heights/s over heights {clean} (the harness paused none of them), "
+        f"{hps_all:.3f} over 2-{heights}; ms a height, 2-{heights}: "
+        + json.dumps({h: round(s * 1e3, 2) for h, s in spans.items()})
+        + "; the harness's signing and sending of its votes, ms: "
+        + json.dumps({h: round(harness.spent[h] * 1e3, 2) for h in spans}) + f" on {card()}")
+    for p in per:
+        log(f"phase 15: {kind} (f) node {p['node']} a height: busy {p['busy_ms']:.2f} ms, CPU {p['cpu_ms']:.2f} ms; "
+            f"AEAD seal {p['seal_ms']:.3f} ms, open {p['open_ms']:.3f} ms, {p['wire_bytes']:.0f} bytes on the wire; "
+            f"{p['votes_in']:.1f} votes received, {p['duplicate_votes']:.1f} duplicates; the card {p['card_ms']:.3f} ms "
+            f"between each launch's events, {p['card_floor_ms']:.3f} ms at each kernel's fastest ({p['heights']} "
+            f"heights); the consensus thread's ms by part [wall, CPU]: {json.dumps(p['parts'])} on {card()}")
+    runs.append({"plane": kind, "run": "network (f)", "commit": n_vals, "s": t[heights] - t[1],
+                 "heights_per_s": hps, "mesh_s": mesh_s,
+                 "node_s": sum(p["busy_ms"] for p in per) / len(per) / 1e3})
 
 
 def main() -> int:
@@ -5729,6 +6759,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-consensus-") as tmp:
         consensus_phase(planes, chain_id, built14, runs, tmp)
     log(f"phase 14: consensus on one node in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-network-") as tmp:
+        network_phase(planes, chain_id, built14, runs, tmp)
+    log(f"phase 15: the network over TCP in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

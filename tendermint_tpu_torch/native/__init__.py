@@ -7,7 +7,9 @@ ops/verify.py), the RLC scalars (`tm_rlc_scalars`, from ops/msm.py and
 the sharded RLC), the libcrypto ed25519 host verify (`tm_host_verify`,
 through `host_verify_batch`) and the SHA-256 / RFC-6962 merkle plane of
 crypto/merkle.py (`sha256_batch`, `merkle_root`, `merkle_proofs`,
-`merkle_multiproof`). Each is one ctypes call that releases the GIL and
+`merkle_multiproof`) and the secret connection's ChaCha20-Poly1305 through
+libcrypto (`aead_chacha20poly1305`, from crypto/softcrypto.py). Each is one
+ctypes call that releases the GIL and
 threads across up to 8 cores inside C. The bytes equal the pure-Python
 paths' (`tests/test_torch_native_prep.py`, `tests/test_torch_merkle.py`).
 
@@ -72,6 +74,13 @@ ENTRY_POINTS = {
         [ctypes.c_char_p, _i64p, ctypes.c_int64, _i64p, ctypes.c_int64,
          _u8p, _u8p, _u8p, _i64p],  # items, offsets, n, indices, k, root, leaves, nodes, n_nodes
         ctypes.c_int,
+    ),
+    # enc, key, nonce, aad, aad_len, in, in_len, out; the output's length,
+    # -1 on a failed authentication, -2 without libcrypto
+    "tm_aead_chacha20poly1305": (
+        [ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64,
+         ctypes.c_char_p, ctypes.c_int64, _u8p],
+        ctypes.c_int64,
     ),
 }
 
@@ -260,3 +269,26 @@ def merkle_multiproof(items, indices) -> tuple[bytes, list[bytes], list[bytes]] 
     _merkle_call("tm_merkle_multiproof", items, idx.ctypes.data_as(_i64p), k, _u8(root),
                  _u8(leaves), _u8(nodes), n_nodes.ctypes.data_as(_i64p))
     return root.tobytes(), _rows(leaves.tobytes(), k), _rows(nodes.tobytes(), int(n_nodes[0]))
+
+
+class AeadAuthError(ValueError):
+    """A ChaCha20-Poly1305 open whose tag did not authenticate: a verdict on
+    the frame (crypto/softcrypto.py raises it as InvalidTag)."""
+
+
+def aead_chacha20poly1305(enc: bool, key: bytes, nonce: bytes, aad: bytes, data: bytes) -> bytes:
+    """ChaCha20-Poly1305 seal (enc) or open through libcrypto's EVP cipher,
+    in one call that releases the GIL. Raises AeadAuthError when an open
+    fails to authenticate, and RuntimeError when libcrypto is missing or
+    refuses the cipher: nothing falls back to Python (TM_TPU_NATIVE=0 is
+    the request for softcrypto's Python cipher, made by its caller)."""
+    lib = load_prep()
+    out = ctypes.create_string_buffer(len(data) + 16)  # a seal grows by the tag, an open shrinks
+    rc = lib.tm_aead_chacha20poly1305(1 if enc else 0, key, nonce, aad, len(aad), data, len(data),
+                                      ctypes.cast(out, _u8p))
+    if rc == -1 and not enc:
+        raise AeadAuthError("chacha20poly1305 open failed: bad tag or malformed input")
+    if rc < 0:
+        raise RuntimeError("native prep: tm_aead_chacha20poly1305 found no usable libcrypto "
+                           "(libcrypto.so.3, .so.1.1 or .so); set TM_TPU_NATIVE=0 for the Python path")
+    return out.raw[: int(rc)]

@@ -12,7 +12,10 @@
  *   tm_mod_l        the 512-bit reduction, exported for tests;
  *   tm_sha256_batch, tm_merkle_root, tm_merkle_proofs, tm_merkle_multiproof
  *                   the SHA-256 / RFC-6962 merkle plane of crypto/merkle.py
- *                   (leaf hashing on up to 8 pthreads for big trees).
+ *                   (leaf hashing on up to 8 pthreads for big trees);
+ *   tm_aead_chacha20poly1305
+ *                   the secret connection's ChaCha20-Poly1305 seal and open
+ *                   through a dlopen'd libcrypto's EVP cipher.
  *
  * Unlike the reference's copy, prepare_batch and the merkle plane return a
  * status: a failed allocation is reported to the caller, which raises.
@@ -861,4 +864,103 @@ int tm_merkle_multiproof(const uint8_t *items, const int64_t *offsets, int64_t n
     __builtin_free(level);
     __builtin_free(cur);
     return 0;
+}
+
+/* ------------------- libcrypto ChaCha20-Poly1305 AEAD -----------------
+ *
+ * The p2p secret connection's cipher (RFC 8439), where the `cryptography`
+ * package does not import: one EVP call a sealed frame, the GIL released
+ * by ctypes, libcrypto dlopen'd as for tm_host_verify above. A return of
+ * -2 (no libcrypto, or a setup failure) makes the caller raise; nothing
+ * falls back to the Python cipher. */
+
+typedef void *(*evp_ciph_fetch_fn)(void);
+typedef void *(*evp_ciph_ctx_new_fn)(void);
+typedef void (*evp_ciph_ctx_free_fn)(void *);
+typedef int (*evp_ciph_init_fn)(void *, const void *, void *,
+                                const unsigned char *, const unsigned char *);
+typedef int (*evp_ciph_ctrl_fn)(void *, int, int, void *);
+typedef int (*evp_ciph_update_fn)(void *, unsigned char *, int *,
+                                  const unsigned char *, int);
+typedef int (*evp_ciph_final_fn)(void *, unsigned char *, int *);
+
+static struct {
+    int ready;
+    evp_ciph_fetch_fn cipher;       /* EVP_chacha20_poly1305 */
+    evp_ciph_ctx_new_fn ctx_new;
+    evp_ciph_ctx_free_fn ctx_free;
+    evp_ciph_init_fn enc_init, dec_init;
+    evp_ciph_ctrl_fn ctrl;
+    evp_ciph_update_fn enc_update, dec_update;
+    evp_ciph_final_fn enc_final, dec_final;
+} aead;
+static pthread_once_t aead_once = PTHREAD_ONCE_INIT;
+
+#define TM_EVP_CTRL_AEAD_SET_TAG 0x11
+#define TM_EVP_CTRL_AEAD_GET_TAG 0x10
+
+static void aead_resolve(void) {
+    const char *names[] = {"libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so", 0};
+    for (int i = 0; names[i]; i++) {
+        void *h = dlopen(names[i], RTLD_NOW | RTLD_LOCAL);
+        if (!h) continue;
+        aead.cipher = (evp_ciph_fetch_fn)dlsym(h, "EVP_chacha20_poly1305");
+        aead.ctx_new = (evp_ciph_ctx_new_fn)dlsym(h, "EVP_CIPHER_CTX_new");
+        aead.ctx_free = (evp_ciph_ctx_free_fn)dlsym(h, "EVP_CIPHER_CTX_free");
+        aead.enc_init = (evp_ciph_init_fn)dlsym(h, "EVP_EncryptInit_ex");
+        aead.dec_init = (evp_ciph_init_fn)dlsym(h, "EVP_DecryptInit_ex");
+        aead.ctrl = (evp_ciph_ctrl_fn)dlsym(h, "EVP_CIPHER_CTX_ctrl");
+        aead.enc_update = (evp_ciph_update_fn)dlsym(h, "EVP_EncryptUpdate");
+        aead.dec_update = (evp_ciph_update_fn)dlsym(h, "EVP_DecryptUpdate");
+        aead.enc_final = (evp_ciph_final_fn)dlsym(h, "EVP_EncryptFinal_ex");
+        aead.dec_final = (evp_ciph_final_fn)dlsym(h, "EVP_DecryptFinal_ex");
+        if (aead.cipher && aead.ctx_new && aead.ctx_free && aead.enc_init
+            && aead.dec_init && aead.ctrl && aead.enc_update && aead.dec_update
+            && aead.enc_final && aead.dec_final) {
+            aead.ready = 1;
+            return;
+        }
+        dlclose(h);
+    }
+}
+
+/* enc=1: out = ciphertext || 16B tag, returns in_len+16.
+ * enc=0: in = ciphertext || 16B tag, out = plaintext, returns in_len-16;
+ *        -1 = authentication failure (EVP_DecryptFinal: a verdict, raised
+ *        to the caller as InvalidTag).
+ * -2 = libcrypto unavailable, or any setup/update failure (a FIPS
+ *      provider that resolves the symbol but refuses the cipher at init):
+ *      the caller raises. Kept apart from -1, so that such a host does not
+ *      read every inbound frame as forged. */
+int64_t tm_aead_chacha20poly1305(int enc, const uint8_t *key,
+                                 const uint8_t *nonce,
+                                 const uint8_t *ad, int64_t ad_len,
+                                 const uint8_t *in, int64_t in_len,
+                                 uint8_t *out) {
+    pthread_once(&aead_once, aead_resolve);
+    if (!aead.ready) return -2;
+    void *ctx = aead.ctx_new();
+    if (!ctx) return -2;
+    int64_t ret = -2;
+    int outl = 0, tmpl = 0;
+    if (enc) {
+        if (aead.enc_init(ctx, aead.cipher(), 0, key, nonce) != 1) goto done;
+        if (ad_len > 0 && aead.enc_update(ctx, 0, &outl, ad, (int)ad_len) != 1) goto done;
+        if (aead.enc_update(ctx, out, &outl, in, (int)in_len) != 1) goto done;
+        if (aead.enc_final(ctx, out + outl, &tmpl) != 1) goto done;
+        if (aead.ctrl(ctx, TM_EVP_CTRL_AEAD_GET_TAG, 16, out + in_len) != 1) goto done;
+        ret = in_len + 16;
+    } else {
+        if (in_len < 16) { ret = -1; goto done; } /* malformed: no tag */
+        int64_t ct_len = in_len - 16;
+        if (aead.dec_init(ctx, aead.cipher(), 0, key, nonce) != 1) goto done;
+        if (ad_len > 0 && aead.dec_update(ctx, 0, &outl, ad, (int)ad_len) != 1) goto done;
+        if (aead.dec_update(ctx, out, &outl, in, (int)ct_len) != 1) goto done;
+        if (aead.ctrl(ctx, TM_EVP_CTRL_AEAD_SET_TAG, 16, (void *)(in + ct_len)) != 1) goto done;
+        if (aead.dec_final(ctx, out + outl, &tmpl) != 1) { ret = -1; goto done; } /* auth verdict */
+        ret = ct_len;
+    }
+done:
+    aead.ctx_free(ctx);
+    return ret;
 }

@@ -4,9 +4,11 @@ blocks, evidence, blocks and their parts, block metas and consensus params
 (ref: proto/tendermint/types/types.proto, canonical.proto, validator.proto,
 evidence.proto, block.proto, params.proto,
 proto/tendermint/crypto/keys.proto, proof.proto,
-proto/tendermint/version/types.proto), the p2p layer's NodeInfo
-(proto/tendermint/p2p/types.proto) and blocksync's messages
-(proto/tendermint/blocksync/types.proto).
+proto/tendermint/version/types.proto), the p2p layer's NodeInfo, PEX and
+secret-connection messages (proto/tendermint/p2p/types.proto, pex.proto,
+conn.proto), the bit arrays (proto/tendermint/libs/bits/types.proto), the
+consensus reactor's messages (proto/tendermint/consensus/types.proto) and
+blocksync's (proto/tendermint/blocksync/types.proto).
 
 Field numbers and nullability mirror the reference schemas exactly; the
 encodings are byte-identical.
@@ -452,6 +454,158 @@ class Block(Message):
         Field(2, "message", "data", always_emit=True, msg_cls=Data),
         Field(3, "message", "evidence", always_emit=True, msg_cls=EvidenceList),
         Field(4, "message", "last_commit", msg_cls=Commit),
+    ]
+
+
+# -- p2p PEX (proto/tendermint/p2p/pex.proto) -----------------------------
+
+
+class PexAddress(Message):
+    fields = [Field(1, "string", "url")]
+
+
+class PexRequest(Message):
+    fields = []
+
+
+class PexResponse(Message):
+    fields = [Field(1, "message", "addresses", repeated=True, msg_cls=PexAddress)]
+
+
+class PexMessage(Message):
+    """oneof sum — field numbers 1,2 reserved (spec PR #352)."""
+
+    fields = [
+        Field(3, "message", "pex_request", msg_cls=PexRequest),
+        Field(4, "message", "pex_response", msg_cls=PexResponse),
+    ]
+
+
+class AuthSigMessage(Message):
+    """Secret-connection authentication (proto/tendermint/p2p/conn.proto
+    and duplicated at proto/tendermint/privval/types.proto)."""
+
+    fields = [
+        Field(1, "message", "pub_key", always_emit=True, msg_cls=PublicKey),
+        Field(2, "bytes", "sig"),
+    ]
+
+
+# -- libs/bits (proto/tendermint/libs/bits/types.proto) --------------------
+
+
+class BitArrayProto(Message):
+    fields = [
+        Field(1, "int64", "bits"),
+        Field(2, "uint64", "elems", repeated=True),
+    ]
+
+
+# -- consensus wire messages (proto/tendermint/consensus/types.proto) ------
+
+
+class CsNewRoundStep(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "uint32", "step"),
+        Field(4, "int64", "seconds_since_start_time"),
+        Field(5, "int32", "last_commit_round"),
+    ]
+
+
+class CsNewValidBlock(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "message", "block_part_set_header", always_emit=True, msg_cls=PartSetHeader),
+        Field(4, "message", "block_parts", msg_cls=BitArrayProto),
+        Field(5, "bool", "is_commit"),
+    ]
+
+
+class CsProposal(Message):
+    fields = [Field(1, "message", "proposal", always_emit=True, msg_cls=Proposal)]
+
+
+class CsProposalPOL(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "proposal_pol_round"),
+        Field(3, "message", "proposal_pol", always_emit=True, msg_cls=BitArrayProto),
+    ]
+
+
+class CsBlockPart(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "message", "part", always_emit=True, msg_cls=Part),
+    ]
+
+
+class CsVote(Message):
+    fields = [Field(1, "message", "vote", msg_cls=Vote)]
+
+
+class CsHasVote(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "enum", "type"),
+        Field(4, "int32", "index"),
+    ]
+
+
+class CsVoteSetMaj23(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "enum", "type"),
+        Field(4, "message", "block_id", always_emit=True, msg_cls=BlockID),
+    ]
+
+
+class CsVoteSetBits(Message):
+    fields = [
+        Field(1, "int64", "height"),
+        Field(2, "int32", "round"),
+        Field(3, "enum", "type"),
+        Field(4, "message", "block_id", always_emit=True, msg_cls=BlockID),
+        Field(5, "message", "votes", always_emit=True, msg_cls=BitArrayProto),
+    ]
+
+
+class ConsensusMessage(Message):
+    """tendermint.consensus.Message oneof (consensus/types.proto:88-100)."""
+
+    fields = [
+        Field(1, "message", "new_round_step", msg_cls=CsNewRoundStep),
+        Field(2, "message", "new_valid_block", msg_cls=CsNewValidBlock),
+        Field(3, "message", "proposal", msg_cls=CsProposal),
+        Field(4, "message", "proposal_pol", msg_cls=CsProposalPOL),
+        Field(5, "message", "block_part", msg_cls=CsBlockPart),
+        Field(6, "message", "vote", msg_cls=CsVote),
+        Field(7, "message", "has_vote", msg_cls=CsHasVote),
+        Field(8, "message", "vote_set_maj23", msg_cls=CsVoteSetMaj23),
+        Field(9, "message", "vote_set_bits", msg_cls=CsVoteSetBits),
+        # Local extensions (no reference analog), field numbers far
+        # above the reference oneof (1-9) so proto3 decoders that don't
+        # know them skip them, and zero/empty values are omitted from
+        # the wire entirely — unstamped frames stay byte-identical to
+        # the reference schema.
+        #
+        # origin_ns: origin wall-clock in unix nanoseconds, stamped at
+        # encode time on data-plane frames (proposal / block part /
+        # vote) so the receive side can record gossip propagation
+        # latency on shared-clock testnets (consensus/reactor.py).
+        Field(1000, "fixed64", "origin_ns"),
+        # origin_node: the stamping node's p2p id — together with
+        # (height, round, msg kind) it forms the deterministic tmpath
+        # journey key (trace.journey_key) that lets the lens merge
+        # layer bind one frame's send and receive spans across node
+        # processes without clock alignment
+        Field(1001, "string", "origin_node"),
     ]
 
 

@@ -112,3 +112,22 @@ def marshal_delimited(payload: bytes) -> bytes:
 
 def unmarshal_delimited(buf: bytes, offset: int = 0) -> tuple[bytes, int]:
     return decode_bytes(buf, offset)
+
+
+def read_delimited(read_exact, max_size: int) -> bytes:
+    """Read one uvarint-length-delimited message from a stream exposing
+    `read_exact(n) -> bytes` (ref: internal/libs/protoio ReadDelimited).
+
+    Not resumable: a timeout mid-message leaves consumed plaintext
+    unrecoverable, so callers treat it as fatal for the connection."""
+    prefix = b""
+    while True:
+        prefix += read_exact(1)
+        if prefix[-1] < 0x80:
+            break
+        if len(prefix) > 5:
+            raise ValueError("oversized length prefix")
+    size, _ = decode_varint(prefix, 0)
+    if size > max_size:
+        raise ValueError(f"delimited message too large: {size}")
+    return read_exact(size)

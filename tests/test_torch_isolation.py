@@ -3,13 +3,16 @@ importing every module of tendermint_tpu_torch (the sr25519 plane's, the
 engine's, the telemetry's, the secp256k1 key type's, the merkle plane's, the
 light client's with its stores and providers, evidence's, the state
 layer's with its stores, evidence pool and ABCI app, blocksync's with
-the p2p layer beneath it, and consensus's with its vote sets, file signer,
-mempool, WAL, ticker and handshake included) loads no JAX
+the p2p layer beneath it, consensus's with its vote sets, file signer,
+mempool, WAL, ticker and handshake, and the TCP transport, secret
+connection, PEX and the consensus, mempool and evidence reactors included)
+loads no JAX
 and nothing of tendermint_tpu, the native host prep and merkle plane load
 the port's own library (never the reference's prep.so), a default-device
 verifier, a default-device BlockSyncReactor's light check and a
 default-device EngineTxPreVerifier raise without CUDA instead of running
-on the host, and
+on the host (a gossiped admission's raise reaching the mempool reactor's
+on_fatal), and
 TM_TPU_ENGINE selects the engine or direct dispatch as the reference's
 does."""
 
@@ -52,13 +55,20 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "p2p.peermanager", "p2p.router", "blocksync", "blocksync.pool", "blocksync.reactor",
              "utils.log", "types.proposal", "types.vote_set", "privval", "privval.file_pv", "mempool",
              "mempool.mempool", "mempool.preverify", "consensus", "consensus.messages", "consensus.round_state",
-             "consensus.wal", "consensus.ticker", "consensus.state", "consensus.handshake"):
+             "consensus.wal", "consensus.ticker", "consensus.state", "consensus.handshake", "utils.varint",
+             "p2p.secret_connection", "p2p.transport_tcp", "p2p.pex", "consensus.peer_state",
+             "consensus.reactor", "mempool.reactor", "evidence.reactor"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
 from tendermint_tpu_torch import abci, blocksync, devobs, evidence, light, metrics, native, p2p, state, store, trace
 from tendermint_tpu_torch import consensus, mempool, privval
 from tendermint_tpu_torch.mempool import preverify
+from tendermint_tpu_torch.consensus import reactor as cs_reactor
+from tendermint_tpu_torch.mempool import reactor as mp_reactor
+from tendermint_tpu_torch.p2p import secret_connection
+from tendermint_tpu_torch.crypto import softcrypto
+from tendermint_tpu_torch.utils import varint
 from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
@@ -86,10 +96,24 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (consensus, ("ConsensusState", "Handshaker", "WAL", "TimeoutTicker", "HeightVoteSet")),
                  (mempool, ("TxMempool", "LRUTxCache")), (preverify, ("EngineTxPreVerifier", "make_sig_tx")),
                  (privval, ("FilePV",)), (metrics, ("ConsensusMetrics", "MempoolMetrics")),
-                 (state.BlockExecutor, ("extend_vote", "verify_vote_extension"))):
+                 (state.BlockExecutor, ("extend_vote", "verify_vote_extension")),
+                 (p2p, ("TcpTransport", "TcpConnection", "SecretConnection", "PexReactor",
+                        "pex_channel_descriptor")),
+                 (secret_connection, ("route", "derive_secrets", "hkdf_sha256")),
+                 (softcrypto, ("ChaCha20Poly1305", "X25519PrivateKey", "X25519PublicKey", "hkdf_sha256", "x25519")),
+                 (native, ("aead_chacha20poly1305",)), (varint, ("encode_uvarint", "read_uvarint")),
+                 (cs_reactor, ("ConsensusReactor", "consensus_channel_descriptors", "encode_consensus_msg",
+                               "decode_consensus_msg")),
+                 (mp_reactor, ("MempoolReactor", "mempool_channel_descriptor", "encode_txs_frame",
+                               "decode_txs_frame")),
+                 (evidence, ("EvidenceReactor", "evidence_channel_descriptor"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
+key = bytes(range(32))
+assert native.aead_chacha20poly1305(True, key, bytes(12), b"", b"frame")[:5] != b"frame"
+assert native.aead_chacha20poly1305(False, key, bytes(12), b"",
+                                    native.aead_chacha20poly1305(True, key, bytes(12), b"", b"frame")) == b"frame"
 assert merkle.hash_from_byte_slices([b"x"] * 16) == native.merkle_root([b"x"] * 16)
 with open("/proc/self/maps") as f:
     maps = f.read()
@@ -274,3 +298,38 @@ def test_kernel_build_needs_nvcc(monkeypatch):
                                    "verify_sr_cached_single", "fail_count"}
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()
+
+
+def test_default_device_gossiped_admission_reaches_on_fatal(monkeypatch):
+    """A MempoolReactor over a TxMempool whose EngineTxPreVerifier was built
+    without `device`: without CUDA, a gossiped frame's admission raises a
+    marked fault, which the reactor hands to on_fatal (no peer reported,
+    nothing admitted), instead of verifying on the host."""
+    import time
+
+    import chip_smoke as cs
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.crypto.batch import is_fault
+    from tendermint_tpu_torch.mempool import TxMempool
+    from tendermint_tpu_torch.mempool.preverify import EngineTxPreVerifier, make_sig_tx
+    from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+    from tendermint_tpu_torch.p2p.types import Envelope
+
+    class App:
+        def check_tx(self, req):
+            return abci.ResponseCheckTx(code=0, gas_wanted=1)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TM_TPU_CRYPTO", "auto")
+    monkeypatch.setattr(ed, "DEVICE_BATCH_CUTOVER", 2)
+    txs = [make_sig_tx(bytes([i + 1]) * 32, b"k%d=v" % i) for i in range(3)]
+    pool, fatal = TxMempool(App(), pre_verify=EngineTxPreVerifier()), []
+    ch = cs.StubChannel([Envelope(message=txs, from_="ab" * 20)])
+    reactor = MempoolReactor(pool, ch, cs.StubPeers(), on_fatal=fatal.append)
+    reactor.start()
+    deadline = time.monotonic() + 20
+    while not fatal and time.monotonic() < deadline:
+        time.sleep(0.01)
+    reactor.stop()
+    assert len(fatal) == 1 and isinstance(fatal[0], RuntimeError) and "no CUDA device" in str(fatal[0])
+    assert is_fault(fatal[0]) and ch.errors == [] and pool.size() == 0

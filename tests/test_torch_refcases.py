@@ -1,14 +1,15 @@
 """The reference's own test cases run on the port: tests/<name>.py loaded
 again with every import of the JAX package pointed at the port's module of
-the same name (tests/helpers.py and tests/test_consensus.py, which other
-test files import, likewise), so each assertion the reference makes of
-its mempool, private validator, consensus state machine, WAL, ticker and
-handshake is made of the port's. test_torch_mempool.py,
-test_torch_privval.py and test_torch_consensus.py collect the cases
-through `reference_cases` and run them through `run_reference_case`; the
-reference's files themselves are not changed. The port's entry points take
-their default device: the cases verify below the device cutover, on the
-host."""
+the same name (tests/helpers.py, tests/test_consensus.py and
+tests/test_p2p.py, which other test files import, likewise), so each
+assertion the reference makes of its mempool, private validator, consensus
+state machine, WAL, ticker, handshake, TCP transport, secret connection,
+PEX and reactors is made of the port's. test_torch_mempool.py,
+test_torch_privval.py, test_torch_consensus.py, test_torch_p2p_tcp.py and
+test_torch_reactors.py collect the cases through `reference_cases` and run
+them through `run_reference_case`; the reference's files themselves are not
+changed. The port's entry points take their default device: the cases
+verify below the device cutover, on the host."""
 
 from __future__ import annotations
 
@@ -22,7 +23,12 @@ import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the test modules other reference test files import by name
-SHARED = ("helpers", "test_consensus")
+SHARED = ("helpers", "test_consensus", "test_p2p")
+# the JAX package's modules a reference test file imports for cases the port
+# cannot run yet (the node, its config and CLI come with ROADMAP A14): their
+# import lines are left out of the port copy, and those cases are skipped
+# by name where they are collected
+LATER = {"test_pex": ("cli", "config", "node", "node.seed")}
 _COPIES: dict[str, types.ModuleType] = {}
 
 
@@ -31,6 +37,8 @@ def port_source(name: str) -> str:
     and the SHARED modules' imports pointed at their port copies."""
     with open(os.path.join(HERE, name + ".py")) as f:
         src = f.read()
+    for mod in LATER.get(name, ()):
+        src = re.sub(rf"^from tendermint_tpu\.{re.escape(mod)} import [^\n(]*\n", "", src, flags=re.M)
     src = re.sub(r"\btendermint_tpu\b", "tendermint_tpu_torch", src)
     shared = "|".join(SHARED)
     return re.sub(rf"^from ({shared}) import", r"from \1__port import", src, flags=re.M)
@@ -51,13 +59,16 @@ def port_copy(name: str) -> types.ModuleType:
     return _COPIES[name]
 
 
-def reference_cases(name: str, skip=()):
+def reference_cases(name: str, skip=(), only=None):
     """pytest params (module, test, kwargs) for every test function of
-    tests/<name>.py outside `skip`, each case of a parametrized one apart;
-    none is marked slow in the reference (a slow one would be left out)."""
+    tests/<name>.py outside `skip` (and, where `only` is given, in it), each
+    case of a parametrized one apart; none is marked slow in the reference
+    (a slow one would be left out)."""
     out = []
     for test, fn in vars(port_copy(name)).items():
         if not test.startswith("test_") or not inspect.isfunction(fn) or test in skip:
+            continue
+        if only is not None and test not in only:
             continue
         marks = getattr(fn, "pytestmark", [])
         if any(mk.name == "slow" for mk in marks):
@@ -84,7 +95,8 @@ def run_reference_case(name: str, test: str, kw: dict, request) -> None:
 
 
 @pytest.mark.parametrize("name", ["helpers", "test_consensus", "test_consensus_locking", "test_handshake",
-                                  "test_mempool", "test_privval"])
+                                  "test_mempool", "test_privval", "test_p2p", "test_mconn", "test_pex",
+                                  "test_consensus_reactor", "test_mempool_reactor"])
 def test_port_copies_reach_only_the_port(name):
     """A port copy names no module of the JAX package, and every package
     module in its namespace is the port's."""

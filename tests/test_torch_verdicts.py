@@ -154,3 +154,157 @@ def test_nil_validator_set_is_a_verdict():
     assert issubclass(tvalidation.CommitVerificationError, ValueError)
     assert tvalidation.VERDICT_ERRORS == (tvalidation.CommitVerificationError,
                                           tvalidation.NotEnoughVotingPowerError)
+
+
+# -- the reactors: a gossiped check's fault is no peer's fault -----------------
+
+PEER = "ab" * 20
+REACTOR_DEADLINE_S = 20
+
+
+@pytest.fixture(params=["auto", "off"])
+def engine_branch(request, monkeypatch):
+    """device_branch's cutovers at 1, with the engine on (auto) or off."""
+    monkeypatch.setattr(ted, "DEVICE_BATCH_CUTOVER", 1)
+    monkeypatch.setattr(ted, "MSM_BATCH_CUTOVER", 1)
+    monkeypatch.setenv("TM_TPU_ENGINE", request.param)
+    return request.param
+
+
+def run_reactor(make, envelopes):
+    """A reactor make(channel, peers, on_fatal) started over a stub channel
+    that delivers `envelopes`; once its receive loop has taken them all, the
+    reactor is stopped and its threads joined (the loop finishes what it
+    took first). Returns (what on_fatal got, the peer errors, the reactor)."""
+    import time
+
+    fatal = []
+    ch = cs.StubChannel(envelopes)
+    reactor = make(ch, cs.StubPeers(), fatal.append)
+    reactor.start()
+    deadline = time.monotonic() + REACTOR_DEADLINE_S
+    while ch.inbox and time.monotonic() < deadline:
+        time.sleep(0.01)
+    reactor.stop()
+    for t in reactor._threads:
+        t.join(REACTOR_DEADLINE_S)
+        assert not t.is_alive()
+    return fatal, [(e.node_id, f"{type(e.err).__name__}: {e.err}") for e in ch.errors], reactor
+
+
+def mempool_reactor(pkg, pool):
+    from tendermint_tpu.mempool.reactor import MempoolReactor as JReactor
+    from tendermint_tpu_torch.mempool.reactor import MempoolReactor as TReactor
+
+    if pkg == "port":
+        return lambda ch, peers, on_fatal: TReactor(pool, ch, peers, on_fatal=on_fatal)
+    return lambda ch, peers, on_fatal: JReactor(pool, ch, peers)
+
+
+def envelope(message):
+    from tendermint_tpu_torch.p2p.types import Envelope
+
+    return Envelope(message=message, from_=PEER)
+
+
+def test_gossiped_admission_fault_reaches_mempool_on_fatal(engine_branch):
+    """A frame of signed-tx envelopes gossiped in while the device entry
+    points raise a kernel wrapper's ValueError: the mempool reactor hands the
+    fault to on_fatal and stops; no peer is reported and nothing admitted;
+    the same txs are admitted when submitted again."""
+    from test_torch_mempool import App, envelopes
+    from tendermint_tpu_torch.abci import types as tabci
+    from tendermint_tpu_torch.mempool import mempool as tmempool
+    from tendermint_tpu_torch.mempool import preverify as tpreverify
+
+    pool = tmempool.TxMempool(App(tabci), pre_verify=tpreverify.EngineTxPreVerifier(device="cpu"))
+    txs = envelopes()
+    with cs.failing_entries(FAULT):
+        fatal, errors, reactor = run_reactor(mempool_reactor("port", pool), [envelope(txs)])
+    assert [f"{type(e).__name__}: {e}" for e in fatal] == [f"ValueError: {FAULT}"]
+    assert errors == [] and pool.size() == 0 and reactor.fault is fatal[0] and reactor._stop.is_set()
+    codes = [getattr(o, "code", type(o).__name__) for o in pool.check_tx_batch(txs)]
+    assert codes == [0, 0, 0, 1, 0, 0, 0, 0, 0, 1, "TxInCacheError"] and pool.size() == 8
+
+
+def test_gossiped_admission_verdicts_keep_reference_outcomes(engine_branch):
+    """Without a fault, the port's reactor treats a frame as the reference's
+    does, on the same device branch (the plain versions): a malformed frame
+    reports its sender; a tx whose signature fails is refused (code 1) like
+    an app's refusal, which reports no peer in the reference either; the
+    pool admits the same txs."""
+    from test_torch_mempool import App, envelopes
+    from tendermint_tpu.abci import types as jabci
+    from tendermint_tpu.mempool import mempool as jmempool
+    from tendermint_tpu.mempool import preverify as jpreverify
+    from tendermint_tpu_torch.abci import types as tabci
+    from tendermint_tpu_torch.mempool import mempool as tmempool
+    from tendermint_tpu_torch.mempool import preverify as tpreverify
+    from tendermint_tpu_torch.mempool.reactor import TXS_FRAME_MAGIC
+
+    got = {}
+    for pkg, abci, mp, pv in (("port", tabci, tmempool, tpreverify.EngineTxPreVerifier(device="cpu")),
+                              ("jax", jabci, jmempool, jpreverify.EngineTxPreVerifier())):
+        pool = mp.TxMempool(App(abci), pre_verify=pv)
+        fatal, errors, _ = run_reactor(mempool_reactor(pkg, pool),
+                                       [envelope(envelopes()), envelope(TXS_FRAME_MAGIC + b"\x05\x01")])
+        got[pkg] = (fatal, errors, sorted(pool.reap_max_txs(-1)))
+    assert got["port"] == got["jax"]
+    assert got["port"][1] == [(PEER, "ValueError: truncated Txs frame")] and len(got["port"][2]) == 8
+
+
+def evidence_reactor(pkg, plane, device):
+    """(make, evidence) for the plane's lunatic evidence: a reactor of the
+    package over an EvidencePool on test_torch_light_client's chain."""
+    from tendermint_tpu.evidence.pool import EvidencePool as JPool
+    from tendermint_tpu.evidence.reactor import EvidenceReactor as JReactor
+    from tendermint_tpu_torch.evidence.pool import EvidencePool as TPool
+    from tendermint_tpu_torch.evidence.reactor import EvidenceReactor as TReactor
+
+    m, chain, ev = lunatic(pkg, plane)
+    blocks = {h: lb for h, lb in chain.blocks.items() if h <= HEIGHTS}
+
+    class Stores(cs.ChainStore):
+        def load(self):
+            return cs.chain_state(blocks, CHAIN_ID)
+
+    stores = Stores(blocks)
+    if pkg == "port":
+        pool = TPool(m.kv.MemDB(), stores, stores, device=device)
+        return (lambda ch, peers, on_fatal: TReactor(pool, ch, peers, on_fatal=on_fatal)), pool, ev
+    pool = JPool(m.kv.MemDB(), stores, stores)
+    return (lambda ch, peers, on_fatal: JReactor(pool, ch, peers)), pool, ev
+
+
+@pytest.mark.parametrize("plane", cs.PLANES)
+def test_gossiped_evidence_fault_reaches_evidence_on_fatal(plane, engine_branch):
+    """Lunatic evidence gossiped in while the device entry points raise: the
+    evidence reactor hands the fault to on_fatal and stops, reporting no
+    peer (the reference reports the honest sender); the pool holds nothing,
+    and takes the same evidence once the card works."""
+    make, pool, ev = evidence_reactor("port", plane, "cpu")
+    with cs.failing_entries(FAULT):
+        fatal, errors, reactor = run_reactor(make, [envelope(ev)])
+    assert [f"{type(e).__name__}: {e}" for e in fatal] == [f"ValueError: {FAULT}"]
+    assert errors == [] and pool.size() == 0 and reactor.fault is fatal[0]
+    pool.add_evidence(ev)
+    assert pool.size() == 1
+
+
+@pytest.mark.parametrize("plane", cs.PLANES)
+def test_gossiped_invalid_evidence_evicts_its_sender(plane, engine_branch):
+    """Lunatic evidence whose conflicting commit carries an altered signature
+    reports its sender in both packages, with the same error; valid evidence
+    reports nobody and enters both pools."""
+    got = {}
+    for pkg in ("port", "jax"):
+        make, pool, ev = evidence_reactor(pkg, plane, "cpu")
+        bad = copy.deepcopy(ev)
+        sig = bad.conflicting_block.signed_header.commit.signatures[0]
+        sig.signature = cs.tamper(sig.signature)
+        fatal, errors, _ = run_reactor(make, [envelope(bad), envelope(ev)])
+        got[pkg] = (fatal, errors, pool.size())
+    assert got["port"] == got["jax"]
+    (peer, err), = got["port"][1]
+    assert peer == PEER and err.startswith("EvidenceVerifyError") and "verifying conflicting commit" in err
+    assert got["port"][2] == 1
