@@ -263,11 +263,47 @@ Both signature planes run the same phases, each fatal on failure:
      peer is reported and it signs no prevote; (f) heights/s of the
      network, each node's busy and CPU ms, AEAD seal and open ms and bytes,
      votes and duplicates received and the card's ms a height, beside the
-     card's name and power limit.
+     card's name and power limit;
+ 16. the node as its operators run it (node/, rpc/, config/, pubsub/,
+     eventbus/, indexer/, cli.py), on each plane: `python -m
+     tendermint_tpu_torch testnet --validators 150` writes the homes
+     (genesis patched to phase 15's timeouts, a 30 s propose timeout), `init seed` and `init full`
+     two more; a seed process and four validator processes started by
+     `start` (the fourth through cli_launcher, which can fail its device
+     entry points on a trigger file), RPC and Prometheus on ephemeral ports,
+     each knowing only the seed; NetHarness plays the other 146 from their
+     priv_validator_key.json and proposes every block. (a) PEX through the
+     seed meshes them, every node leaves blocksync for consensus; the time
+     from `start` to the first RPC answer; (b) 8 heights (ed25519) or 3
+     (sr25519): each node's launches from its /metrics
+     (kernel_launches_total, the engine's rows by path) held window by
+     window (none at 1, a fill and a hit at 2, a hit a height, its rows the
+     LastCommit's), block, commit, validators, block_results, abci_query and
+     tx_search equal on every node at every height, a NewBlock on each
+     node's WebSocket for every height; (c) ed25519: 1,024 envelopes in one
+     JSON-RPC batch POST to node 0's broadcast_tx_async, then 1,024 with
+     #517 tampered: every node's rows sum to the envelopes it admitted,
+     each batch on the plane its size takes, #517 refused at node 0 and in
+     no node's unconfirmed_txs; broadcast_tx_commit of one more returns its
+     height; tx and tx_search find all 2,048 on every node; (d) a lunatic
+     attack to node 0's broadcast_evidence, one 101-row hit on every node
+     (node 0's, the gossip's), listed in the next block; an equivocation
+     committed as DuplicateVoteEvidence (host); (e) the fourth node's device
+     entry points failing, broadcast_tx_sync of an envelope there is
+     answered -32603 and its log shows the halt; the other three commit two
+     more heights; (f) ed25519: a full node from `init full` blocksyncs,
+     switches to consensus and commits the top block, its rows held
+     exactly, its fills and hits as predicted; (g) heights/s, each node
+     process's CPU ms a height, the launcher node's consensus-thread and
+     card ms a height, the RPC's latency by route, broadcast_tx_commit, the
+     WebSocket's lag, the admission batches and the full node's blocks/s,
+     beside the card's name and power limit.
 
-Phases 3, 5, 6, 7, 10, 11, 12, 13, 14 and 15 are each a main path: every call in them runs
-with the launch counters set to 0 just before it and read just after, and
-each phase fails if one of its kernels never launched. They run at the
+Phases 3, 5, 6, 7, 10, 11, 12, 13, 14, 15 and 16 are each a main path: every call in them runs
+with the launch counters set to 0 just before it and read just after (phase
+16's node processes count from their start, and each window is the
+difference of two reads of a node's /metrics), and each phase fails if one
+of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
 TM_TPU_AUTOTUNE=off, so the probe's launches, which land from a thread at
 an unknown time, stay out of their counts. Phase 4's split of the valid
@@ -5769,21 +5805,20 @@ def aead_timer(sc):
 
 
 @contextlib.contextmanager
-def card_timer():
-    """CUDA events around each kernel wrapper's call, on the calling thread's
-    current stream; yields a list that holds each launch's (wrapper, ms) after
-    exit. No-op without a card."""
+def launch_events():
+    """card_timer's CUDA events, left readable while the block runs: yields
+    the list of (wrapper, start, end) it appends to at each launch. No-op
+    without a card."""
     import torch
 
-    out = []
-    if not torch.cuda.is_available():
-        yield out
-        return
     from tendermint_tpu_torch.ops import msm as M
     from tendermint_tpu_torch.ops import verify as V
     from tendermint_tpu_torch.ops import verify_sr as VS
 
     events, saved = [], []
+    if not torch.cuda.is_available():
+        yield events
+        return
     for mod in (V, VS, M):
         for fn in kernel_wrappers():
             name = fn.__name__
@@ -5804,13 +5839,26 @@ def card_timer():
             saved.append((mod, name, real))
             setattr(mod, name, timed)
     try:
-        yield out
+        yield events
     finally:
         for mod, name, real in saved:
             real.launches = getattr(mod, name).launches
             setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def card_timer():
+    """CUDA events around each kernel wrapper's call, on the calling thread's
+    current stream; yields a list that holds each launch's (wrapper, ms) after
+    exit. No-op without a card."""
+    import torch
+
+    out = []
+    with launch_events() as events:
+        yield out
+    if torch.cuda.is_available():
         torch.cuda.synchronize()
-        out.extend((name, start.elapsed_time(end)) for name, start, end in events)
+    out.extend((name, start.elapsed_time(end)) for name, start, end in events)
 
 
 class NetNode:
@@ -6055,7 +6103,8 @@ class NetHarness:
     (cs_stores over MemDBs) applies each committed block, as the nodes
     validated it, to build the harness's proposals and attacks from."""
 
-    def __init__(self, m, gen, members, sign, children, dev):
+    def __init__(self, m, gen, members, sign, children, dev, dial=None):
+        """dial: the one address the harness starts from (node 0's by default)."""
         import threading
 
         self.m, self.gen, self.sign, self.children, self.dev = m, gen, sign, children, dev
@@ -6068,6 +6117,10 @@ class NetHarness:
                                                  evidence_pool=self.replica.pool, block_store=self.replica.blocks)
         self.blocks, self.bids, self.spent = {}, {}, {}  # spent: seconds signing and sending votes, by height
         self.steps, self.proposals, self.votes = {}, {}, {}
+        # the blocks the harness proposed; when each node was first seen at
+        # (height, step); the addresses of halted nodes' validators, whose
+        # precommits a LastCommit no longer waits for; the last equivocation
+        self.proposed, self.step_times, self.halted, self.equivocation = {}, {}, set(), None
         self.cond, self.stop = threading.Condition(), threading.Event()
         key = m.node_key.generate(NET_HARNESS_SEED)
         self.nid = m.p2p.node_id_from_pubkey(key.pub_key())
@@ -6082,7 +6135,7 @@ class NetHarness:
         self.pex.start()
         for t in self.threads:
             t.start()
-        self.pm.add(m.p2p.Endpoint.parse(children[0].addr))
+        self.pm.add(m.p2p.Endpoint.parse(dial or children[0].addr))
 
     def close(self):
         self.stop.set()
@@ -6101,6 +6154,7 @@ class NetHarness:
             with self.cond:
                 if isinstance(msg, Msgs.NewRoundStepMessage):
                     self.steps[env.from_] = max(self.steps.get(env.from_, (0, 0, 0)), (msg.height, msg.round, msg.step))
+                    self.step_times.setdefault((env.from_, msg.height, msg.step), time.monotonic())
                 elif isinstance(msg, Msgs.ProposalMessage):
                     self.proposals[(msg.proposal.height, msg.proposal.round)] = msg.proposal
                 elif isinstance(msg, Msgs.VoteMessage):
@@ -6131,15 +6185,19 @@ class NetHarness:
             return m.block.Commit()
         vals = self.replica.states.load_validators(h - 1)
         key = (h - 1, 0, m.vote.PRECOMMIT)
-        self.wait(f"all {vals.size()} precommits of height {h - 1}",
-                  lambda: len(self.votes.get(key, {})) == vals.size())
+        want = vals.size() - sum(1 for v in vals.validators if v.address in self.halted)
+        self.wait(f"all {want} precommits of height {h - 1}", lambda: len(self.votes.get(key, {})) >= want)
         pcs = self.votes[key]
         return m.block.Commit(height=h - 1, round=0, block_id=self.bids[h - 1],
-                              signatures=[pcs[i].to_commit_sig() for i in range(vals.size())])
+                              signatures=[pcs[i].to_commit_sig() if i in pcs else m.block.CommitSig.new_absent()
+                                          for i in range(vals.size())])
 
-    def height(self, h, live, before_precommits=None, equivocate=None):
+    def height(self, h, live, before_precommits=None, equivocate=None, fetch=None, report=False):
         """Drive height h in round 0 among the nodes `live` (children);
-        returns when each has committed it, the replica with it."""
+        returns when each has committed it, the replica with it. fetch(h)
+        gives the committed block's bytes (by default node live[0]'s);
+        `report` hands an equivocation's two prevotes to the replica's
+        evidence pool too, as a node that saw both does."""
         m, st = self.m, self.replica.state
         PV, PC = m.vote.PREVOTE, m.vote.PRECOMMIT
         proposer = st.validators.get_proposer().address
@@ -6150,6 +6208,7 @@ class NetHarness:
             bid = m.block.BlockID(block.hash(), parts.header)
             prop = m.proposal.Proposal(height=h, round=0, pol_round=-1, block_id=bid, timestamp=block.header.time)
             prop.signature = self.sign([self.secrets[proposer]], [prop.sign_bytes(self.chain_id)])[0]
+            self.proposed[h] = block
             for msg in [m.messages.ProposalMessage(prop)] + [
                     m.messages.BlockPartMessage(h, 0, parts.get_part(i)) for i in range(parts.total())]:
                 self.data.broadcast(msg, timeout=5)
@@ -6167,6 +6226,7 @@ class NetHarness:
             self.vote.send_to(to_a, m.messages.VoteMessage(honest), timeout=5)
             self.vote.send_to(to_b, m.messages.VoteMessage(other), timeout=5)
             skip = (val_index,)
+            self.equivocation = (honest, other)
         for v in prevotes:
             if v.validator_index not in skip:
                 self.vote.broadcast(m.messages.VoteMessage(v), timeout=5)
@@ -6187,7 +6247,7 @@ class NetHarness:
         self.spent[h] += time.perf_counter() - t0
         nids = [c.nid for c in live]
         self.wait(f"every node's commit of height {h}", lambda: all(self.steps.get(n, (0,))[0] > h for n in nids))
-        raw = live[0].call("block", h)
+        raw = fetch(h) if fetch is not None else live[0].call("block", h)
         block = m.block.Block.from_proto(m.pb.Block.decode(raw))
         if block.hash() != bid.hash:
             raise AssertionError(f"phase 15: height {h} committed {block.hash().hex()}, proposed {bid.hash.hex()}")
@@ -6198,6 +6258,8 @@ class NetHarness:
             pcs[i].to_commit_sig() if i in pcs else m.block.CommitSig.new_absent()
             for i in range(st.validators.size())])
         self.replica.blocks.save_block(block, block.make_part_set(m.block.BLOCK_PART_SIZE_BYTES), seen)
+        if report and equivocate is not None:
+            self.replica.pool.report_conflicting_votes(*self.equivocation)
         with env_setting("TM_TPU_CRYPTO", "off"):
             self.replica.state = self.replica.executor.apply_block(self.replica.state, bid, block)
         return block
@@ -6611,6 +6673,922 @@ def _network_timings(kind, reports, harness, heights, E, L, flood, mesh_s, n_val
                  "node_s": sum(p["busy_ms"] for p in per) / len(per) / 1e3})
 
 
+# -- phase 16: the node as its operators run it ---------------------------------
+
+CLI_NODES = 4
+CLI_HEIGHTS = {"ed25519": 8, "sr25519": 3}  # heights every node commits; the fault's height and one more follow
+CLI_EQUIVOCATE_AT = {"ed25519": 4, "sr25519": 2}
+CLI_LUNATIC_AT = {"ed25519": 6, "sr25519": 3}  # (d): its precommits wait for every node's check of the attack
+CLI_FLOOD_AT = 3  # (c), ed25519: its precommits wait for both batches' admissions at every node
+CLI_COMMIT_AT = 4  # (c), ed25519: broadcast_tx_commit's envelope, admitted here, committed the height after
+CLI_FAULT_NODE = 3  # (e): started through cli_launcher
+CLI_START_S = 120  # a node process's start-up: imports, its stores, its router, its RPC
+CLI_SYNC_S = 120  # (f): the full node's blocksync
+CLI_RPC_S = 30  # a client's timeout
+CLI_PAGE = 100  # the RPC's largest page
+LABELS = ("pk_table_build", "bitmap_cached", "rlc")  # kernel_launches_total's labels on this path
+# phase 15's timeouts, but a propose timeout that outlasts the harness's work
+# between heights (the RPC's checks, a 2,047-tx block to build): a node that
+# waits for the proposal must never prevote nil in round 0
+CLI_TIMEOUTS = {**NET_TIMEOUTS, "propose": 30_000_000_000}
+
+
+def cli_modules():
+    """network_modules' and the port's RPC client."""
+    from tendermint_tpu_torch import privval
+    from tendermint_tpu_torch.rpc import client as rpc_client
+
+    return SimpleNamespace(**vars(network_modules()), rpc_client=rpc_client, privval=privval)
+
+
+def cli_command(args, home=None, timeout=300):
+    """`python -m tendermint_tpu_torch [--home home] args` to its end; its stdout."""
+    argv = [sys.executable, "-m", "tendermint_tpu_torch"] + (["--home", home] if home else []) + list(args)
+    proc = subprocess.run(argv, cwd=ROOT, env=cli_env(), capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"phase 16: `{' '.join(argv[1:])}` exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def cli_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def cli_launcher(home, trigger, dump, message):
+    """Phase 16's faulty node, in a process of its own: `start` through the
+    port's CLI (cli.main), with a thread that, once the file `trigger`
+    exists, makes every device entry point of both planes raise the kernel
+    wrapper's ValueError(message) and sends every batch to the card (both
+    cutovers at 1, so one envelope reaches the failing entry point); and
+    that writes to `dump`, every 0.2 s, the kernel wrappers' launch counts,
+    each launch's card ms (CUDA events around the wrapper), the consensus
+    thread's busy and CPU seconds, and whether the fault is installed."""
+    import threading
+
+    import torch
+
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.consensus.state import ConsensusState
+    from tendermint_tpu_torch.crypto import ed25519 as ted
+
+    stack = contextlib.ExitStack()
+    spent = stack.enter_context(thread_times([(ConsensusState, "_dispatch", "node")]))
+    events = stack.enter_context(launch_events())
+    state = {"fault": False}
+
+    def watch():
+        while True:
+            if not state["fault"] and os.path.exists(trigger):
+                ted.DEVICE_BATCH_CUTOVER = ted.MSM_BATCH_CUTOVER = 1
+                stack.enter_context(failing_entries(message))
+                state["fault"] = True
+            card = [(name, start.elapsed_time(end)) for name, start, end in list(events) if end.query()]
+            tmp = dump + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"counts": read_counts(), "card": card, "busy_s": spent["node"],
+                           "cpu_s": spent["node_cpu"], "fault": state["fault"]}, f)
+            os.replace(tmp, dump)
+            time.sleep(0.2)
+
+    if torch.cuda.is_available():
+        torch.cuda.init()
+    threading.Thread(target=watch, daemon=True, name="launcher-watch").start()
+    return cli.main(["--home", home, "start"])
+
+
+def scrape(url):
+    """A Prometheus text exposition as {(name, ((label, value), ...)): value}."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=CLI_RPC_S) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        pairs = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', labels)))
+        out[(name, pairs)] = float(value)
+    return out
+
+
+def metric(sample, name, **labels):
+    """The sum of a family's samples whose labels include `labels`."""
+    want = set(labels.items())
+    return sum(v for (n, pairs), v in sample.items() if n == name and want <= set(pairs))
+
+
+def launches_of(sample):
+    return {k: int(metric(sample, "tendermint_engine_kernel_launches_total", kernel=k)) for k in LABELS}
+
+
+def engine_rows(sample, plane_name):
+    """Rows and launches by the engine's path on a plane, and rejected rows."""
+    paths = {dict(p).get("path") for (n, p) in sample if n == "tendermint_engine_path_rows_total"}
+    rows = {path: int(metric(sample, "tendermint_engine_path_rows_total", plane=plane_name, path=path))
+            for path in paths if path}
+    launches = {path: int(metric(sample, "tendermint_engine_launches_total", plane=plane_name, path=path))
+                for path in paths if path}
+    rejected = int(metric(sample, "tendermint_engine_path_rows_total", plane=plane_name, status="reject"))
+    return {"rows": rows, "launches": launches, "rejected": rejected}
+
+
+def delta(after, before):
+    if isinstance(after, dict):
+        out = {k: delta(v, before.get(k, 0 if not isinstance(v, dict) else {})) for k, v in after.items()}
+        return {k: v for k, v in out.items() if v}
+    return after - before
+
+
+def proc_cpu_s(pid):
+    """A process's user and system CPU seconds, from /proc."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class CliNode:
+    """A node process started through the CLI (`python -m
+    tendermint_tpu_torch --home H start`, or cli_launcher's): its stdout's
+    addresses, its log, an RPC client, its /metrics and its WebSocket's
+    NewBlock arrivals. A process that exits early or misses a deadline
+    fails the phase."""
+
+    def __init__(self, index, home, argv, log_path):
+        import queue
+        import threading
+
+        self.index, self.home, self.log_path = index, home, log_path
+        self.t_spawn = time.monotonic()
+        self.log_file = open(log_path, "w")
+        self.proc = subprocess.Popen(argv, cwd=ROOT, env=cli_env(), stdout=subprocess.PIPE, stderr=self.log_file,
+                                     text=True, start_new_session=True)
+        self.lines = queue.Queue()
+        threading.Thread(target=lambda: [self.lines.put(line) for line in self.proc.stdout], daemon=True,
+                         name=f"cli-node-{index}-stdout").start()
+        self.rpc = self.metrics_url = self.ws = None
+        self.new_blocks = {}  # height -> arrival (monotonic) of its NewBlock event
+        self.rpc_ms = {}  # route -> [ms]
+
+    def ready(self, what, timeout=CLI_START_S):
+        """Wait for the start-up lines; returns {name: value} of `name: value` lines."""
+        import queue
+
+        got, deadline = {}, time.monotonic() + timeout
+        while "p2p" not in got or (what == "node" and "prometheus" not in got):
+            try:
+                line = self.lines.get(timeout=max(0.0, min(1.0, deadline - time.monotonic())))
+            except queue.Empty:
+                line = None
+            if line is not None:
+                key, sep, value = line.strip().partition(": ")
+                if sep:
+                    got[key] = value
+            elif self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"phase 16: {what} {self.index} did not start within {timeout} s (exit code "
+                                     f"{self.proc.poll()}):\n{self.log_tail()}")
+        self.addresses = got
+        if what == "node":
+            host_port = got["rpc"].split("//", 1)[1]
+            self.rpc_url = got["rpc"]
+            self.host, self.port = host_port.rsplit(":", 1)[0], int(host_port.rsplit(":", 1)[1])
+            self.metrics_url = got["prometheus"]
+        return got
+
+    def client(self, m):
+        self.rpc = m.rpc_client.HTTPClient(self.rpc_url, timeout=CLI_RPC_S)
+        self.t_first_rpc = None
+        deadline = time.monotonic() + CLI_START_S
+        while self.t_first_rpc is None:
+            try:
+                self.rpc.call("health")
+                self.t_first_rpc = time.monotonic()
+            except (OSError, m.rpc_client.RPCClientError):
+                if time.monotonic() > deadline or self.proc.poll() is not None:
+                    raise
+                time.sleep(0.05)
+
+    def call(self, method, **params):
+        t0 = time.perf_counter()
+        out = self.rpc.call(method, **params)
+        self.rpc_ms.setdefault(method, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def batch(self, requests):
+        """One JSON-RPC batch POST of [(method, params)]; the results in order."""
+        import http.client
+
+        body = json.dumps([{"jsonrpc": "2.0", "id": i, "method": meth, "params": params}
+                           for i, (meth, params) in enumerate(requests)])
+        conn = http.client.HTTPConnection(self.host, self.port, timeout=CLI_RPC_S)
+        try:
+            conn.request("POST", "/", body=body, headers={"Content-Type": "application/json"})
+            out = json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+        out = sorted(out, key=lambda r: r["id"])
+        errors = [r["error"] for r in out if "error" in r]
+        if errors:
+            raise AssertionError(f"phase 16: node {self.index}'s batch of {len(requests)} answered {errors[:3]}")
+        return [r["result"] for r in out]
+
+    def scrape(self):
+        if self.proc.poll() is not None:
+            raise AssertionError(f"phase 16: node {self.index} exited {self.proc.returncode}:\n{self.log_tail()}")
+        return scrape(self.metrics_url)
+
+    def subscribe(self, m):
+        import threading
+
+        self.ws = m.rpc_client.WSClient(self.host, self.port, timeout=CLI_RPC_S)
+        self.ws.subscribe("tm.event = 'NewBlock'")
+
+        def read():
+            while not self.ws._closed.is_set():
+                ev = self.ws.next_event(timeout=0.5)
+                if ev is not None and ev["data"]["type"] == "tendermint/event/NewBlock":
+                    self.new_blocks.setdefault(int(ev["data"]["value"]["block"]["header"]["height"]),
+                                               time.monotonic())
+
+        threading.Thread(target=read, daemon=True, name=f"cli-node-{self.index}-ws").start()
+
+    def log_tail(self, n=6000):
+        self.log_file.flush()
+        with open(self.log_path, errors="replace") as f:
+            return f.read()[-n:]
+
+    def kill(self):
+        import signal
+
+        if self.ws is not None:
+            self.ws.close()
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(10)
+            except subprocess.TimeoutExpired:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait(10)
+        self.log_file.close()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_config(home, gen, **settings):
+    """Write gen to home and set the config's {section.key: value}."""
+    from tendermint_tpu_torch.config import load_config
+
+    gen.save_as(os.path.join(home, "config", "genesis.json"))
+    cfg = load_config(home)
+    for key, value in settings.items():
+        section, _, attr = key.rpartition(".")
+        setattr(getattr(cfg, section) if section else cfg.base, attr, value)
+    cfg.save()
+    return cfg
+
+
+def cli_phase(planes, chain_id, built, runs, tmp):
+    """Phase 16 on each plane: a testnet from the CLI, a seed and four node
+    processes started by it, served over JSON-RPC, NetHarness playing the
+    other 146; (b) the heights, (c) txs over RPC, (d) evidence over RPC,
+    (e) a fault, (f) a full node joining, (g) the timings."""
+    import multiprocessing
+
+    m = cli_modules()
+    totals = {}
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
+        sign = pool_signer(pool)
+        log(f"phase 16: the harness's signing pool started in {time.perf_counter() - t0:.1f} s")
+        for kind, P in planes.items():
+            _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, os.path.join(tmp, kind))
+    check_path("phase 16", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()]
+               + [{plane("ed25519").rlc.__name__: 1}])
+    return totals
+
+
+def cli_members(m, out, n):
+    """The testnet's validators (kind, public key, (kind, secret)), home by
+    home, from each home's priv_validator_key.json."""
+    members = []
+    for i in range(n):
+        cfg_dir = os.path.join(out, f"node{i}", "config")
+        pv = m.privval.FilePV.load(os.path.join(cfg_dir, "priv_validator_key.json"),
+                                   os.path.join(out, f"node{i}", "data", "priv_validator_state.json"))
+        kind = pv.get_pub_key().type_name
+        raw = pv.priv_key.bytes()
+        members.append((kind, pv.get_pub_key().bytes(), (kind, raw[:32] if kind == "ed25519" else raw)))
+    return members
+
+
+def tx_feed(m):
+    """The harness's block builder's mempool: BlockExecutor's replay stub,
+    whose reap hands over the txs put in `txs` since the last reap."""
+
+    class TxFeed(m.execution._NopMempool):
+        txs = []
+
+        def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+            out, self.txs = self.txs, []
+            return out
+
+    return TxFeed()
+
+
+def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
+    import dataclasses
+
+    import torch
+
+    dev = torch.device("cuda", 0)
+    ed = plane("ed25519")
+    H = CLI_HEIGHTS[kind]
+    E, L, F = CLI_EQUIVOCATE_AT[kind], CLI_LUNATIC_AT[kind], H + 1
+    flood = kind == "ed25519"
+    chain = f"{chain_id}-cli-{kind}"
+    out = os.path.join(where, "net")
+    t0 = time.perf_counter()
+    # the testnet, the seed's home and the full node's, each by the CLI, at once
+    jobs = [(["testnet", "--validators", str(CS_VALIDATORS), "--key", kind, "--chain-id", chain,
+              "--starting-port", "0", "--output", out], None),
+            (["init", "seed", "--chain-id", chain], os.path.join(where, "seed")),
+            (["init", "full", "--chain-id", chain], os.path.join(where, "full"))]
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda job: cli_command(*job), jobs))
+    gen = m.genesis.GenesisDoc.from_file(os.path.join(out, "node0", "config", "genesis.json"))
+    gen.consensus_params = dataclasses.replace(gen.consensus_params, timeout=m.params.TimeoutParams(**CLI_TIMEOUTS))
+    members = cli_members(m, out, CS_VALIDATORS)
+    index_of = {m.keys[k](pub).address(): i for i, (k, pub, _) in enumerate(members)}
+    # the nodes' validators propose no height of the run: the harness builds every block
+    busy = set(proposer_schedule(m, gen, F + 2))
+    chosen = [i for i, (k, pub, _) in enumerate(members) if m.keys[k](pub).address() not in busy][:CLI_NODES]
+    log(f"phase 16: {kind} `testnet --validators {CS_VALIDATORS}`, `init seed` and `init full` in "
+        f"{time.perf_counter() - t0:.1f} s; the node processes hold homes {chosen}")
+    seed_port = free_port()
+    seed_home = os.path.join(where, "seed")
+    cli_config(seed_home, gen, **{"p2p.laddr": f"tcp://127.0.0.1:{seed_port}", "mode": "seed"})
+    seed_id = cli_command(["show-node-id"], seed_home).strip()
+    seed_addr = f"{seed_id}@127.0.0.1:{seed_port}"
+    node_settings = {"p2p.laddr": "tcp://127.0.0.1:0", "rpc.laddr": "tcp://127.0.0.1:0", "p2p.persistent_peers": "",
+                     "p2p.bootstrap_peers": seed_addr, "instrumentation.prometheus": True,
+                     "instrumentation.prometheus_listen_addr": "127.0.0.1:0", "mempool.precheck_sigs": True}
+    homes = [os.path.join(out, f"node{i}") for i in chosen]
+    for home in homes:
+        cli_config(home, gen, **node_settings)
+    trigger, dump = os.path.join(where, "fault"), os.path.join(where, "launcher.json")
+    message = f"no kernel for device {dev}"
+    cli = [sys.executable, "-m", "tendermint_tpu_torch"]
+    procs, harness = [], None
+    try:
+        t_start = time.perf_counter()
+        seed = CliNode("seed", seed_home, cli + ["--home", seed_home, "start"], os.path.join(where, "seed.log"))
+        procs.append(seed)
+        for i, home in enumerate(homes):
+            argv = (cli + ["--home", home, "start"] if i != CLI_FAULT_NODE else
+                    [sys.executable, "-c", f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                     f"sys.exit(chip_smoke.cli_launcher({home!r}, {trigger!r}, {dump!r}, {message!r}))"])
+            procs.append(CliNode(i, home, argv, os.path.join(where, f"node{i}.log")))
+        nodes = procs[1:]
+        seed.ready("seed")
+        for c in nodes:
+            c.ready("node")
+            c.client(m)
+            c.nid = c.call("status")["node_info"]["id"]
+            c.member_addr = m.keys[members[chosen[c.index]][0]](members[chosen[c.index]][1]).address()
+        first_rpc = {c.index: c.t_first_rpc - c.t_spawn for c in nodes}
+        log(f"phase 16: {kind} (a) the seed and {CLI_NODES} node processes started by the CLI in "
+            f"{time.perf_counter() - t_start:.1f} s; from `start` to the first RPC answer, s: "
+            + json.dumps({i: round(s, 3) for i, s in first_rpc.items()}))
+        # (a) the mesh by PEX through the seed; every node switched to consensus
+        harness = NetHarness(m, gen, members, sign, nodes, dev, dial="mconn://" + seed_addr)
+        harness.builder.mempool = feed = tx_feed(m)
+        t0 = time.perf_counter()
+        want_peers = lambda c: {o.nid for o in nodes if o is not c} | {harness.nid}  # noqa: E731
+        deadline = time.monotonic() + NET_MESH_S + CLI_START_S
+        while True:
+            infos = [c.call("net_info") for c in nodes]
+            meshed = all(want_peers(c) <= {p["node_id"] for p in info["peers"]} for c, info in zip(nodes, infos))
+            started = all(c.nid in harness.steps for c in nodes)
+            if meshed and started and {c.nid for c in nodes} <= set(harness.pm.peers()):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 16: {kind} (a) the mesh: {json.dumps(infos)[:2000]}; consensus "
+                                     f"started at {sorted(harness.steps)}")
+            time.sleep(0.1)
+        mesh_s = time.perf_counter() - t0
+        for c in nodes:
+            c.subscribe(m)
+        log(f"phase 16: {kind} (a) PEX through the seed meshed the {CLI_NODES} nodes and the harness, and every "
+            f"node switched from blocksync to consensus, in {mesh_s * 1e3:.1f} ms; net_info peers: "
+            + json.dumps({c.index: int(info["n_peers"]) for c, info in zip(nodes, infos)}))
+        seen = {"launches": {}, "rpc_checked": set(), "quiet": {}, "windows": []}
+        live = list(nodes)
+        scrapes = {c.index: [c.scrape()] for c in nodes}
+        cpu0 = {c.index: proc_cpu_s(c.proc.pid) for c in nodes}
+        t_committed = {}
+
+        def quiet(label, who=None):
+            """Every live node's /metrics now; each node's launches since its
+            last quiet point must be what `label`'s window predicts."""
+            for c in who or live:
+                sample = c.scrape()
+                scrapes[c.index].append(sample)
+                seen["windows"].append((c.index, label, sample))
+
+        def window(c, want, what, rows=None):
+            """Node c's launches (and engine rows on the plane) between its
+            last two quiet points, held to want (None: held by the caller)."""
+            a, b = scrapes[c.index][-1], scrapes[c.index][-2]
+            got = delta(launches_of(a), launches_of(b))
+            if want is not None and not counts_match(got, want):
+                raise AssertionError(f"phase 16: {kind} {what}: node {c.index} launched {got}, predicted {want}")
+            for label, v in got.items():
+                name = {"pk_table_build": P.fill, "bitmap_cached": P.hit, "rlc": ed.rlc}[label].__name__
+                totals[name] = totals.get(name, 0) + v
+            got_rows = delta(engine_rows(a, kind), engine_rows(b, kind))
+            if rows is not None and got_rows.get("rows", {}) != rows:
+                raise AssertionError(f"phase 16: {kind} {what}: node {c.index} verified rows {got_rows}, "
+                                     f"predicted {rows}")
+            seen["launches"].setdefault(c.index, []).append((what, got, got_rows))
+            return got, got_rows
+
+        def commit_rows(h):
+            """The rows of the LastCommit check at height h: the commit of
+            h - 1 as block h carries it, its present signatures."""
+            return sum(1 for s in harness.proposed[h].last_commit.signatures if not s.absent())
+
+        def rpc_agree(h, who):
+            """Each route at a height whose canonical commit every node of
+            `who` holds: the same JSON from each."""
+            # the indexer takes a block's txs from the event bus on a thread of its own
+            n_txs, deadline = str(len(harness.blocks[h].txs)), time.monotonic() + NET_STEP_S
+            while not all(c.call("tx_search", query=f"tx.height = {h}")["total_count"] == n_txs for c in who):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 16: {kind} (b) the nodes' index of height {h}'s {n_txs} txs")
+                time.sleep(0.05)
+            calls = [("block", {"height": h}), ("commit", {"height": h}), ("validators", {"height": h}),
+                     ("block_results", {"height": h}), ("abci_query", {"data": b"acct-1".hex()}),
+                     ("status", {}), ("tx_search", {"query": f"tx.height = {h}"})]
+            answers = {meth: [c.call(meth, **params) for c in who] for meth, params in calls}
+            for meth in ("block", "commit", "validators", "block_results", "abci_query", "tx_search"):
+                if any(a != answers[meth][0] for a in answers[meth][1:]):
+                    raise AssertionError(f"phase 16: {kind} (b) the nodes' {meth} at height {h} differ")
+            if answers["commit"][0]["canonical"] is not True:
+                raise AssertionError(f"phase 16: {kind} (b) commit at {h} is not canonical")
+            if answers["block"][0]["block_id"]["hash"] != harness.bids[h].hash.hex().upper():
+                raise AssertionError(f"phase 16: {kind} (b) block {h} over RPC is not the one committed")
+            seen["rpc_checked"].add(h)
+
+        # -- the hooks, each between every live node's prevote and the precommits
+        def flood_hook(h):
+            """(c): 1,024 envelopes in one batch POST to node 0's
+            broadcast_tx_async; every node admits them (node 0 from the RPC,
+            the others from the gossip); then 1,024 with #517 tampered."""
+            quiet(f"height {h}: its LastCommit check")
+            for c in live:
+                window(c, {"bitmap_cached": 1}, f"height {h}'s LastCommit check", {"bitmap": commit_rows(h)})
+            batches = built["ed25519"].batches
+            admitted = []
+            for label in ("valid", "tampered"):
+                _, txs, _ = admission_batch(label, batches[label])
+                want_size = len(admitted) + len(txs) - (1 if label == "tampered" else 0)
+                t0 = time.perf_counter()
+                answers = nodes[0].batch([("broadcast_tx_async", {"tx": tx.hex()}) for tx in txs])
+                post_ms = (time.perf_counter() - t0) * 1e3
+                if any(a["code"] != 0 for a in answers):
+                    raise AssertionError(f"phase 16: {kind} (c) node 0 answered {[a for a in answers if a['code']][:3]}")
+                deadline = time.monotonic() + NET_STEP_S
+                while not all(int(c.call("num_unconfirmed_txs")["total"]) == want_size for c in live):
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"phase 16: {kind} (c) the {label} batch's admission: "
+                                             + json.dumps([c.call("num_unconfirmed_txs") for c in live]))
+                    time.sleep(0.05)
+                seen.setdefault("admit", {})[label] = (post_ms, (time.perf_counter() - t0) * 1e3)
+                quiet(f"height {h}: the {label} batch")
+                bad = {CS_TAMPER_ENVELOPE} if label == "tampered" else set()
+                for c in live:
+                    got, got_rows = window(c, None, f"(c) the {label} batch")
+                    admission_checks(kind, c, label, got, got_rows, len(txs) - (len(bad) if c.index else 0),
+                                     len(bad) if c.index == 0 else 0, 1 if c.index == 0 else len(live) - 1)
+                    seen.setdefault("batches", {})[(c.index, label)] = admit_histogram(scrapes[c.index][-1],
+                                                                                       scrapes[c.index][-2])
+                admitted += [tx for i, tx in enumerate(txs) if i not in bad]
+            # #517 in no node's mempool
+            import base64
+
+            tampered = admission_batch("tampered", batches["tampered"])[1][CS_TAMPER_ENVELOPE]
+            for c in live:
+                pages = c.batch([("unconfirmed_txs", {"page": p, "per_page": CLI_PAGE})
+                                 for p in range(1, len(admitted) // CLI_PAGE + 2)])
+                held = {base64.b64decode(t) for page in pages for t in page["txs"]}
+                if len(held) != len(admitted) or tampered in held:
+                    raise AssertionError(f"phase 16: {kind} (c) node {c.index}'s unconfirmed_txs hold {len(held)}, "
+                                         f"#517 among them: {tampered in held}")
+            feed.txs = admitted
+            seen["flood"] = admitted
+
+        def commit_hook(h):
+            """(c): broadcast_tx_commit of one more envelope at node 0, on a
+            thread; its admission gossiped (one row: the host), then the
+            harness's next block carries it."""
+            import threading
+
+            quiet(f"height {h}: its LastCommit check")
+            for c in live:
+                window(c, {"bitmap_cached": 1}, f"height {h}'s LastCommit check", {"bitmap": commit_rows(h)})
+            tx = built["ed25519"].batches["small"][0][1]
+            res = seen["tx_commit"] = {}
+
+            def send():
+                t0 = time.perf_counter()
+                try:
+                    res["answer"] = nodes[0].call("broadcast_tx_commit", tx=tx.hex(), timeout=60)
+                except Exception as e:  # noqa: BLE001 - checked after the height
+                    res["error"] = repr(e)
+                res["ms"] = (time.perf_counter() - t0) * 1e3
+
+            res["thread"] = threading.Thread(target=send, daemon=True, name="tx-commit")
+            res["thread"].start()
+            deadline = time.monotonic() + NET_STEP_S
+            # block h, with the flood's 2,047, is not committed yet
+            while not all(int(c.call("num_unconfirmed_txs")["total"]) == len(seen["flood"]) + 1 for c in live):
+                if time.monotonic() > deadline or "error" in res:
+                    raise AssertionError(f"phase 16: {kind} (c) broadcast_tx_commit's admission: {res}")
+                time.sleep(0.02)
+            quiet(f"height {h}: broadcast_tx_commit's admission")
+            for c in live:
+                window(c, {}, "(c) broadcast_tx_commit's admission")
+            feed.txs = [tx]
+            res["tx"] = tx
+
+        def lunatic_hook(h):
+            """(d): the lunatic attack at h - 1 to node 0's broadcast_evidence:
+            node 0 checks it (one hit), gossips it, the others check it (one
+            hit each); then into the harness's next block."""
+            quiet(f"height {h}: its LastCommit check")
+            for c in live:
+                window(c, {"bitmap_cached": 1}, f"height {h}'s LastCommit check", {"bitmap": commit_rows(h)})
+            ev = harness.lunatic(h - 1, b"lunatic")
+            rows = net_light_rows(harness.replica.states.load_validators(h - 1), {c.member_addr for c in nodes})
+            got = nodes[0].call("broadcast_evidence", evidence=m.evidence.evidence_to_proto(ev).encode().hex())
+            if got != {"hash": ev.hash().hex().upper()}:
+                raise AssertionError(f"phase 16: {kind} (d) node 0 answered {got}")
+            deadline = time.monotonic() + NET_STEP_S
+            while not all(launches_of(c.scrape())["bitmap_cached"] > launches_of(scrapes[c.index][-1])["bitmap_cached"]
+                          for c in live):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 16: {kind} (d) the attack's checks at every node")
+                time.sleep(0.05)
+            quiet(f"height {h}: the lunatic attack")
+            for c in live:
+                window(c, {"bitmap_cached": 1}, "(d) the lunatic attack", {"bitmap": rows})
+            harness.add_evidence(ev)
+            seen["lunatic"], seen["lunatic_rows"] = ev, rows
+
+        def fault_hook(h):
+            """(e): node CLI_FAULT_NODE's device entry points fail; a signed
+            envelope to its broadcast_tx_sync is answered -32603 and halts
+            it; the others go on."""
+            quiet(f"height {h}: its LastCommit check")
+            for c in live:
+                window(c, {"bitmap_cached": 1}, f"height {h}'s LastCommit check", {"bitmap": commit_rows(h)})
+            faulty = nodes[CLI_FAULT_NODE]
+            open(trigger, "w").close()
+            deadline = time.monotonic() + NET_STEP_S
+            while not json.load(open(dump))["fault"]:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 16: {kind} (e) the launcher did not install the fault")
+                time.sleep(0.05)
+            seen["launcher"] = json.load(open(dump))
+            tx = built["ed25519"].batches["fault"][0][1]
+            try:
+                faulty.call("broadcast_tx_sync", tx=tx.hex())
+                raise AssertionError(f"phase 16: {kind} (e) the faulty node admitted the envelope")
+            except m.rpc_client.RPCClientError as e:
+                answer = (e.code, str(e))
+            want = (-32603, f"RPC error -32603: verifier fault: ValueError: {message}")
+            if answer != want:
+                raise AssertionError(f"phase 16: {kind} (e) the faulty node answered {answer}, expected {want}")
+            halt = f'halting node on fatal failure module=node err="ValueError(\'{message}\')"'
+            while halt not in faulty.log_tail(1 << 20):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 16: {kind} (e) no halt in the faulty node's log:\n{faulty.log_tail()}")
+                time.sleep(0.05)
+            live.remove(faulty)  # height() reads `live` after the hook: the others commit h
+            harness.halted.add(faulty.member_addr)
+            seen["fault"] = (answer, halt)
+
+        hooks = {E: None, L: lunatic_hook, F: fault_hook}
+        if flood:
+            hooks.update({CLI_FLOOD_AT: flood_hook, CLI_COMMIT_AT: commit_hook})
+        fetch = lambda h: harness.proposed[h].to_proto().encode()  # noqa: E731
+        detector, other = nodes[1], nodes[2]
+        equivocator = [i for i, v in enumerate(m.state.make_genesis_state(gen).validators.validators)
+                       if v.address not in {c.member_addr for c in nodes}][NET_CONFLICT_VALIDATOR]
+        top = F + 1 if flood else F  # ed25519: one more height after the fault's
+        for h in range(1, top + 1):
+            hook = hooks.get(h)
+            equivocate = (equivocator, other.nid, detector.nid) if h == E else None
+            harness.height(h, live, before_precommits=(lambda h=h, hook=hook: hook(h)) if hook else None,
+                           equivocate=equivocate, fetch=fetch, report=True)
+            t_committed[h] = time.monotonic()
+            quiet(f"height {h}")
+            for c in live:
+                want = ({} if h == 1 else {"pk_table_build": 1, "bitmap_cached": 1} if h == 2
+                        else {} if hook else {"bitmap_cached": 1})
+                window(c, want, f"height {h}" + (" after its hook" if hook else ""),
+                       None if hook or h == 1 else {"bitmap": commit_rows(h)})
+            if h >= 2:
+                rpc_agree(h - 1, live)
+        # the last height: the nodes idle in the next one's propose step
+        rpc_agree_tip = [c.call("block", height=top) for c in live]
+        if any(a != rpc_agree_tip[0] for a in rpc_agree_tip[1:]):
+            raise AssertionError(f"phase 16: {kind} (b) the nodes' block at {top} differ")
+        cpu = {c.index: proc_cpu_s(c.proc.pid) - cpu0[c.index] for c in nodes}  # the halted one idles on
+        _cli_checks(kind, nodes, live, harness, seen, H, E, L, F, flood, t_committed)
+        if flood:
+            _cli_full_node(m, kind, P, gen, harness, where, cli, node_settings, top, L, seen, totals, nodes,
+                           procs)
+        _cli_timings(kind, nodes, live, harness, seen, H, L, F, flood, t_committed, cpu, mesh_s, runs)
+    finally:
+        if harness is not None:
+            harness.close()
+        for c in procs:
+            c.kill()
+
+
+def admission_checks(kind, c, label, got, got_rows, n_rows, n_rejected, sources):
+    """(c)'s admissions at a node, from its /metrics: the envelopes on the
+    engine, n_rejected refused, each batch on the plane its size takes (the
+    RLC at 256 rows or more, the bitmap at 64-255, the host below 64), an
+    RLC launch a two-phase batch, a cache hit a bitmap batch and one more
+    for a failed RLC (its bitmap fallback), a fill at most a hit. From one
+    source (node 0's RPC) the rows are the n_rows envelopes exactly; from
+    the gossip of `sources` peers, at least those and at most one a peer:
+    check_tx_batch pre-verifies a batch's candidates before it settles
+    them, so an envelope that two peers' frames bring into one batch is
+    verified twice, as in the reference (the mempools' equality to the
+    admitted set is held apart)."""
+    from tendermint_tpu_torch.crypto import ed25519 as ted
+
+    rows, launches = got_rows.get("rows", {}), got_rows.get("launches", {})
+    problems = []
+    if not n_rows <= sum(rows.values()) <= n_rows * sources or (sources == 1 and sum(rows.values()) != n_rows):
+        problems.append(f"rows {rows} sum to {sum(rows.values())}, not {n_rows}"
+                        + (f" to {n_rows * sources}" if sources > 1 else ""))
+    if got_rows.get("rejected", 0) != n_rejected:
+        problems.append(f"{got_rows.get('rejected', 0)} rows refused, not {n_rejected}")
+    for path, n in rows.items():
+        k = launches.get(path, 0)
+        lo, hi = {"two_phase_msm": (ted.MSM_BATCH_CUTOVER, 1 << 30),
+                  "bitmap": (ted.DEVICE_BATCH_CUTOVER, ted.MSM_BATCH_CUTOVER - 1)}.get(
+            path, (1, ted.DEVICE_BATCH_CUTOVER - 1))
+        if not lo * k <= n <= hi * k:
+            problems.append(f"{n} rows in {k} {path} batches")
+    if got.get("rlc", 0) != launches.get("two_phase_msm", 0):
+        problems.append(f"{got.get('rlc', 0)} RLC launches for {launches.get('two_phase_msm', 0)} RLC batches")
+    hits, bitmaps = got.get("bitmap_cached", 0), launches.get("bitmap", 0)
+    if not bitmaps <= hits <= bitmaps + n_rejected or got.get("pk_table_build", 0) > hits:
+        problems.append(f"{hits} hits and {got.get('pk_table_build', 0)} fills for {bitmaps} bitmap batches")
+    if problems:
+        raise AssertionError(f"phase 16: {kind} (c) the {label} batch at node {c.index}: " + "; ".join(problems)
+                             + f" (launches {got}, engine {got_rows})")
+
+
+def admit_histogram(after, before):
+    """The admission batches between two scrapes: their count, txs and
+    seconds, and their sizes by the histogram's buckets."""
+    name = "tendermint_mempool_admit_batch_size"
+    buckets = {}
+    for (n, pairs), v in after.items():
+        if n == name + "_bucket":
+            le = dict(pairs)["le"]
+            buckets[le] = int(v - before.get((n, pairs), 0))
+    return {"batches": int(metric(after, name + "_count") - metric(before, name + "_count")),
+            "txs": int(metric(after, name + "_sum") - metric(before, name + "_sum")),
+            "ms": (metric(after, "tendermint_mempool_admit_seconds_sum")
+                   - metric(before, "tendermint_mempool_admit_seconds_sum")) * 1e3,
+            "le": buckets}
+
+
+def _cli_checks(kind, nodes, live, harness, seen, H, E, L, F, flood, t_committed):
+    """(b) the WebSocket's heights and the RPC's agreement; (c) the txs
+    through the kv index and broadcast_tx_commit's height; (d) the
+    evidence in the blocks; (e) the fault."""
+    import base64
+
+    from tendermint_tpu_torch.eventbus.event_bus import tx_hash
+
+    top = max(t_committed)
+    for c in nodes:
+        want = range(1, (top if c in live else H) + 1)
+        missing = [h for h in want if h not in c.new_blocks]
+        if missing:
+            raise AssertionError(f"phase 16: {kind} (b) node {c.index}'s WebSocket missed NewBlock at {missing}")
+    if seen["rpc_checked"] != set(range(1, top)):
+        raise AssertionError(f"phase 16: {kind} (b) RPC agreement checked at {sorted(seen['rpc_checked'])}")
+    log(f"phase 16: {kind} (b) every node's block, commit, validators, block_results, abci_query and tx_search "
+        f"agree at heights 1-{top - 1} (the faulty node's to {H}); each node's WebSocket got NewBlock at every "
+        f"height it committed; launches by window, node 0: "
+        + json.dumps([(what, got) for what, got, _ in seen["launches"][0]]))
+    # (d)
+    dup = {}
+    for c in live:
+        for h in range(E + 1, top + 1):
+            evs = c.call("block", height=h)["block"]["evidence"]["evidence"]
+            committed = harness.blocks[h].evidence
+            if evs != [ev.to_proto().encode().hex() for ev in committed]:
+                raise AssertionError(f"phase 16: {kind} (d) node {c.index}'s block {h} lists {evs}")
+            if any(type(ev).__name__ == "DuplicateVoteEvidence" for ev in committed):
+                dup.setdefault(c.index, h)
+            if h == L + 1 and seen["lunatic"].hash() not in [ev.hash() for ev in committed]:
+                raise AssertionError(f"phase 16: {kind} (d) block {h} lacks the lunatic attack")
+    if sorted(dup) != sorted(c.index for c in live):
+        raise AssertionError(f"phase 16: {kind} (d) DuplicateVoteEvidence committed at {dup}")
+    log(f"phase 16: {kind} (d) the lunatic attack at {L - 1}, sent to node 0's broadcast_evidence, was checked "
+        f"there and at the other nodes from the gossip, one hit of {seen['lunatic_rows']} rows each, and "
+        f"block {L + 1} lists it on every node; the equivocation at {E} became DuplicateVoteEvidence (host), "
+        f"committed at {sorted(set(dup.values()))}")
+    # (c)
+    if flood:
+        res = seen["tx_commit"]
+        res["thread"].join(NET_STEP_S)
+        if res.get("answer", {}).get("height") != str(CLI_COMMIT_AT + 1) or res["answer"]["tx_result"]["code"]:
+            raise AssertionError(f"phase 16: {kind} (c) broadcast_tx_commit answered {res}")
+        txs = seen["flood"] + [res["tx"]]
+        heights = [CLI_FLOOD_AT + 1] * len(seen["flood"]) + [CLI_COMMIT_AT + 1]
+        for c in live:
+            found = c.batch([("tx", {"hash": tx_hash(tx).hex()}) for tx in txs])
+            bad = [i for i, (doc, tx, h) in enumerate(zip(found, txs, heights))
+                   if base64.b64decode(doc["tx"]) != tx or doc["height"] != str(h)]
+            n = c.call("tx_search", query=f"tx.height = {CLI_FLOOD_AT + 1}")["total_count"]
+            if bad or n != str(len(seen["flood"])):
+                raise AssertionError(f"phase 16: {kind} (c) node {c.index}'s index: {len(bad)} txs wrong, "
+                                     f"tx_search found {n}")
+        post = seen["admit"]
+        n = len(seen["flood"]) // 2 + 1
+        log(f"phase 16: {kind} (c) node 0 took {n} envelopes in one batch POST to broadcast_tx_async "
+            f"({post['valid'][0]:.1f} ms for the POST, {post['valid'][1]:.1f} ms to admission at every node), then "
+            f"{n} with #{CS_TAMPER_ENVELOPE} tampered ({post['tampered'][0]:.1f} / {post['tampered'][1]:.1f} "
+            f"ms), refused there and in no node's unconfirmed_txs; block {CLI_FLOOD_AT + 1} carries the "
+            f"{len(seen['flood'])}, "
+            f"broadcast_tx_commit's envelope committed at {res['answer']['height']} in {res['ms']:.1f} ms; tx and "
+            f"tx_search find all {len(txs)} on every node; each node's admissions by window [launches, engine "
+            f"rows and launches by path]: " + json.dumps(
+                {c.index: [[what, got, rows] for what, got, rows in seen["launches"][c.index]
+                           if what.startswith("(c)")] for c in live}))
+    # (e)
+    answer, halt = seen["fault"]
+    log(f"phase 16: {kind} (e) with node {CLI_FAULT_NODE}'s device entry points failing, broadcast_tx_sync of a "
+        f"signed envelope was answered {answer[0]} ({answer[1]!r}), not a CheckTx code, and its log shows "
+        f"`{halt}`; the other {len(live)} nodes committed height{f' {F}' if top == F else f's {F}-{top}'} without it, their peers "
+        + json.dumps({c.index: sorted(p["node_id"][:8] for p in c.call("net_info")["peers"]) for c in live}))
+    for c in live:
+        peers = {p["node_id"] for p in c.call("net_info")["peers"]}
+        if not ({o.nid for o in live if o is not c} | {harness.nid}) <= peers:
+            raise AssertionError(f"phase 16: {kind} (e) node {c.index} lost a live peer: {sorted(peers)}")
+
+
+def light_rows(vals, commit):
+    """The rows of a 2/3 light check of commit: its present signatures in
+    the set's order until they pass 2/3 of the power."""
+    needed = vals.total_voting_power() * 2 // 3
+    tallied = rows = 0
+    for v, s in zip(vals.validators, commit.signatures):
+        if s.absent():
+            continue
+        rows += 1
+        tallied += v.voting_power
+        if tallied > needed:
+            break
+    return rows
+
+
+def _cli_full_node(m, kind, P, gen, harness, where, cli, node_settings, top, L, seen, totals, nodes, procs):
+    """(f): `init full` and `start` through the CLI with only the seed's
+    address; it blocksyncs 1..top - 1 from the live nodes, switches to
+    consensus and takes block top from the consensus gossip. Its rows on
+    the card are held exactly: each synced block's 2/3 light check of its
+    seen commit (the set of that height: the equivocator's power falls
+    after the duplicate vote), each block's LastCommit check from height 2
+    to top, and the lunatic attack's check in block L + 1; its launches as
+    predicted: a fill of the light check's keys and one of the rest, a hit
+    a check where the engine does not merge a verify-ahead with a
+    LastCommit check (one hit for both where it does)."""
+    home = os.path.join(where, "full")
+    cli_config(home, gen, **node_settings)
+    full = CliNode("full", home, cli + ["--home", home, "start"], os.path.join(where, "full.log"))
+    procs.append(full)
+    full.ready("node")
+    full.client(m)
+    states = harness.replica.states
+    rows = (sum(light_rows(states.load_validators(h), harness.blocks[h + 1].last_commit) for h in range(1, top))
+            + sum(sum(1 for s in harness.blocks[h].last_commit.signatures if not s.absent())
+                  for h in range(2, top + 1))
+            + (seen["lunatic_rows"] if L + 1 <= top else 0))
+    checks = 2 * (top - 1) + (1 if L + 1 <= top else 0)
+    progress, deadline = [], time.monotonic() + CLI_SYNC_S
+    while True:
+        h = int(full.call("status")["sync_info"]["latest_block_height"])
+        if not progress or progress[-1][1] != h:
+            progress.append((time.monotonic(), h))
+        sample = full.scrape()
+        if h == top and metric(sample, "tendermint_blocksync_syncing") == 0 \
+                and engine_rows(sample, kind)["rows"].get("bitmap", 0) >= rows:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 16: {kind} (f) the full node at {h} of {top - 1} after {CLI_SYNC_S} s:\n"
+                                 + full.log_tail())
+        time.sleep(0.05)
+    got, engine = launches_of(sample), engine_rows(sample, kind)
+    if h != top or engine["rows"].get("bitmap") != rows or engine["rows"].get("two_phase_msm") or got["rlc"] \
+            or not 1 <= got["pk_table_build"] <= 2 or not (checks + 1) // 2 <= got["bitmap_cached"] <= checks \
+            or engine["launches"].get("bitmap") != got["bitmap_cached"]:
+        raise AssertionError(f"phase 16: {kind} (f) the full node synced to {h}, launched {got}, engine {engine}; "
+                             f"predicted {rows} rows in {checks} checks")
+    for label, v in got.items():
+        name = {"pk_table_build": P.fill, "bitmap_cached": P.hit}.get(label)
+        if name is not None and v:
+            totals[name.__name__] = totals.get(name.__name__, 0) + v
+    ours, theirs = full.call("block", height=2), nodes[0].call("block", height=2)
+    status = full.call("status")
+    if ours != theirs or status["sync_info"]["catching_up"] is not False:
+        raise AssertionError(f"phase 16: {kind} (f) the full node's block 2 or status differ: {status}")
+    synced = [(t, hh) for t, hh in progress if 1 <= hh < top]
+    span = synced[-1][0] - synced[0][0]
+    seen["full"] = {"blocks": h, "s": progress[-1][0] - full.t_spawn, "blocks_per_s":
+                    (synced[-1][1] - synced[0][1]) / span if span > 0 else float("nan"), "launches": got,
+                    "rows": engine["rows"], "checks": checks}
+    log(f"phase 16: {kind} (f) a full node from `init full` and `start`, knowing only the seed, blocksynced "
+        f"1-{top - 1}, switched to consensus and committed {top} from its gossip {seen['full']['s']:.1f} s after "
+        f"its start; its block 2 equals node 0's, "
+        f"catching_up false; launches {json.dumps(got)} for {checks} checks of {rows} rows (predicted: 1-2 fills, "
+        f"{(checks + 1) // 2}-{checks} hits, the rows exactly)")
+    return full
+
+
+def _cli_timings(kind, nodes, live, harness, seen, H, L, F, flood, t_committed, cpu, mesh_s, runs):
+    """(g): heights/s; each node's process CPU ms a height, the launcher
+    node's consensus-thread busy and CPU ms and card ms a height; the RPC's
+    latency by route; broadcast_tx_commit; the WebSocket's NewBlock lag
+    after each node's commit; the admission batches; the full node's
+    blocks/s."""
+    import statistics
+
+    from tendermint_tpu_torch.consensus.round_state import STEP_COMMIT
+
+    hooked = {CLI_FLOOD_AT, CLI_COMMIT_AT} if flood else set()
+    hooked |= {L, F}
+    top = max(t_committed)
+    spans = {h: t_committed[h] - t_committed[h - 1] for h in range(2, top + 1)}
+    clean = [h for h in range(2, H + 1) if h not in hooked]
+    hps = len(clean) / sum(spans[h] for h in clean) if clean else float("nan")
+    log(f"phase 16: {kind} (g) {hps:.3f} heights/s over heights {clean} (no hook paused them); ms a height: "
+        + json.dumps({h: round(s * 1e3, 2) for h, s in spans.items()}) + f" on {card()}")
+    for c in nodes:
+        n = top if c in live else H
+        line = f"phase 16: {kind} (g) node {c.index}: process CPU {cpu[c.index] * 1e3 / n:.2f} ms a height"
+        if c.index == CLI_FAULT_NODE and "launcher" in seen:
+            d = seen["launcher"]
+            line += (f"; its consensus thread busy {d['busy_s'] * 1e3 / H:.2f} ms, CPU {d['cpu_s'] * 1e3 / H:.2f} "
+                     f"ms a height; the card {sum(ms for _, ms in d['card']) / H:.3f} ms a height between each "
+                     f"launch's events, {card_floor(d['card']) / H:.3f} ms at each kernel's fastest "
+                     f"({len(d['card'])} launches, {H} heights)")
+        log(line + f" on {card()}")
+    lat = {}
+    for route in ("status", "block", "commit", "validators", "tx_search", "block_results", "abci_query"):
+        ms = [x for c in nodes for x in c.rpc_ms.get(route, [])]
+        if ms:
+            lat[route] = {"median": round(statistics.median(ms), 3), "worst": round(max(ms), 3), "calls": len(ms)}
+    lags = [(c.new_blocks[h] - harness.step_times[(c.nid, h, STEP_COMMIT)]) * 1e3
+            for c in nodes for h in c.new_blocks if (c.nid, h, STEP_COMMIT) in harness.step_times]
+    log(f"phase 16: {kind} (g) RPC ms at {CS_VALIDATORS} validators, by route: " + json.dumps(lat)
+        + (f"; the WebSocket's NewBlock after the node's Commit step (as the harness saw it), ms: median "
+           f"{statistics.median(lags):.2f}, worst {max(lags):.2f} ({len(lags)} events)" if lags else "")
+        + f" on {card()}")
+    extra = {}
+    if flood:
+        log(f"phase 16: {kind} (g) broadcast_tx_commit {seen['tx_commit']['ms']:.1f} ms; admission batches by "
+            f"node and batch: " + json.dumps({f"{i} {label}": v for (i, label), v in seen["batches"].items()})
+            + f"; the full node {seen['full']['blocks_per_s']:.2f} blocks/s while it synced on {card()}")
+        extra = {"tx_commit_s": seen["tx_commit"]["ms"] / 1e3, "full_sync_s": seen["full"]["s"]}
+    runs.append({"plane": kind, "run": "CLI network (g)", "commit": CS_VALIDATORS, "s": t_committed[top] -
+                 t_committed[1], "heights_per_s": hps, "mesh_s": mesh_s, **extra})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -6763,6 +7741,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-network-") as tmp:
         network_phase(planes, chain_id, built14, runs, tmp)
     log(f"phase 15: the network over TCP in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        cli_phase(planes, chain_id, built14, runs, tmp)
+    log(f"phase 16: the CLI-started nodes served over JSON-RPC in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"

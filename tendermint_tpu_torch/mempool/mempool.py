@@ -805,10 +805,12 @@ class AsyncBatchAdmitter:
 
     A fault of the pre-verifier (the engine's: a kernel wrapper's guard, a
     failed launch) is not swallowed as the app's errors are: the worker
-    stops, and every later submit() raises it."""
+    stops, hands it to on_fatal (the node's, through the RPC), and every
+    later submit() raises it."""
 
-    def __init__(self, mempool: TxMempool, maxsize: int = 10000, max_batch: int = 1024):
+    def __init__(self, mempool: TxMempool, maxsize: int = 10000, max_batch: int = 1024, on_fatal=None):
         self.mempool = mempool
+        self.on_fatal = on_fatal
         self._max_batch = max_batch
         self._q: queue.Queue = queue.Queue(maxsize=maxsize)
         self._start_lock = threading.Lock()
@@ -864,6 +866,8 @@ class AsyncBatchAdmitter:
             except Exception as e:  # noqa: BLE001 - fire-and-forget semantics
                 if is_fault(e):
                     self.fault = e
+                    if self.on_fatal is not None:
+                        self.on_fatal(e)
                     return
 
 

@@ -17,7 +17,9 @@ the P2PMetrics (tendermint_p2p_*: p2p/router.py, p2p/peermanager.py) and
 BlockSyncMetrics (tendermint_blocksync_*: blocksync/reactor.py) of
 blocksync and the p2p layer beneath it, and ConsensusMetrics
 (tendermint_consensus_*: consensus/state.py) and MempoolMetrics
-(tendermint_mempool_*: mempool/mempool.py) of consensus on one node. Names,
+(tendermint_mempool_*: mempool/mempool.py) of consensus on one node, and the
+node's PrometheusServer, which serves a node's registry and the
+process-global one over HTTP. Names,
 labels, help strings and buckets are the reference's, so one scrape reads
 both packages alike.
 
@@ -914,3 +916,47 @@ def evidence_metrics() -> EvidenceMetrics:
             if _EVIDENCE_METRICS is None:
                 _EVIDENCE_METRICS = EvidenceMetrics(_GLOBAL_REGISTRY)
     return _EVIDENCE_METRICS
+
+
+class PrometheusServer:
+    """Minimal /metrics HTTP endpoint (ref: node/node.go:575). Serves
+    the node's registry plus the process-global one (engine plane)."""
+
+    def __init__(self, registry: Registry, addr: str = "127.0.0.1:26660"):
+        self.registry = registry
+        host, _, port = addr.rpartition(":")
+        self.host = host.lstrip("/") or "127.0.0.1"
+        self.port = int(port)
+        self._httpd = None
+
+    def start(self) -> None:
+        import http.server
+
+        registry = self.registry
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                if self.path not in ("/metrics", "/"):
+                    self.send_error(404)
+                    return
+                text = registry.gather()
+                if registry is not _GLOBAL_REGISTRY:
+                    text += _GLOBAL_REGISTRY.gather()
+                body = text.encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):  # silence
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer((self.host, self.port), Handler)
+        self.port = self._httpd.server_address[1]
+        threading.Thread(target=self._httpd.serve_forever, daemon=True, name="prometheus").start()
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd = None

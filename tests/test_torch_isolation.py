@@ -5,7 +5,8 @@ light client's with its stores and providers, evidence's, the state
 layer's with its stores, evidence pool and ABCI app, blocksync's with
 the p2p layer beneath it, consensus's with its vote sets, file signer,
 mempool, WAL, ticker and handshake, and the TCP transport, secret
-connection, PEX and the consensus, mempool and evidence reactors included)
+connection, PEX and the consensus, mempool and evidence reactors, and the
+node with its config, pubsub, event bus, indexer, RPC and CLI included)
 loads no JAX
 and nothing of tendermint_tpu, the native host prep and merkle plane load
 the port's own library (never the reference's prep.so), a default-device
@@ -57,10 +58,14 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "mempool.mempool", "mempool.preverify", "consensus", "consensus.messages", "consensus.round_state",
              "consensus.wal", "consensus.ticker", "consensus.state", "consensus.handshake", "utils.varint",
              "p2p.secret_connection", "p2p.transport_tcp", "p2p.pex", "consensus.peer_state",
-             "consensus.reactor", "mempool.reactor", "evidence.reactor"):
+             "consensus.reactor", "mempool.reactor", "evidence.reactor", "pubsub", "pubsub.query",
+             "pubsub.pubsub", "eventbus", "eventbus.event_bus", "eventbus.eventlog", "indexer", "indexer.kv",
+             "indexer.service", "config", "config.config", "rpc", "rpc.server", "rpc.core", "rpc.client",
+             "node", "node.node", "node.setup", "node.seed", "cli", "__main__"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
-    importlib.import_module(name)
+    if name != pkg.__name__ + ".__main__":  # runs the CLI: the second probe's
+        importlib.import_module(name)
 from tendermint_tpu_torch import abci, blocksync, devobs, evidence, light, metrics, native, p2p, state, store, trace
 from tendermint_tpu_torch import consensus, mempool, privval
 from tendermint_tpu_torch.mempool import preverify
@@ -71,6 +76,9 @@ from tendermint_tpu_torch.crypto import softcrypto
 from tendermint_tpu_torch.utils import varint
 from tendermint_tpu_torch.crypto import encoding, merkle, secp256k1
 from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
+from tendermint_tpu_torch import cli, config, eventbus, indexer, node, pubsub, rpc
+from tendermint_tpu_torch.node import seed
+from tendermint_tpu_torch.rpc import client as rpc_client
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (verify_sr, ("build_sr_tables", "verify_sr_kernel_cached")),
                  (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async")),
@@ -106,7 +114,13 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                                "decode_consensus_msg")),
                  (mp_reactor, ("MempoolReactor", "mempool_channel_descriptor", "encode_txs_frame",
                                "decode_txs_frame")),
-                 (evidence, ("EvidenceReactor", "evidence_channel_descriptor"))):
+                 (evidence, ("EvidenceReactor", "evidence_channel_descriptor")),
+                 (pubsub, ("Server", "parse_query")), (eventbus, ("EventBus",)),
+                 (indexer, ("KVIndexer", "IndexerService")), (config, ("load_config", "default_config")),
+                 (rpc, ("JSONRPCServer", "RPCEnvironment", "build_routes")),
+                 (rpc_client, ("HTTPClient", "WSClient", "EventStream", "LocalClient")),
+                 (node, ("Node", "NodeKey", "init_files_home")), (seed, ("SeedNode",)),
+                 (metrics, ("PrometheusServer",)), (cli, ("main", "build_parser"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
@@ -133,6 +147,33 @@ def test_import_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "leaked: []" in proc.stdout
+
+
+_HELP_PROBE = r"""
+import runpy, sys
+sys.argv = ["tendermint_tpu_torch", "--help"]
+try:
+    runpy.run_module("tendermint_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "tendermint_tpu" or m.startswith("tendermint_tpu."))
+print("leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_cli_help_loads_no_jax_and_no_reference():
+    """`python -m tendermint_tpu_torch --help` prints the reference's command
+    table and loads neither JAX nor the JAX package."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", _HELP_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+    assert "{version,completion,init,start,testnet," in proc.stdout
 
 
 def _jobs(n):

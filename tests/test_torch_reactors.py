@@ -174,7 +174,7 @@ reactor = port_copy("test_pex").reactor
 
 @pytest.mark.parametrize("name,test,kw", reference_cases("test_consensus_reactor")
                          + reference_cases("test_mempool_reactor")
-                         + reference_cases("test_pex", skip=("test_seed_bootstraps_testnet",)))
+                         + reference_cases("test_pex"))
 def test_reference_case(name, test, kw, request):
     run_reference_case(name, test, kw, request)
 

@@ -4,12 +4,14 @@ the same name (tests/helpers.py, tests/test_consensus.py and
 tests/test_p2p.py, which other test files import, likewise), so each
 assertion the reference makes of its mempool, private validator, consensus
 state machine, WAL, ticker, handshake, TCP transport, secret connection,
-PEX and reactors is made of the port's. test_torch_mempool.py,
+PEX, reactors, pubsub, event bus, event log, indexer, metrics, RPC, node
+and CLI is made of the port's. test_torch_mempool.py,
 test_torch_privval.py, test_torch_consensus.py, test_torch_p2p_tcp.py and
 test_torch_reactors.py collect the cases through `reference_cases` and run
-them through `run_reference_case`; the reference's files themselves are not
-changed. The port's entry points take their default device: the cases
-verify below the device cutover, on the host."""
+them through `run_reference_case`, and this file the node's
+(test_node_cases); the reference's files themselves are not changed. The
+port's entry points take their default device: the cases verify below the
+device cutover, on the host."""
 
 from __future__ import annotations
 
@@ -25,10 +27,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the test modules other reference test files import by name
 SHARED = ("helpers", "test_consensus", "test_p2p")
 # the JAX package's modules a reference test file imports for cases the port
-# cannot run yet (the node, its config and CLI come with ROADMAP A14): their
-# import lines are left out of the port copy, and those cases are skipped
-# by name where they are collected
-LATER = {"test_pex": ("cli", "config", "node", "node.seed")}
+# cannot run yet: their import lines are left out of the port copy, and
+# those cases are skipped by name where they are collected
+LATER: dict[str, tuple[str, ...]] = {}
 _COPIES: dict[str, types.ModuleType] = {}
 
 
@@ -96,7 +97,8 @@ def run_reference_case(name: str, test: str, kw: dict, request) -> None:
 
 @pytest.mark.parametrize("name", ["helpers", "test_consensus", "test_consensus_locking", "test_handshake",
                                   "test_mempool", "test_privval", "test_p2p", "test_mconn", "test_pex",
-                                  "test_consensus_reactor", "test_mempool_reactor"])
+                                  "test_consensus_reactor", "test_mempool_reactor", "test_rpc", "test_node",
+                                  "test_events", "test_eventlog", "test_metrics"])
 def test_port_copies_reach_only_the_port(name):
     """A port copy names no module of the JAX package, and every package
     module in its namespace is the port's."""
@@ -106,3 +108,36 @@ def test_port_copies_reach_only_the_port(name):
         owner = getattr(value, "__module__", None) if not isinstance(value, types.ModuleType) else value.__name__
         if isinstance(owner, str) and owner.startswith("tendermint_tpu"):
             assert owner.startswith("tendermint_tpu_torch"), (name, owner)
+
+
+# the reference cases of the node slice (ROADMAP A14a) that wait for a later
+# item, by the module they need
+NODE_LATER = {
+    "test_rpc.py::test_light_client_over_http_provider": "light/http_provider.py (A14b)",
+    "test_events.py::test_sql_sink_indexes_blocks_and_txs": "indexer/sink_sql.py (A14b)",
+    "test_events.py::test_node_with_sqlite_sink": "indexer/sink_sql.py (A14b)",
+    "test_metrics.py::test_subsystem_metrics_surface": "StateSyncMetrics with statesync/ (A15)",
+}
+NODE_FILES = ("test_rpc", "test_node", "test_events", "test_eventlog", "test_metrics")
+
+# the reference's module-scoped fixtures, on the port: pytest finds them by name here
+live_node = port_copy("test_rpc").live_node
+testnet = port_copy("test_node").testnet
+
+
+@pytest.mark.parametrize("name,test,kw", [
+    case for name in NODE_FILES
+    for case in reference_cases(name, skip=tuple(t.split("::")[1] for t in NODE_LATER if t.startswith(name + ".")))])
+def test_node_cases(name, test, kw, request):
+    """The reference's cases of the pubsub, event bus, event log, indexer,
+    metrics, RPC, node and CLI on the port."""
+    run_reference_case(name, test, kw, request)
+
+
+@pytest.mark.parametrize("case", sorted(NODE_LATER))
+def test_node_cases_waiting_for_a_later_item_are_named(case):
+    """Each reference case left out of test_node_cases exists and names the
+    module and ROADMAP item it waits for."""
+    name, test = case.split("::")
+    assert test in vars(port_copy(name[:-3])), case
+    assert "(A1" in NODE_LATER[case]

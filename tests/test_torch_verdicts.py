@@ -308,3 +308,293 @@ def test_gossiped_invalid_evidence_evicts_its_sender(plane, engine_branch):
     (peer, err), = got["port"][1]
     assert peer == PEER and err.startswith("EvidenceVerifyError") and "verifying conflicting commit" in err
     assert got["port"][2] == 1
+
+
+# -- the RPC's routes (ROADMAP A14a) -------------------------------------------
+
+RPC_DEADLINE_S = 20
+# a verifier fault's answer, as the clients render it
+FAULT_ANSWER = ("error", -32603, f"RPC error -32603: verifier fault: ValueError: {FAULT}")
+
+
+class RPC:
+    """A package's JSONRPCServer over an RPCEnvironment (a mempool, an event
+    bus, an evidence pool), served on an ephemeral port; `on_fatal` records
+    what the environment hands it (the port's only). call(method, **params)
+    -> ("result", result) or ("error", code, message)."""
+
+    def __init__(self, pkg, mempool=None, evidence_pool=None):
+        mods = {"port": "tendermint_tpu_torch", "jax": "tendermint_tpu"}
+        import importlib
+
+        rpc = importlib.import_module(mods[pkg] + ".rpc")
+        self.client_mod = importlib.import_module(mods[pkg] + ".rpc.client")
+        bus = importlib.import_module(mods[pkg] + ".eventbus").EventBus()
+        self.fatal = []
+        kw = {"on_fatal": self.fatal.append} if pkg == "port" else {}
+        env = rpc.RPCEnvironment(chain_id=CHAIN_ID, mempool=mempool, evidence_pool=evidence_pool, event_bus=bus,
+                                 **kw)
+        self.server = rpc.JSONRPCServer(rpc.build_routes(env), event_bus=bus)
+        self.server.start()
+        host, port = self.server.address
+        self.client = self.client_mod.HTTPClient(f"http://{host}:{port}", timeout=RPC_DEADLINE_S)
+
+    def call(self, method, **params):
+        try:
+            return ("result", self.client.call(method, **params))
+        except self.client_mod.RPCClientError as e:
+            return ("error", e.code, str(e))
+
+    def close(self):
+        self.client.close()
+        self.server.stop()
+
+
+def tx_pool(pkg):
+    from test_torch_mempool import App
+    from tendermint_tpu.abci import types as jabci
+    from tendermint_tpu.mempool import mempool as jmempool
+    from tendermint_tpu.mempool import preverify as jpreverify
+    from tendermint_tpu_torch.abci import types as tabci
+    from tendermint_tpu_torch.mempool import mempool as tmempool
+    from tendermint_tpu_torch.mempool import preverify as tpreverify
+
+    if pkg == "port":
+        return tmempool.TxMempool(App(tabci), pre_verify=tpreverify.EngineTxPreVerifier(device="cpu"))
+    return jmempool.TxMempool(App(jabci), pre_verify=jpreverify.EngineTxPreVerifier())
+
+
+def wait_for(cond, timeout=RPC_DEADLINE_S):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+@pytest.mark.parametrize("route", ["broadcast_tx_sync", "broadcast_tx_commit", "broadcast_tx"])
+def test_rpc_admission_fault_is_an_internal_error(route, engine_branch):
+    """A signed-tx envelope sent to a broadcast route while the device entry
+    points raise a kernel wrapper's ValueError: the pre-verifier's marked
+    fault is answered -32603, never as a CheckTx code (the reference answers
+    code 1), and reaches on_fatal; nothing is admitted, and the same tx is
+    admitted once the card works."""
+    from test_torch_mempool import envelopes
+
+    tx = envelopes()[0]
+    pool = tx_pool("port")
+    rpc = RPC("port", mempool=pool)
+    try:
+        with cs.failing_entries(FAULT):
+            got = rpc.call(route, tx=tx.hex(), **({"timeout": 1} if route == "broadcast_tx_commit" else {}))
+        assert got == FAULT_ANSWER
+        assert [f"{type(e).__name__}: {e}" for e in rpc.fatal] == [f"ValueError: {FAULT}"]
+        assert pool.size() == 0
+        assert rpc.call("broadcast_tx_sync", tx=tx.hex())[1]["code"] == 0 and pool.size() == 1
+    finally:
+        rpc.close()
+
+
+def test_rpc_async_admission_fault_is_an_internal_error(engine_branch):
+    """broadcast_tx_async queues a signed-tx envelope (code 0, as in the
+    reference); the admitter's batch meets the fault, which reaches on_fatal,
+    and every later submission is answered -32603."""
+    from test_torch_mempool import envelopes
+
+    txs = envelopes()
+    pool = tx_pool("port")
+    rpc = RPC("port", mempool=pool)
+    try:
+        with cs.failing_entries(FAULT):
+            got = rpc.call("broadcast_tx_async", tx=txs[0].hex())
+            assert got[0] == "result" and got[1]["code"] == 0
+            assert wait_for(lambda: rpc.fatal)
+        assert [f"{type(e).__name__}: {e}" for e in rpc.fatal] == [f"ValueError: {FAULT}"]
+        assert rpc.call("broadcast_tx_async", tx=txs[1].hex()) == FAULT_ANSWER
+        assert pool.size() == 0
+    finally:
+        rpc.close()
+
+
+@pytest.mark.parametrize("route", ["broadcast_tx_sync", "broadcast_tx_commit", "broadcast_tx_async"])
+def test_rpc_admission_verdicts_keep_reference_answers(route, engine_branch):
+    """Without a fault, a tampered envelope, an app's refusal, an app's error
+    and a duplicate get the reference's answers, JSON for JSON, on the same
+    device branch (the plain versions); nothing reaches on_fatal."""
+    from test_torch_mempool import envelopes
+
+    txs = envelopes()
+    answers = {}
+    for pkg in ("port", "jax"):
+        pool = tx_pool(pkg)
+        rpc = RPC(pkg, mempool=pool)
+        try:
+            kw = {"timeout": 0.2} if route == "broadcast_tx_commit" else {}
+            answers[pkg] = [rpc.call(route, tx=tx.hex(), **kw) for tx in (txs[3], b"bad-plain=1", b"boom=1")]
+            answers[pkg].append(rpc.call("broadcast_tx_sync", tx=txs[0].hex()))
+            # the admitter takes txs in arrival order: the last one admitted, the others were judged
+            assert wait_for(lambda: pool.size() == 1)
+            answers[pkg].append(sorted(pool.reap_max_txs(-1)))
+            assert rpc.fatal == []
+        finally:
+            rpc.close()
+    assert answers["port"] == answers["jax"]
+    if route == "broadcast_tx_sync":
+        (_, tampered), (_, refused), (_, failed), (_, admitted), _ = answers["port"]
+        assert tampered["code"] != 0 and refused["code"] == 1 and admitted["code"] == 0 and failed == {
+            "code": 1, "data": "", "log": "the app failed", "hash": failed["hash"]}
+
+
+def rpc_evidence(ev):
+    """The evidence's protobuf bytes, hex, by its own package's codec."""
+    import importlib
+
+    mod = importlib.import_module(type(ev).__module__)
+    return mod.evidence_to_proto(ev).encode().hex()
+
+
+@pytest.mark.parametrize("plane", cs.PLANES)
+def test_rpc_evidence_fault_is_an_internal_error(plane, engine_branch):
+    """Lunatic evidence sent to broadcast_evidence while the device entry
+    points raise: -32603 naming the fault, handed to on_fatal; the pool holds
+    nothing, and takes the same evidence once the card works."""
+    _, pool, ev = evidence_reactor("port", plane, "cpu")
+    rpc = RPC("port", evidence_pool=pool)
+    try:
+        with cs.failing_entries(FAULT):
+            got = rpc.call("broadcast_evidence", evidence=rpc_evidence(ev))
+        assert got == FAULT_ANSWER
+        assert [f"{type(e).__name__}: {e}" for e in rpc.fatal] == [f"ValueError: {FAULT}"] and pool.size() == 0
+        assert rpc.call("broadcast_evidence", evidence=rpc_evidence(ev)) == (
+            "result", {"hash": ev.hash().hex().upper()})
+    finally:
+        rpc.close()
+
+
+@pytest.mark.parametrize("plane", cs.PLANES)
+def test_rpc_invalid_evidence_keeps_reference_answer(plane, engine_branch):
+    """Lunatic evidence whose conflicting commit carries an altered signature
+    gets the reference's answer (its EvidenceVerifyError as an internal
+    error), and valid evidence its hash, in both packages; nothing reaches
+    on_fatal."""
+    got = {}
+    for pkg in ("port", "jax"):
+        _, pool, ev = evidence_reactor(pkg, plane, "cpu")
+        bad = copy.deepcopy(ev)
+        sig = bad.conflicting_block.signed_header.commit.signatures[0]
+        sig.signature = cs.tamper(sig.signature)
+        rpc = RPC(pkg, evidence_pool=pool)
+        try:
+            got[pkg] = [rpc.call("broadcast_evidence", evidence=rpc_evidence(e)) for e in (bad, ev)] + [pool.size()]
+            assert rpc.fatal == []
+        finally:
+            rpc.close()
+    assert got["port"] == got["jax"]
+    (status, code, message), (ok, _), size = got["port"]
+    assert (status, code, ok, size) == ("error", -32603, "result", 1) and "verifying conflicting commit" in message
+
+
+def test_rpc_fault_halts_the_node(tmp_path):
+    """Through a started port Node: a marked pre-verifier fault in
+    broadcast_tx_sync is answered -32603 and halts the node, its halt
+    reason the fault."""
+    from test_torch_mempool import envelopes
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.node import Node, init_files_home
+    from tendermint_tpu_torch.rpc.client import HTTPClient, RPCClientError
+
+    home = str(tmp_path / "home")
+    init_files_home(home, chain_id="fault-chain")
+    cfg = load_config(home)
+    cfg.base.db_backend = "memdb"
+    cfg.mempool.precheck_sigs = True
+    cfg.p2p.laddr = cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    node = Node(cfg, device="cpu")
+
+    def failing(txs):
+        raise ValueError(FAULT)
+
+    node.mempool._pre_verify = failing
+    node.start()
+    try:
+        host, port = node.rpc_address
+        with pytest.raises(RPCClientError) as err:
+            HTTPClient(f"http://{host}:{port}", timeout=RPC_DEADLINE_S).call(
+                "broadcast_tx_sync", tx=envelopes()[0].hex())
+        assert ("error", err.value.code, str(err.value)) == FAULT_ANSWER
+        assert wait_for(lambda: node.halted)
+        assert f"{type(node.halt_reason).__name__}: {node.halt_reason}" == f"ValueError: {FAULT}"
+    finally:
+        if not node.halted:
+            node.stop()
+
+
+# -- the settings no slice covers yet -----------------------------------------
+
+
+def _home(tmp_path):
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.node import init_files_home
+
+    home = str(tmp_path / "home")
+    init_files_home(home, chain_id="later-chain")
+    cfg = load_config(home)
+    cfg.base.db_backend = "memdb"
+    cfg.p2p.laddr = cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    return cfg
+
+
+LATER_SETTINGS = [
+    ("proxy_app", "builtin:bank", "ROADMAP A15"),
+    ("proxy_app", "tcp://127.0.0.1:26658", "ROADMAP A15"),
+    ("proxy_app", "unix:///tmp/app.sock", "ROADMAP A15"),
+    ("proxy_app", "grpc://127.0.0.1:26658", "ROADMAP A15"),
+    ("proxy_app", "builtin:kvstore:snapshot=5", "statesync slice"),
+    ("priv_validator_laddr", "tcp://127.0.0.1:26659", "ROADMAP A14b"),
+    ("priv_validator_laddr", "grpc://127.0.0.1:26659", "ROADMAP A14b"),
+    ("tx_index.indexer", "sqlite", "ROADMAP A14b"),
+    ("tx_index.indexer", "psql", "ROADMAP A14b"),
+    ("instrumentation.flight_interval", 1.0, "ROADMAP A14b"),
+    ("statesync.enable", True, "ROADMAP A15"),
+]
+
+
+@pytest.mark.parametrize("key,value,item", LATER_SETTINGS, ids=[f"{k}={v}" for k, v, _ in LATER_SETTINGS])
+def test_setting_outside_the_slice_names_its_item(tmp_path, key, value, item):
+    """A node configured with a setting the port has not reached raises an
+    error naming the item that brings it; nothing is remapped."""
+    from tendermint_tpu_torch.node import Node
+
+    cfg = _home(tmp_path)
+    section, _, attr = key.rpartition(".")
+    setattr(getattr(cfg, section) if section else cfg.base, attr, value)
+    with pytest.raises(NotImplementedError, match=item):
+        Node(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["TM_E2E_DELAYS_MS", "TM_TPU_LOCKCHECK", "TM_TPU_RACECHECK", "TM_TPU_BYZ",
+                                  "TM_TPU_PROF"])
+def test_tooling_knob_names_its_item(tmp_path, monkeypatch, knob):
+    """The reference's e2e tooling knobs, set, make `start` (and the app
+    factory, for the delays) raise, naming the tooling as not queued."""
+    from tendermint_tpu_torch import cli
+
+    cfg = _home(tmp_path)
+    cfg.save()
+    monkeypatch.setenv(knob, '{"check_tx": 1}' if knob == "TM_E2E_DELAYS_MS" else "1")
+    with pytest.raises(NotImplementedError, match="tooling, not queued"):
+        cli.main(["--home", cfg.base.home, "start"])
+
+
+@pytest.mark.parametrize("command", sorted(__import__("tendermint_tpu_torch.cli", fromlist=["LATER"]).LATER))
+def test_command_outside_the_slice_names_its_item(command, capsys):
+    """Every command of the reference's parser the port has not reached
+    exits non-zero, naming its item."""
+    from tendermint_tpu_torch import cli
+
+    argv = {"completion": [], "e2e": ["m.toml"], "e2e-generate": ["--output", "o"], "debug": ["kill"],
+            "wal2json": ["w"], "json2wal": ["i", "o"], "remote-signer": ["--addr", "a", "--chain-id", "c"],
+            "light": ["c", "http://p"]}.get(command, [])
+    assert cli.main([command] + argv) == 2
+    assert f"comes with ROADMAP {cli.LATER[command]}" in capsys.readouterr().err
