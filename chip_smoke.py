@@ -297,12 +297,42 @@ Both signature planes run the same phases, each fatal on failure:
      process's CPU ms a height, the launcher node's consensus-thread and
      card ms a height, the RPC's latency by route, broadcast_tx_commit, the
      WebSocket's lag, the admission batches and the full node's blocks/s,
-     beside the card's name and power limit.
+     beside the card's name and power limit;
+ 17. the operator's tools (light/http_provider.py, light/proxy.py, cli.py's
+     light and replay), inside phase 16's ed25519 network once its heights
+     are done: (a) `python -m tendermint_tpu_torch light <chain> <node 0's
+     RPC> --witnesses <node 1's>,<node 2's> --trusted-height 1
+     --trusted-hash <block 1's>` with no device argument (through
+     cli_counted, whose thread dumps the launch counts), its trust root's
+     check and its first update (a skipping step from 1 to the tip: the 1/3
+     trusting check, then the 2/3 check), launches held exactly to the keys
+     each check tallies; (b) its proxy's block, commit, header and
+     validators at three heights and proofs_batch and light_batch of 64
+     indices of the 2,047-tx block, equal to node 0's answers (header and
+     validators in the fields the proxy serves), with no launch; each
+     route's median and worst ms on the proxy and on node 0; (d) SIGTERM
+     ends the daemon and its session before the network stops; (c) after
+     the network's teardown, `replay` (no device argument) on two copies of
+     node 1's home, as it stands (no commit to check) and with its state at
+     genesis (each LastCommit checked on the card): node 1's app hash,
+     launches as predicted, blocks/s.
 
-Phases 3, 5, 6, 7, 10, 11, 12, 13, 14, 15 and 16 are each a main path: every call in them runs
+Every process the script starts goes through start_process (one-shot
+commands through run_process, with a time limit and their exit code
+checked) and is registered with its process group; main() runs the phases
+inside a try/finally whose reap_all ends every registered group (SIGTERM,
+then SIGKILL, then wait), and a SIGTERM to the script unwinds through it.
+Before the last lines the audit reads /proc and fails the run, naming
+each, if any process the script started is alive: a descendant, one in a
+session or process group it created, or one whose command line names the
+run's directory (every home and temporary directory lies under one root);
+only multiprocessing's resource tracker is left out.
+
+Phases 3, 5, 6, 7, 10, 11, 12, 13, 14, 15, 16 and 17 are each a main path: every call in them runs
 with the launch counters set to 0 just before it and read just after (phase
 16's node processes count from their start, and each window is the
-difference of two reads of a node's /metrics), and each phase fails if one
+difference of two reads of a node's /metrics; phase 17's processes count
+from their start, read from the file their thread writes), and each phase fails if one
 of its kernels never launched. They run at the
 defaults, so through the engine (TM_TPU_ENGINE unset), but with
 TM_TPU_AUTOTUNE=off, so the probe's launches, which land from a thread at
@@ -437,10 +467,8 @@ def cache_read_bytes(scalar_rows, splits: int) -> int:
 
 
 def nvidia_smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout
+    out = run_process(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"], 60,
+                      "nvidia-smi").stdout
     return out.strip().splitlines()[0]
 
 
@@ -475,6 +503,166 @@ def ptxas_functions(report: str):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# -- every process the script starts: started, reaped and audited here --------
+
+STARTED = []  # (handle, group): each Popen or multiprocessing Process, its process group if it leads one
+RUN_DIRS = []  # the run's temporary root: every home and temporary directory of the run lies under it
+REAP_GRACE_S = 10.0  # from SIGTERM to SIGKILL
+
+
+def start_process(argv=None, *, process=None, **popen):
+    """The one way the script starts a process: subprocess.Popen(argv,
+    **popen), or process.start() for a multiprocessing Process. Each is
+    registered, with its process group when it leads one (Popen with
+    start_new_session=True), so that reap_all ends it and its group on
+    every way out of main() and audit_processes can name what outlived
+    it."""
+    if process is not None:
+        process.start()
+        handle, group = process, None
+    else:
+        handle = subprocess.Popen(argv, **popen)
+        group = handle.pid if popen.get("start_new_session") else None
+    STARTED.append((handle, group))
+    return handle
+
+
+def run_process(argv, timeout, what, check=True, **popen):
+    """A one-shot command through start_process, in a session of its own,
+    to its end within `timeout` s (past it, its whole group is killed and
+    `what` fails); with check, a non-zero exit fails `what`. Returns a
+    CompletedProcess (stdout and stderr as text unless popen says
+    otherwise)."""
+    import signal
+
+    popen = {"stdout": subprocess.PIPE, "stderr": subprocess.PIPE, "text": True, **popen}
+    proc = start_process(argv, start_new_session=True, **popen)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{what}: `{' '.join(map(str, argv))}` ran past {timeout} s:\n"
+                             f"{(out or '')[-3000:]}{(err or '')[-3000:]}") from None
+    if check and proc.returncode:
+        raise AssertionError(f"{what}: `{' '.join(map(str, argv))}` exited {proc.returncode}:\n"
+                             f"{(out or '')[-2000:]}{(err or '')[-4000:]}")
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def _alive(handle) -> bool:
+    return handle.poll() is None if isinstance(handle, subprocess.Popen) else handle.is_alive()
+
+
+def reap_all(grace=REAP_GRACE_S) -> None:
+    """End every process the script started: SIGTERM to each registered
+    process group (to the process when it leads none) and to every process
+    the audit finds (a grandchild in a session of its own is found while
+    its parent lives, or by a command line naming the run's directory),
+    SIGKILL to what is left after `grace` s, then wait for each.
+    Teardown, not a fallback: it runs on every way out of main(), after a
+    failure too."""
+    import signal
+
+    tracker = resource_tracker_pid()
+    escaped = {pid for pid, *_ in audit_processes(exclude={tracker})}  # before any parent ends
+
+    def signal_all(sig, pids):
+        for handle, group in STARTED:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                if group is not None:
+                    os.killpg(group, sig)
+                elif _alive(handle):
+                    os.kill(handle.pid, sig)
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, sig)
+
+    signal_all(signal.SIGTERM, escaped)
+    deadline = time.monotonic() + grace
+    while time.monotonic() < deadline and (any(_alive(h) for h, _ in STARTED)
+                                           or audit_processes(exclude={tracker})):
+        time.sleep(0.05)
+    signal_all(signal.SIGKILL, escaped | {pid for pid, *_ in audit_processes(exclude={tracker})})
+    for handle, _ in STARTED:
+        with contextlib.suppress(Exception):
+            if isinstance(handle, subprocess.Popen):
+                handle.wait(grace)
+            else:
+                handle.join(grace)
+
+
+def proc_table():
+    """{pid: (ppid, process group, session, state, command line)} of every
+    process in /proc, read and nothing else."""
+    table = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue  # ended while we read
+        table[int(name)] = (int(fields[1]), int(fields[2]), int(fields[3]), fields[0], cmd)
+    return table
+
+
+def audit_processes(exclude=()):
+    """Every live process (zombies are not) that outlived its teardown: a
+    descendant of this one, one in a session or process group the script
+    created (STARTED), or one whose command line names a directory of
+    RUN_DIRS; `exclude` left out by pid. [(pid, ppid, session, command
+    line)], read from /proc alone: the audit sets nothing on the machine."""
+    root = os.getpid()
+    table = proc_table()
+    children = {}
+    for pid, (ppid, *_rest) in table.items():
+        children.setdefault(ppid, []).append(pid)
+    descendants, stack = set(), [root]
+    while stack:
+        for child in children.get(stack.pop(), ()):
+            if child not in descendants:
+                descendants.add(child)
+                stack.append(child)
+    groups = {g for _, g in STARTED if g is not None}
+    found = []
+    for pid, (ppid, pgrp, session, state, cmd) in sorted(table.items()):
+        if pid == root or pid in exclude or state in ("Z", "X"):
+            continue
+        if pid in descendants or pgrp in groups or session in groups or any(d in cmd for d in RUN_DIRS):
+            found.append((pid, ppid, session, cmd))
+    return found
+
+
+def resource_tracker_pid():
+    """multiprocessing's resource tracker, which lives until this process
+    ends (None if it never started)."""
+    from multiprocessing import resource_tracker
+
+    return getattr(resource_tracker._resource_tracker, "_pid", None)
+
+
+def audit_or_fail() -> None:
+    """The audit before the last lines: every process it finds is printed
+    (pid, ppid, session, command line) and killed, and the run fails."""
+    import signal
+
+    found = audit_processes(exclude={resource_tracker_pid()})
+    for pid, ppid, session, cmd in found:
+        log(f"audit: process {pid} (ppid {ppid}, session {session}) outlived its teardown: {cmd[:400]}")
+    for pid, *_ in found:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.kill(pid, signal.SIGKILL)
+    if found:
+        raise AssertionError(f"audit: {len(found)} process(es) that the script started are still alive")
+    log(f"audit: no process that the script started is alive ({len(STARTED)} started, the resource tracker "
+        f"left out)")
 
 
 # -- the two signature planes -------------------------------------------------
@@ -1230,8 +1418,8 @@ def native_setting(python: bool):
 @functools.lru_cache(maxsize=None)
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return run_process(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], 60,
+                       "nvidia-smi").stdout.strip().splitlines()[0]
 
 
 HOST_PREP_TURNS = ("python", "native", "native", "python")
@@ -1829,10 +2017,10 @@ def build_ab_variants(workdir: str):
         src, lib = os.path.join(workdir, f"variant_{kind}.cu"), os.path.join(workdir, f"variant_{kind}.so")
         with open(src, "w") as f:
             f.write(text)
-        procs[kind] = lib, subprocess.Popen(
+        procs[kind] = lib, start_process(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
              "-Xptxas", "-v", "-I", str(_build.CSRC), "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
     libs, reports = {}, {}
     for kind, (lib, proc) in procs.items():
         log_text, _ = proc.communicate()
@@ -1868,7 +2056,7 @@ def sass_counts(lib: str):
     from tendermint_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    text = run_process([cuobjdump, "-sass", lib], 300, "cuobjdump").stdout
     out, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -2036,8 +2224,8 @@ def ab_parent(planes, dev, chain_id, commits, bad_index, rng, parent, tmp):
     turns = []
     for i, (label, tree) in enumerate((("parent", parent), ("new", ROOT), ("new", ROOT), ("parent", parent))):
         out = os.path.join(tmp, f"ab{i}.json")
-        proc = subprocess.run([sys.executable, script, tree, ROOT, inputs, out], cwd=tree,
-                              capture_output=True, text=True, timeout=AB_TIMEOUT_S)
+        proc = run_process([sys.executable, script, tree, ROOT, inputs, out], AB_TIMEOUT_S, f"A/B turn {i}",
+                           check=False, cwd=tree)
         if proc.returncode != 0:
             raise AssertionError(f"A/B turn {i} ({label}, {tree}) failed (rc {proc.returncode}):\n"
                                  f"{(proc.stdout + proc.stderr)[-3000:]}")
@@ -2348,8 +2536,8 @@ def run_ranks(tmp, world, backend_device, mesh_device, jobs):
     env = dict(os.environ, PYTHONPATH=ROOT)
     cmd = [sys.executable, script, str(world), f"file://{run}/rendezvous", backend_device, mesh_device,
            os.path.join(run, "jobs.npz"), run]
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    proc = start_process(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
     try:
         out, _ = proc.communicate(timeout=RANK_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -2681,8 +2869,7 @@ def autotune_phase(tmp):
     script, out = os.path.join(tmp, "autotune.py"), os.path.join(tmp, "autotune.json")
     with open(script, "w") as f:
         f.write(AUTOTUNE_SCRIPT)
-    proc = subprocess.run([sys.executable, script, ROOT, out], cwd=ROOT, capture_output=True,
-                          text=True, timeout=600)
+    proc = run_process([sys.executable, script, ROOT, out], 600, "phase 8", check=False, cwd=ROOT)
     if proc.returncode != 0:
         raise AssertionError(f"phase 8 failed (rc {proc.returncode}):\n{(proc.stdout + proc.stderr)[-3000:]}")
     with open(out) as f:
@@ -2955,8 +3142,8 @@ def devobs_phase(chain_id, entry, tmp):
         json.dump([[x.hex() for x in col] for col in (pks, msgs, sigs)], f)
     with open(script, "w") as f:
         f.write(DEVOBS_SCRIPT)
-    proc = subprocess.run([sys.executable, script, ROOT, jobs, out, build_dir], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
+    proc = run_process([sys.executable, script, ROOT, jobs, out, build_dir], 600, "phase 9 (c)", check=False,
+                       cwd=ROOT)
     if proc.returncode != 0:
         raise AssertionError(f"phase 9 (c) failed (rc {proc.returncode}):\n{(proc.stdout + proc.stderr)[-3000:]}")
     with open(out) as f:
@@ -5541,21 +5728,15 @@ def admission_batch(label, batch):
     return (f"{len(txs)} envelopes ({label})", txs, [("rows", [pub for pub, _ in batch], label != "tampered")])
 
 
-def consensus_phase(planes, chain_id, built, runs, tmp):
+def consensus_phase(planes, chain_id, built, runs, tmp, sign):
     """Phase 14 on each plane: (a) the deterministic drive of CS_HEIGHTS
     heights, (b) the admission batches (ed25519), (c) the refusals, (d) the
     restart, (e) the live run; every call of the node held to its launches.
-    The network signs on a process pool of its own."""
-    import multiprocessing
-
+    The network signs with `sign`, on the process pool phases 14-16 share."""
     m = consensus_modules()
     totals = {}
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
-        sign = pool_signer(pool)
-        log(f"phase 14: the network's signing pool started in {time.perf_counter() - t0:.1f} s")
-        for kind, P in planes.items():
-            _consensus_plane(m, kind, P, chain_id, built[kind], sign, runs, totals, os.path.join(tmp, kind))
+    for kind, P in planes.items():
+        _consensus_plane(m, kind, P, chain_id, built[kind], sign, runs, totals, os.path.join(tmp, kind))
     check_path("phase 14", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()]
                + [{P.rlc.__name__: 1} for kind, P in planes.items() if kind == "ed25519"])
     return totals
@@ -6068,8 +6249,8 @@ class NetChild:
     def __init__(self, ctx, index, spec):
         parent, child = ctx.Pipe()
         self.index, self.conn = index, parent
-        self.proc = ctx.Process(target=net_node_main, args=(child, spec), name=f"net-node-{index}", daemon=True)
-        self.proc.start()
+        self.proc = start_process(process=ctx.Process(target=net_node_main, args=(child, spec),
+                                                       name=f"net-node-{index}", daemon=True))
 
     def ready(self):
         self.nid, self.addr = self._reply("start-up", NET_START_S)
@@ -6329,21 +6510,16 @@ def net_statuses(children, what, pred, timeout=NET_STEP_S):
         time.sleep(0.05)
 
 
-def network_phase(planes, chain_id, built, runs, tmp):
+def network_phase(planes, chain_id, built, runs, tmp, sign):
     """Phase 15 on each plane: four node processes and the harness meet by
     PEX over TCP with secret connections, then drive NET_HEIGHTS heights
     with (c)'s flood, (d)'s equivocation and lunatic attack, and (e)'s
-    faults; every node's launches held per height; (f) the timings."""
-    import multiprocessing
-
+    faults; every node's launches held per height; (f) the timings. The
+    harness signs with `sign`, on the pool phases 14-16 share."""
     m = network_modules()
     totals = {}
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
-        sign = pool_signer(pool)
-        log(f"phase 15: the harness's signing pool started in {time.perf_counter() - t0:.1f} s")
-        for kind, P in planes.items():
-            _network_plane(m, kind, P, chain_id, built, sign, runs, totals, os.path.join(tmp, kind))
+    for kind, P in planes.items():
+        _network_plane(m, kind, P, chain_id, built, sign, runs, totals, os.path.join(tmp, kind))
     check_path("phase 15", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()]
                + [{plane("ed25519").rlc.__name__: 1}])  # the envelopes' plane, whatever the validators'
     return totals
@@ -6704,10 +6880,7 @@ def cli_modules():
 def cli_command(args, home=None, timeout=300):
     """`python -m tendermint_tpu_torch [--home home] args` to its end; its stdout."""
     argv = [sys.executable, "-m", "tendermint_tpu_torch"] + (["--home", home] if home else []) + list(args)
-    proc = subprocess.run(argv, cwd=ROOT, env=cli_env(), capture_output=True, text=True, timeout=timeout)
-    if proc.returncode:
-        raise AssertionError(f"phase 16: `{' '.join(argv[1:])}` exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    return proc.stdout
+    return run_process(argv, timeout, "phase 16", cwd=ROOT, env=cli_env()).stdout
 
 
 def cli_env():
@@ -6824,8 +6997,8 @@ class CliNode:
         self.index, self.home, self.log_path = index, home, log_path
         self.t_spawn = time.monotonic()
         self.log_file = open(log_path, "w")
-        self.proc = subprocess.Popen(argv, cwd=ROOT, env=cli_env(), stdout=subprocess.PIPE, stderr=self.log_file,
-                                     text=True, start_new_session=True)
+        self.proc = start_process(argv, cwd=ROOT, env=cli_env(), stdout=subprocess.PIPE, stderr=self.log_file,
+                                  text=True, start_new_session=True)
         self.lines = queue.Queue()
         threading.Thread(target=lambda: [self.lines.put(line) for line in self.proc.stdout], daemon=True,
                          name=f"cli-node-{index}-stdout").start()
@@ -6958,21 +7131,17 @@ def cli_config(home, gen, **settings):
     return cfg
 
 
-def cli_phase(planes, chain_id, built, runs, tmp):
+def cli_phase(planes, chain_id, built, runs, tmp, sign):
     """Phase 16 on each plane: a testnet from the CLI, a seed and four node
     processes started by it, served over JSON-RPC, NetHarness playing the
     other 146; (b) the heights, (c) txs over RPC, (d) evidence over RPC,
-    (e) a fault, (f) a full node joining, (g) the timings."""
-    import multiprocessing
-
+    (e) a fault, (f) a full node joining, (g) the timings; phase 17 in the
+    ed25519 network. The harness signs with `sign`, on the pool phases
+    14-16 share."""
     m = cli_modules()
     totals = {}
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
-        sign = pool_signer(pool)
-        log(f"phase 16: the harness's signing pool started in {time.perf_counter() - t0:.1f} s")
-        for kind, P in planes.items():
-            _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, os.path.join(tmp, kind))
+    for kind, P in planes.items():
+        _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, os.path.join(tmp, kind))
     check_path("phase 16", totals, [{P.fill.__name__: 1, P.hit.__name__: 1} for P in planes.values()]
                + [{plane("ed25519").rlc.__name__: 1}])
     return totals
@@ -7323,11 +7492,16 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
             _cli_full_node(m, kind, P, gen, harness, where, cli, node_settings, top, L, seen, totals, nodes,
                            procs)
         _cli_timings(kind, nodes, live, harness, seen, H, L, F, flood, t_committed, cpu, mesh_s, runs)
+        if flood:  # phase 17 in the ed25519 network
+            _light_daemon(m, kind, P, chain, nodes, harness, where, seen, totals, procs)
+            replay = nodes[1].home, nodes[1].call("status")["sync_info"], replay_prediction(P, harness, top)
     finally:
         if harness is not None:
             harness.close()
         for c in procs:
             c.kill()
+    if flood:  # phase 17 (c), after the network's teardown
+        _replay_phase(kind, P, replay[0], replay[1], where, replay[2], totals, runs)
 
 
 def admission_checks(kind, c, label, got, got_rows, n_rows, n_rejected, sources):
@@ -7589,6 +7763,359 @@ def _cli_timings(kind, nodes, live, harness, seen, H, L, F, flood, t_committed, 
                  t_committed[1], "heights_per_s": hps, "mesh_s": mesh_s, **extra})
 
 
+# -- phase 17: the operator's tools inside phase 16's ed25519 network ----------
+
+LIGHT_START_S = 120  # the light daemon's start-up: imports, the trust root's check (its first CUDA use), the proxy
+LIGHT_UPDATE_S = 60  # its first update, from the trust root to the tip
+LIGHT_PROOF_INDICES = list(range(0, 2047, 32))  # 64 indices of the flood's 2,047-tx block
+LIGHT_ROUTE_REPS = 3  # calls of each route, on the proxy and on node 0
+REPLAY_S = 300  # a replay process, its imports and first CUDA use included
+
+
+def cli_counted(dump, args):
+    """A CLI command in a process of its own (phase 17's light daemon and
+    replays): cli.main(args), with a thread that writes to `dump`, every 0.2 s
+    and once more when the command returns, the kernel wrappers' launch
+    counts and the seconds since the command was called."""
+    import threading
+
+    from tendermint_tpu_torch import cli
+
+    t0, lock = time.perf_counter(), threading.Lock()
+    read_counts()  # the kernel modules are imported here, not by the thread beside the command's imports
+
+    def write(done):
+        with lock:
+            text = json.dumps({"counts": read_counts(), "s": time.perf_counter() - t0, "done": done})
+            with open(dump + ".tmp", "w") as f:
+                f.write(text)
+            os.replace(dump + ".tmp", dump)
+
+    def watch():
+        while True:
+            write(False)
+            time.sleep(0.2)
+
+    threading.Thread(target=watch, daemon=True, name="cli-counted-watch").start()
+    rc = cli.main(list(args))
+    write(True)
+    return rc
+
+
+def counted_argv(dump, args):
+    """`python -u -c` running cli_counted(dump, args): unbuffered, so the
+    daemon's lines reach its pipe as it prints them."""
+    return [sys.executable, "-u", "-c", f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.cli_counted({dump!r}, {list(args)!r}))"]
+
+
+def read_dump(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_launches(P, checks, cached):
+    """The launches of commit checks of valid commits, each given as the
+    keys it tallies, by the route its size takes at the default cutovers:
+    the host below DEVICE_BATCH_CUTOVER, the cached bitmap below
+    MSM_BATCH_CUTOVER (a fill when a key is not in the cache yet, then a
+    hit), the RLC from there. `cached` (a set, updated) is the cache's keys."""
+    from tendermint_tpu_torch.crypto import ed25519 as ted
+
+    out = {}
+    for keys in checks:
+        if len(keys) < ted.DEVICE_BATCH_CUTOVER:
+            continue
+        if len(keys) >= ted.MSM_BATCH_CUTOVER:
+            out[P.rlc.__name__] = out.get(P.rlc.__name__, 0) + 1
+            continue
+        if set(keys) - cached:
+            out[P.fill.__name__] = out.get(P.fill.__name__, 0) + 1
+            cached |= set(keys)
+        out[P.hit.__name__] = out.get(P.hit.__name__, 0) + 1
+    return out
+
+
+def light_keys(vals, commit):
+    """The keys verify_commit_light tallies: the commit's signatures for the
+    block, by index, until their power passes 2/3 of vals'."""
+    needed, tallied, keys = vals.total_voting_power() * 2 // 3, 0, []
+    for v, sig in zip(vals.validators, commit.signatures):
+        if not sig.for_block():
+            continue
+        keys.append(v.pub_key.bytes())
+        tallied += v.voting_power
+        if tallied > needed:
+            break
+    return keys
+
+
+def trusting_keys(trusted, commit, frac=(1, 3)):
+    """The keys verify_commit_light_trusting tallies: the commit's
+    signatures for the block by a validator of the trusted set, until their
+    trusted power passes frac of it."""
+    needed, tallied, keys = trusted.total_voting_power() * frac[0] // frac[1], 0, []
+    for sig in commit.signatures:
+        if not sig.for_block():
+            continue
+        _, v = trusted.get_by_address(sig.validator_address)
+        if v is None:
+            continue
+        keys.append(v.pub_key.bytes())
+        tallied += v.voting_power
+        if tallied > needed:
+            break
+    return keys
+
+
+def replay_keys(vals, commit):
+    """The keys verify_commit (validate_block's LastCommit check) batches:
+    every signature that is not absent."""
+    return [v.pub_key.bytes() for v, sig in zip(vals.validators, commit.signatures) if not sig.absent()]
+
+
+def ms_stats(ms):
+    import statistics
+
+    return {"median": round(statistics.median(ms), 3), "worst": round(max(ms), 3), "calls": len(ms)}
+
+
+def _light_daemon(m, kind, P, chain, nodes, harness, where, seen, totals, procs):
+    """Phase 17 (a), (b), (d) on phase 16's ed25519 network, whose nodes idle
+    at the tip: `light` started through the CLI with no device argument,
+    node 0 its primary and nodes 1 and 2 its witnesses, trusting height 1;
+    its trust root's check and its first update (a skipping step from 1 to
+    the tip: the 1/3 trusting check, then the 2/3 light check), launches
+    held exactly to the keys each check tallies; the proxy's block,
+    commit, header and validators at three heights and proofs_batch and
+    light_batch for 64 indices of the 2,047-tx block, held to node 0's
+    direct answers with no launch; then SIGTERM, and its process gone
+    before the network stops."""
+    import base64
+    import signal
+
+    from tendermint_tpu_torch.light.http_provider import HTTPProvider
+
+    t_phase = time.perf_counter()
+    top = max(harness.blocks)
+    flood_h = max(harness.blocks, key=lambda h: len(harness.blocks[h].txs))
+    n_txs = len(harness.blocks[flood_h].txs)
+    # the prediction, from the light blocks node 0 serves (the daemon's primary)
+    primary = HTTPProvider(chain, nodes[0].rpc_url)
+    lb1, lb_top = primary.light_block(1), primary.light_block(0)
+    if lb_top.height != top or lb1.signed_header.hash() != harness.bids[1].hash:
+        raise AssertionError(f"phase 17: {kind} node 0 serves height {lb_top.height} (the tip is {top})")
+    checks = [light_keys(lb1.validator_set, lb1.signed_header.commit),  # the trust root
+              trusting_keys(lb1.validator_set, lb_top.signed_header.commit),
+              light_keys(lb_top.validator_set, lb_top.signed_header.commit)]
+    want = check_launches(P, checks, set())
+    dump, log_path = os.path.join(where, "light.json"), os.path.join(where, "light.log")
+    port = free_port()
+    args = ["light", chain, nodes[0].rpc_url, "--witnesses", f"{nodes[1].rpc_url},{nodes[2].rpc_url}",
+            "--laddr", f"tcp://127.0.0.1:{port}", "--trusted-height", "1",
+            "--trusted-hash", harness.bids[1].hash.hex().upper()]
+    daemon = CliNode("light", os.path.join(where, "light"), counted_argv(dump, args), log_path)
+    procs.append(daemon)  # _cli_plane's teardown ends it too
+    try:
+        import queue
+
+        proxy_url, verified, deadline = None, None, time.monotonic() + LIGHT_START_S + LIGHT_UPDATE_S
+        while verified is None:
+            try:
+                line = daemon.lines.get(timeout=max(0.0, min(1.0, deadline - time.monotonic())))
+            except queue.Empty:
+                line = None
+            if line is not None:
+                if line.startswith("verifying RPC proxy listening on "):
+                    proxy_url = line.strip().rsplit(" ", 1)[1]
+                    t_proxy = time.monotonic() - daemon.t_spawn
+                elif line.startswith("verified head ") and int(line.split()[2]) == top:
+                    verified = time.monotonic() - daemon.t_spawn
+                elif line.startswith("update error"):
+                    raise AssertionError(f"phase 17: {kind} (a) the light daemon: {line.strip()}\n{daemon.log_tail()}")
+            elif daemon.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"phase 17: {kind} (a) the light daemon did not verify the tip {top} within "
+                                     f"{LIGHT_START_S + LIGHT_UPDATE_S} s (exit code {daemon.proc.poll()}):\n"
+                                     + daemon.log_tail())
+        if proxy_url is None or proxy_url != f"http://127.0.0.1:{port}":
+            raise AssertionError(f"phase 17: {kind} (a) the proxy's address: {proxy_url}")
+        time.sleep(0.5)  # the dump thread's next write
+        got = {k: v for k, v in read_dump(dump)["counts"].items() if v}
+        if got != want:
+            raise AssertionError(f"phase 17: {kind} (a) the light daemon launched {got}, predicted {want} for "
+                                 f"checks of {[len(k) for k in checks]} keys")
+        log(f"phase 17: {kind} (a) `light` (no device argument) trusted height 1 and verified the tip {top} "
+            f"{verified:.1f} s after its start (its proxy up at {t_proxy:.1f} s): the trust root's 2/3 check "
+            f"of {len(checks[0])} keys, then one skipping step 1 -> {top}: the 1/3 trusting check of "
+            f"{len(checks[1])} keys and the 2/3 check of {len(checks[2])}; launches {json.dumps(got)}, as "
+            f"predicted")
+        for name, v in got.items():
+            totals[name] = totals.get(name, 0) + v
+        # (b) the proxy's routes against node 0's, no launch
+        proxy = m.rpc_client.HTTPClient(proxy_url, timeout=CLI_RPC_S)
+        direct = nodes[0]
+        heights = [2, flood_h, top - 1]
+        ms = {"proxy": {}, "direct": {}}
+
+        def both(route, params, at_node=None):
+            """The route on the proxy and on node 0 (at_node: node 0's
+            answer in the proxy's form), LIGHT_ROUTE_REPS times each, in
+            turns; the answers must be equal JSON."""
+            at_node = at_node or (lambda: direct.rpc.call(route, **params))
+            answers = {}
+            for _ in range(LIGHT_ROUTE_REPS):
+                for side, call in (("proxy", lambda: proxy.call(route, **params)), ("direct", at_node)):
+                    t0 = time.perf_counter()
+                    answers[side] = call()
+                    ms[side].setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+            a, b = answers["proxy"], answers["direct"]
+            if json.dumps(a, sort_keys=True) != json.dumps(b, sort_keys=True):
+                raise AssertionError(f"phase 17: {kind} (b) the proxy's {route} {params} differs from node 0's: "
+                                     f"{json.dumps(a)[:1500]} != {json.dumps(b)[:1500]}")
+            return a
+
+        def header_fields(h):
+            """Node 0's header at h in the fields the proxy serves of the
+            verified header (ref: light/proxy.py header)."""
+            hd = direct.rpc.call("header", height=h)["header"]
+            return {"header": {"chain_id": hd["chain_id"], "height": hd["height"], "time": hd["time"],
+                               "app_hash": hd["app_hash"], "validators_hash": hd["validators_hash"],
+                               "next_validators_hash": hd["next_validators_hash"],
+                               "proposer_address": hd["proposer_address"],
+                               "last_block_id": {"hash": hd["last_block_id"]["hash"]}}}
+
+        def validator_fields(h):
+            """Node 0's validator set at h, every page of 100, in the form the
+            proxy serves the verified set: unpaginated, no proposer priority."""
+            pages, total = [], None
+            while total is None or sum(len(p) for p in pages) < total:
+                res = direct.rpc.call("validators", height=h, page=len(pages) + 1, per_page=CLI_PAGE)
+                pages.append(res["validators"])
+                total = int(res["total"])
+            vals = [{k: v[k] for k in ("address", "pub_key", "voting_power")} for p in pages for v in p]
+            return {"block_height": res["block_height"], "validators": vals, "count": str(total),
+                    "total": str(total)}
+
+        before = read_dump(dump)["counts"]
+        for h in heights:
+            both("block", {"height": h})
+            both("commit", {"height": h})
+            both("header", {"height": h}, lambda h=h: header_fields(h))
+            both("validators", {"height": h}, lambda h=h: validator_fields(h))
+        proofs = both("proofs_batch", {"height": flood_h, "indices": LIGHT_PROOF_INDICES})
+        batch = both("light_batch", {"height": flood_h, "indices": LIGHT_PROOF_INDICES})
+        if len(proofs["txs"]) != len(LIGHT_PROOF_INDICES) or base64.b64decode(proofs["txs"][0]) \
+                != harness.blocks[flood_h].txs[0] or len(batch["validators"]) != CS_VALIDATORS:
+            raise AssertionError(f"phase 17: {kind} (b) proofs_batch gave {len(proofs['txs'])} txs, light_batch "
+                                 f"{len(batch['validators'])} validators")
+        time.sleep(0.5)
+        routes_launched = delta(read_dump(dump)["counts"], before)
+        if routes_launched:
+            raise AssertionError(f"phase 17: {kind} (b) the proxy's routes launched {routes_launched}; a header "
+                                 f"already verified, or linked back by hash, launches nothing")
+        lat = {side: {route: ms_stats(v) for route, v in by.items()} for side, by in ms.items()}
+        log(f"phase 17: {kind} (b) the proxy's block, commit at heights {heights} equal node 0's answers, its "
+            f"header and validators equal node 0's in the fields it serves; proofs_batch and light_batch of "
+            f"{len(LIGHT_PROOF_INDICES)} indices of the {n_txs}-tx block {flood_h} equal node 0's; no launch")
+        log(f"phase 17: {kind} (b) ms by route, the proxy (verified) against node 0 (direct), at "
+            f"{CS_VALIDATORS} validators: " + json.dumps(lat) + f" on {card()}")
+        seen["light"] = {"verified_s": verified, "proxy_s": t_proxy, "ms": lat}
+    finally:
+        # (d) SIGTERM to the daemon; it must be gone before the network stops
+        if daemon.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(daemon.proc.pid, signal.SIGTERM)
+        try:
+            daemon.proc.wait(REAP_GRACE_S)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            raise AssertionError(f"phase 17: {kind} (d) the light daemon outlived SIGTERM by {REAP_GRACE_S} s")
+        daemon.kill()
+    left = [pid for pid, (_, pgrp, session, state, _cmd) in proc_table().items()
+            if daemon.proc.pid in (pgrp, session) and state not in ("Z", "X")]
+    if left:
+        raise AssertionError(f"phase 17: {kind} (d) processes of the light daemon's session outlived it: {left}")
+    log(f"phase 17: {kind} (d) SIGTERM ended the light daemon (exit {daemon.proc.returncode}), nothing of its "
+        f"session left, before the network stops; (a), (b), (d) in {time.perf_counter() - t_phase:.1f} s")
+
+
+def replay_prediction(P, harness, top):
+    """The launches of `replay` on a copy of a node's home whose state store
+    holds the genesis state alone: every stored block through apply_block,
+    each LastCommit (heights 2..top) checked through verify_commit; on the
+    copy as it stands, where the state covers every block, none (the blocks
+    go to the app alone)."""
+    states = harness.replica.states
+    checks = [replay_keys(states.load_validators(h - 1), harness.blocks[h].last_commit)
+              for h in range(2, top + 1)]
+    return check_launches(P, checks, set()), [len(k) for k in checks]
+
+
+def _replay_phase(kind, P, home, node_status, where, prediction, totals, runs):
+    """Phase 17 (c), after the network's teardown: `replay` (no device
+    argument) on two copies of a validator's home, at once: as it stands
+    (the app behind the whole stored chain: each block re-executed on the
+    app alone, as the state covers it: no commit to check) and with its
+    state store holding the genesis state alone, as a node's first start
+    saves it (each block through apply_block, its LastCommit checked on the
+    card). Both end at the app hash the node reported over RPC; launches as
+    predicted; blocks/s."""
+    from tendermint_tpu_torch.state import StateStore, make_genesis_state
+    from tendermint_tpu_torch.store.kv import FileDB
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    want, rows = prediction
+    t_phase = time.perf_counter()
+    height, app_hash = int(node_status["latest_block_height"]), node_status["latest_app_hash"]
+    genesis = "with its state at genesis"
+    copies = {"as it stands": os.path.join(where, "replay-home"), genesis: os.path.join(where, "replay-genesis")}
+    for path in copies.values():
+        shutil.copytree(home, path)
+    state_db = os.path.join(copies[genesis], "data", "state.db")
+    os.remove(state_db)
+    db = FileDB(state_db)
+    StateStore(db).save(make_genesis_state(GenesisDoc.from_file(os.path.join(home, "config", "genesis.json"))))
+    db.close()
+    procs = {}
+    for label, path in copies.items():
+        dump = path + ".json"
+        procs[label] = dump, start_process(counted_argv(dump, ["--home", path, "replay"]), cwd=ROOT,
+                                            env=cli_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True, start_new_session=True)
+    for label, (dump, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=REPLAY_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 17: {kind} (c) replay {label} ran past {REPLAY_S} s") from None
+        if proc.returncode:
+            raise AssertionError(f"phase 17: {kind} (c) replay {label} exited {proc.returncode}:\n{err[-4000:]}")
+        expect = f"replayed to height {height} (app hash {app_hash[:16]})"
+        res = read_dump(dump)
+        got = {k: v for k, v in res["counts"].items() if v}
+        predicted = want if label == genesis else {}
+        if expect not in out or not res["done"] or got != predicted:
+            raise AssertionError(f"phase 17: {kind} (c) replay {label}: {out.strip()!r}, launched {got}; expected "
+                                 f"{expect!r}, launches {predicted}")
+        if label == genesis:
+            db = FileDB(state_db)
+            rebuilt = StateStore(db).load()
+            db.close()
+            if rebuilt.last_block_height != height or rebuilt.app_hash.hex().upper() != app_hash:
+                raise AssertionError(f"phase 17: {kind} (c) the rebuilt state is at {rebuilt.last_block_height}, "
+                                     f"app hash {rebuilt.app_hash.hex().upper()}; the node reported {height}, "
+                                     f"{app_hash}")
+            for name, v in got.items():
+                totals[name] = totals.get(name, 0) + v
+        log(f"phase 17: {kind} (c) `replay` (no device argument) on a copy of node 1's home {label}: "
+            f"{out.strip()}, node 1's app hash over RPC {app_hash}; {height / res['s']:.2f} blocks/s over "
+            f"{res['s']:.2f} s in cli.main (the process {time.perf_counter() - t_phase:.2f} s so far); launches "
+            f"{json.dumps(got)}, predicted {json.dumps(predicted)}"
+            + (f" (LastCommit checks of {rows} keys)" if predicted else "") + f" on {card()}")
+        runs.append({"plane": kind, "run": f"replay {label} (17 c)", "commit": CS_VALIDATORS, "s": res["s"],
+                     "blocks_per_s": height / res["s"]})
+    log(f"phase 17: {kind} (c) both replays in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
@@ -7611,14 +8138,40 @@ def main() -> int:
     os.environ.pop("TM_TPU_NATIVE", None)
     sys.path.insert(0, ROOT)
     try:
-        from tendermint_tpu_torch import native
-        from tendermint_tpu_torch.ops import _build
+        from tendermint_tpu_torch import native  # noqa: F401
+        from tendermint_tpu_torch.ops import _build  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 2
 
+    import signal
+    import tempfile
+
+    # a SIGTERM (a time limit's, say) unwinds through the
+    # finally below, which ends every process the script started
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
+    # every home and temporary directory of the run lies under one root,
+    # the children's TMPDIR too: the audit names a process by it
+    run_tmp = tempfile.mkdtemp(prefix="chip-smoke-run-")
+    RUN_DIRS.append(run_tmp)
+    tempfile.tempdir = os.environ["TMPDIR"] = run_tmp
+    try:
+        return run_phases(args)
+    finally:
+        reap_all()
+        shutil.rmtree(run_tmp, ignore_errors=True)
+
+
+def run_phases(args) -> int:
+    """Phases 1-17, then the audit of every process the script started,
+    then the last three lines."""
     import multiprocessing
     import tempfile
+
+    import torch
+
+    from tendermint_tpu_torch import native
+    from tendermint_tpu_torch.ops import _build
 
     import numpy as np
 
@@ -7652,6 +8205,7 @@ def main() -> int:
         errs.update(check_kernels(rng, dev, P))
     errs.update(check_fail_count(rng, dev))
     if args.kernels_only:
+        audit_or_fail()
         log(f"kernels only: stopping after phase 2 on {card_line}")
         return 0
 
@@ -7734,17 +8288,21 @@ def main() -> int:
     log(f"phase 13: blocksync's hand-driven sync, refusals, extended commits and threaded sync in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-consensus-") as tmp:
-        consensus_phase(planes, chain_id, built14, runs, tmp)
-    log(f"phase 14: consensus on one node in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-network-") as tmp:
-        network_phase(planes, chain_id, built14, runs, tmp)
-    log(f"phase 15: the network over TCP in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
-        cli_phase(planes, chain_id, built14, runs, tmp)
-    log(f"phase 16: the CLI-started nodes served over JSON-RPC in {time.perf_counter() - t0:.1f} s")
+    with ctx.Pool(workers) as pool:  # phases 14-16 sign on one pool: one start-up, not three
+        sign = pool_signer(pool)
+        log(f"phases 14-16: their signing pool started in {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-consensus-") as tmp:
+            consensus_phase(planes, chain_id, built14, runs, tmp, sign)
+        log(f"phase 14: consensus on one node in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-network-") as tmp:
+            network_phase(planes, chain_id, built14, runs, tmp, sign)
+        log(f"phase 15: the network over TCP in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+            cli_phase(planes, chain_id, built14, runs, tmp, sign)
+        log(f"phase 16 (and 17, in its ed25519 network): the CLI-started nodes served over JSON-RPC, the light "
+            f"daemon, its proxy and replay in {time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"
@@ -7755,6 +8313,7 @@ def main() -> int:
     names = {k["name"].split("[")[0] for k in kernels}
     if names != set(KERNEL_SOURCES):
         raise AssertionError(f"kernels without a main-path record: {sorted(set(KERNEL_SOURCES) - names)}")
+    audit_or_fail()
     log(f"card {card_line}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

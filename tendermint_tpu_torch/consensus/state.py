@@ -158,6 +158,12 @@ class ConsensusState:
         self.ticker = TimeoutTicker(self._tock)
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
+        # the WAL is closed once the consumer thread has ended (close_wal):
+        # a close asked for while the thread still handles a message is
+        # left to the thread's way out, so no record meets a closed file
+        self._exit_lock = threading.Lock()
+        self._running = False
+        self._close_wal_on_exit = False
         self._n_steps = 0
         # quorum-assembly timing (consensus_quorum_assembly_seconds):
         # first vote seen for (height, round, type) -> 2/3 majority.
@@ -188,6 +194,7 @@ class ConsensusState:
         if replay:
             self._catchup_replay()
         self._stop.clear()
+        self._running = True
         self._thread = threading.Thread(target=self._receive_routine, daemon=True, name="consensus")
         self._thread.start()
         self._schedule_round_0()
@@ -229,6 +236,17 @@ class ConsensusState:
         if self._thread is not None:
             self._thread.join(timeout=5)
         self.wal.flush_and_sync()
+
+    def close_wal(self) -> None:
+        """Close the WAL once the consumer thread has ended: now if it
+        has, else by the thread itself after the message in hand (stop()'s
+        join gives up after 5 s; a record written after that still lands
+        in the open file)."""
+        with self._exit_lock:
+            if self._running:
+                self._close_wal_on_exit = True
+                return
+        self.wal.close()
 
     # ------------------------------------------------------------- inputs
 
@@ -284,6 +302,16 @@ class ConsensusState:
 
     def _receive_routine(self) -> None:
         """THE hot loop (ref: receiveRoutine state.go:888)."""
+        try:
+            self._receive_loop()
+        finally:
+            with self._exit_lock:
+                self._running = False
+                close = self._close_wal_on_exit
+            if close:
+                self.wal.close()
+
+    def _receive_loop(self) -> None:
         while not self._stop.is_set():
             try:
                 item = self._queue.get(timeout=0.1)

@@ -15,6 +15,7 @@ from .verifier import (
 from .client import LightClient, TrustOptions
 from .store import LightStore, MemLightStore, DBLightStore
 from .provider import Provider, LocalProvider
+from .http_provider import HTTPProvider
 
 __all__ = [
     "DEFAULT_TRUST_LEVEL",
@@ -22,6 +23,7 @@ __all__ = [
     "ErrInvalidHeader",
     "ErrNewValSetCantBeTrusted",
     "ErrOldHeaderExpired",
+    "HTTPProvider",
     "LightClient",
     "LightStore",
     "LocalProvider",

@@ -17,9 +17,10 @@ the P2PMetrics (tendermint_p2p_*: p2p/router.py, p2p/peermanager.py) and
 BlockSyncMetrics (tendermint_blocksync_*: blocksync/reactor.py) of
 blocksync and the p2p layer beneath it, and ConsensusMetrics
 (tendermint_consensus_*: consensus/state.py) and MempoolMetrics
-(tendermint_mempool_*: mempool/mempool.py) of consensus on one node, and the
-node's PrometheusServer, which serves a node's registry and the
-process-global one over HTTP. Names,
+(tendermint_mempool_*: mempool/mempool.py) of consensus on one node,
+FlightMetrics (tendermint_flight_*: the node's flight recorder,
+metrics/flight.py), and the node's PrometheusServer, which serves a node's
+registry and the process-global one over HTTP. Names,
 labels, help strings and buckets are the reference's, so one scrape reads
 both packages alike.
 
@@ -441,6 +442,33 @@ class EngineMetrics:
         direct_* so the scheduler's coalesced launches stay
         distinguishable from per-caller ones."""
         self.observe_path_counts(plane, f"direct_{path}", n, accepted)
+
+
+class FlightMetrics:
+    """Self-telemetry for the in-run flight recorder
+    (metrics/flight.py): how many timeseries.jsonl records this node
+    appended and what one sample tick costs. The sample-cost histogram
+    is the overhead evidence — docs/observability.md#flight documents
+    the enabled-cost budget (<=1% of a bench mempool stage) against it.
+
+    No reference analog — the reference has no in-process recorder;
+    operators scrape externally. Registered on the NODE registry (the
+    recorder is per-node state, not process-global)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_flight"
+        self.records = reg.counter(
+            f"{ns}_records_total", "Timeseries records appended since boot"
+        )
+        self.sample_seconds = reg.histogram(
+            f"{ns}_sample_seconds",
+            "Wall time of one flight-recorder sample tick (gather + diff + append)",
+            buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.05, 0.25),
+        )
+        self.dropped_samples = reg.counter(
+            f"{ns}_dropped_samples_total",
+            "Sample ticks that failed to append (I/O errors; recorder keeps running)",
+        )
 
 
 class DeviceMetrics:

@@ -10,11 +10,13 @@ node is the only validator, switching to consensus when caught up
 `Node(..., device=None)` runs its verifying layers (BlockExecutor, the
 Handshaker, the EvidencePool, the BlockSyncReactor and the mempool's
 EngineTxPreVerifier) on the card unless the caller passes device="cpu".
-What the port has not reached yet raises an error that names the item
-that brings it (NotYetPorted), never a quiet substitute: state sync and
-its channels (A15), the remote and gRPC signers, the SQL sinks and the
-flight recorder (A14b), the socket, gRPC and bank apps (A15), and the
-e2e tooling's environment knobs.
+The node wires the file signer or a remote one (privval/remote.py over a
+socket, privval/grpc.py over gRPC), the kv, sqlite and psql event sinks
+and the flight recorder (metrics/flight.py). What the port has not reached
+yet raises an error that names the item that brings it (NotYetPorted),
+never a quiet substitute: state sync and its channels, the socket, gRPC
+and bank apps (A15), and the e2e tooling's environment knobs. `stop()`
+closes the WAL only once the consensus thread has ended.
 """
 
 from __future__ import annotations
@@ -172,14 +174,6 @@ class Node:
         self.device = device
         if config.statesync.enable:
             raise not_yet("statesync.enable = true (statesync/)", "A15")
-        if config.instrumentation.flight_interval > 0:
-            raise not_yet("instrumentation.flight_interval > 0 (metrics/flight.py)", "A14b")
-        if config.base.mode == "validator" and config.base.priv_validator_laddr and priv_validator is None:
-            raise not_yet(f"priv_validator_laddr {config.base.priv_validator_laddr!r} "
-                          "(the remote and gRPC signers, privval/remote.py, privval/grpc.py)", "A14b")
-        for name in filter(None, (s.strip() for s in config.tx_index.indexer.split(","))):
-            if name in ("sqlite", "psql"):
-                raise not_yet(f"tx_index.indexer {name!r} (indexer/sink_sql.py, indexer/sink_psql.py)", "A14b")
 
         # ---- observability (ref: node/node.go:575 Prometheus; libs/log)
         self.metrics_registry = Registry()
@@ -194,9 +188,30 @@ class Node:
             if config.instrumentation.prometheus
             else None
         )
-        # the flight recorder (metrics/flight.py) comes with A14b; a
-        # non-zero flight_interval raised above
+        # In-run flight recorder (metrics/flight.py): streams delta
+        # records to <home>/timeseries.jsonl so rates-over-time survive
+        # a SIGKILL. Disabled (the default) nothing is constructed —
+        # the zero-cost path really is zero.
         self.flight_recorder = None
+        if config.instrumentation.flight_interval > 0 and config.base.home:
+            from ..metrics import FlightMetrics, global_registry
+            from ..metrics.flight import TIMESERIES_NAME, FlightRecorder
+
+            # tmdev: when the device observatory is live, its HBM-
+            # residency sampler rides the recorder's cadence so the
+            # live-buffer timeline (and the device_mem_growth verdict
+            # built on it) survives SIGKILL. Off: empty sampler list,
+            # flight.py stays devobs-free (import isolation).
+            from .. import devobs
+
+            samplers = [devobs.sample_residency] if devobs.enabled() else []
+            self.flight_recorder = FlightRecorder(
+                [self.metrics_registry, global_registry()],
+                os.path.join(config.base.home, TIMESERIES_NAME),
+                interval=config.instrumentation.flight_interval,
+                metrics=FlightMetrics(self.metrics_registry),
+                samplers=samplers,
+            )
         self.logger = Logger(level=parse_level(config.base.log_level),
                              fmt=config.base.log_format).with_fields(
             module="node"
@@ -236,24 +251,65 @@ class Node:
         from ..eventbus.eventlog import EventLog
 
         self.event_bus = EventBus(event_log=EventLog())
-        # Event sinks (ref: EventSinksFromConfig, node/setup.go): "kv";
-        # "sqlite" and "psql" raised above (A14b)
+        # Event sinks (ref: EventSinksFromConfig, node/setup.go): "kv",
+        # "sqlite" (in-process SQL), and/or "psql" (a real Postgres via
+        # config.tx_index.psql_conn, ref: config.go TxIndexConfig.PsqlConn),
+        # comma-separated.
         self.indexer = None
+        self.sql_sinks = []  # every SQL-backed sink, closed on stop
         sinks = []
         for name in filter(None, (s.strip() for s in config.tx_index.indexer.split(","))):
             if name == "kv":
                 self.indexer = KVIndexer(_make_db(config, "tx_index"))
                 sinks.append(self.indexer)
+            elif name == "sqlite":
+                from ..indexer.sink_sql import SQLSink
+
+                os.makedirs(config.db_dir, exist_ok=True)
+                self.sql_sinks.append(SQLSink(
+                    os.path.join(config.db_dir, "events.sqlite"), self.gen_doc.chain_id
+                ))
+                sinks.append(self.sql_sinks[-1])
+            elif name == "psql":
+                from ..indexer.sink_psql import PsqlSink
+
+                dsn = getattr(config.tx_index, "psql_conn", "")
+                if not dsn:
+                    raise ValueError(
+                        "tx_index.indexer 'psql' requires `psql-conn` in the "
+                        "[tx-index] section (ref: config.go TxIndexConfig.PsqlConn)"
+                    )
+                self.sql_sinks.append(PsqlSink(dsn, self.gen_doc.chain_id))
+                sinks.append(self.sql_sinks[-1])
             elif name in ("null", "none"):
                 continue
             else:
                 raise ValueError(f"unsupported tx_index.indexer {name!r}")
+        self.sql_sink = self.sql_sinks[0] if self.sql_sinks else None
         self.indexer_service = IndexerService(sinks, self.event_bus) if sinks else None
 
-        # ---- privval (node/setup.go:489: file; the socket and gRPC
-        # remote signers raised above)
+        # ---- privval (node/setup.go:489: file | socket | grpc remote signer)
+        self.privval_endpoint = None
         if priv_validator is not None:
             self.priv_validator = priv_validator
+        elif (
+            config.base.mode == "validator"
+            and config.base.priv_validator_laddr.startswith("grpc://")
+        ):
+            from ..privval.grpc import GRPCSignerClient
+
+            self.priv_validator = GRPCSignerClient(
+                config.base.priv_validator_laddr, self.gen_doc.chain_id
+            )
+        elif config.base.mode == "validator" and config.base.priv_validator_laddr:
+            from ..privval.remote import SignerClient, SignerListenerEndpoint
+
+            self.privval_endpoint = SignerListenerEndpoint(
+                config.base.priv_validator_laddr,
+                logger=self.logger.with_fields(module="privval"),
+            )
+            self.privval_endpoint.start()
+            self.priv_validator = SignerClient(self.privval_endpoint, self.gen_doc.chain_id)
         elif config.base.mode == "validator":
             self.priv_validator = FilePV.load_or_generate(
                 config.priv_validator_key_file, config.priv_validator_state_file
@@ -502,6 +558,8 @@ class Node:
             self.indexer_service.start()
         if self.prometheus_server is not None:
             self.prometheus_server.start()
+        if self.flight_recorder is not None:
+            self.flight_recorder.start()
 
         # ABCI handshake: sync the app to the stores (node/node.go:430)
         hs = Handshaker(
@@ -577,6 +635,8 @@ class Node:
             self.consensus.stop()
         if hasattr(self.priv_validator, "stop"):
             self.priv_validator.stop()  # gRPC signer client channel
+        if self.privval_endpoint is not None:
+            self.privval_endpoint.stop()
         if self.pex_reactor is not None:
             self.pex_reactor.stop()
         self.blocksync_reactor.stop()
@@ -590,7 +650,13 @@ class Node:
             self.indexer_service.stop()
         if self.prometheus_server is not None:
             self.prometheus_server.stop()
-        self.consensus.wal.close()
+        if self.flight_recorder is not None:
+            self.flight_recorder.stop()  # final sample lands in the timeline
+        # closed by the consensus thread on its way out if stop()'s join
+        # gave up while it still handled a message
+        self.consensus.close_wal()
+        for sink in self.sql_sinks:
+            sink.close()
 
     # -------------------------------------------------------------- helpers
 

@@ -24,6 +24,7 @@ state, messages, WAL, ticker and handshake) against the JAX package's.
 """
 
 import contextlib
+import json
 import dataclasses
 import os
 from types import SimpleNamespace
@@ -267,3 +268,57 @@ def test_live_run_times_the_node_apart_from_the_network(tmp_path):
     assert [h for h, _ in decided[:3]] == [1, 2, 3]
     assert 0 < spent["node"] < wall and 0 < spent["network"] < wall
     assert 0 < spent["node_cpu"] <= spent["node"] and spent["add_vote"] + spent["wal_write"] <= spent["node"]
+
+
+def test_node_stop_closes_the_wal_only_after_the_consensus_thread_ends(tmp_path, monkeypatch):
+    """C7: a node stopped while its consensus thread still handles a message
+    (held past ConsensusState.stop's 5 s join) closes its WAL only once the
+    thread has ended. No thread meets a closed file, and every record the
+    handler wrote after the join gave up is in the WAL."""
+    import threading
+
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.node import Node, init_files_home
+
+    home = str(tmp_path / "home")
+    init_files_home(home, chain_id="c7-chain")
+    cfg = load_config(home)
+    cfg.base.db_backend = "memdb"
+    cfg.p2p.laddr = cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.enable = False
+    raised = []
+    monkeypatch.setattr(threading, "excepthook", lambda a: raised.append(a.exc_value))
+    node = Node(cfg, device="cpu")
+    node.start()
+    cstate = node.consensus
+    assert cstate._thread is not None and cstate._thread.is_alive()
+    entered, release = threading.Event(), threading.Event()
+    records = [twal.TimeoutInfo(0.5, 10**6 + i, 0, 1) for i in range(3)]
+    dispatch = cstate._dispatch
+
+    def held(item):
+        if item != ("hold",):
+            return dispatch(item)
+        entered.set()
+        release.wait(30)
+        for rec in records:  # the message in hand writes after the join gave up
+            cstate.wal.write(rec)
+
+    cstate._dispatch = held
+    cstate._queue.put(("hold",))
+    assert entered.wait(10)
+    stopper = threading.Thread(target=node.stop)
+    stopper.start()
+    stopper.join(30)
+    assert not stopper.is_alive()
+    assert cstate._thread.is_alive()  # the join timed out with the message in hand
+    release.set()
+    cstate._thread.join(10)
+    assert not cstate._thread.is_alive()
+    assert not [e for e in raised if "closed file" in str(e)], raised
+    assert raised == []
+    assert cstate.wal._f.closed
+    with open(cfg.wal_file, "rb") as f:
+        docs = [json.loads(p) for _, p in twal.iter_wal_records(f.read())]
+    written = [twal._decode_msg(d) for d in docs if d["type"] == "timeout" and d["height"] >= 10**6]
+    assert written == records

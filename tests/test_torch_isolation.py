@@ -6,14 +6,17 @@ layer's with its stores, evidence pool and ABCI app, blocksync's with
 the p2p layer beneath it, consensus's with its vote sets, file signer,
 mempool, WAL, ticker and handshake, and the TCP transport, secret
 connection, PEX and the consensus, mempool and evidence reactors, and the
-node with its config, pubsub, event bus, indexer, RPC and CLI included)
+node with its config, pubsub, event bus, indexer, RPC and CLI included,
+and the operator's tools: the HTTP provider, the light proxy, the remote
+and gRPC signers, the SQL sinks and the flight recorder)
 loads no JAX
 and nothing of tendermint_tpu, the native host prep and merkle plane load
 the port's own library (never the reference's prep.so), a default-device
 verifier, a default-device BlockSyncReactor's light check and a
 default-device EngineTxPreVerifier raise without CUDA instead of running
 on the host (a gossiped admission's raise reaching the mempool reactor's
-on_fatal), and
+on_fatal), the node, the CLI and the signers import with grpcio hidden (a
+grpc:// signer address then raises by name), and
 TM_TPU_ENGINE selects the engine or direct dispatch as the reference's
 does."""
 
@@ -61,7 +64,9 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "consensus.reactor", "mempool.reactor", "evidence.reactor", "pubsub", "pubsub.query",
              "pubsub.pubsub", "eventbus", "eventbus.event_bus", "eventbus.eventlog", "indexer", "indexer.kv",
              "indexer.service", "config", "config.config", "rpc", "rpc.server", "rpc.core", "rpc.client",
-             "node", "node.node", "node.setup", "node.seed", "cli", "__main__"):
+             "node", "node.node", "node.setup", "node.seed", "cli", "__main__", "light.http_provider",
+             "light.proxy", "privval.remote", "privval.grpc", "privval.proto", "utils.grpcutil",
+             "indexer.sink_sql", "indexer.sink_psql", "metrics.flight", "abci.proto"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     if name != pkg.__name__ + ".__main__":  # runs the CLI: the second probe's
@@ -79,6 +84,10 @@ from tendermint_tpu_torch.ops import engine, msm, verify, verify_sr
 from tendermint_tpu_torch import cli, config, eventbus, indexer, node, pubsub, rpc
 from tendermint_tpu_torch.node import seed
 from tendermint_tpu_torch.rpc import client as rpc_client
+from tendermint_tpu_torch.light import proxy as light_proxy
+from tendermint_tpu_torch.privval import grpc as pv_grpc, remote as pv_remote
+from tendermint_tpu_torch.indexer import sink_psql, sink_sql
+from tendermint_tpu_torch.metrics import flight
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (verify_sr, ("build_sr_tables", "verify_sr_kernel_cached")),
                  (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async")),
@@ -120,7 +129,12 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (rpc, ("JSONRPCServer", "RPCEnvironment", "build_routes")),
                  (rpc_client, ("HTTPClient", "WSClient", "EventStream", "LocalClient")),
                  (node, ("Node", "NodeKey", "init_files_home")), (seed, ("SeedNode",)),
-                 (metrics, ("PrometheusServer",)), (cli, ("main", "build_parser"))):
+                 (metrics, ("PrometheusServer",)), (cli, ("main", "build_parser")),
+                 (light, ("HTTPProvider",)), (light_proxy, ("LightProxy",)),
+                 (pv_remote, ("SignerClient", "SignerServer", "SignerListenerEndpoint")),
+                 (pv_grpc, ("GRPCSignerClient", "GRPCSignerServer")), (sink_sql, ("SQLSink",)),
+                 (sink_psql, ("PsqlSink",)), (flight, ("FlightRecorder",)), (metrics, ("FlightMetrics",)),
+                 (cli, ("cmd_light", "cmd_replay", "cmd_inspect", "cmd_remote_signer", "cmd_reset"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
@@ -174,6 +188,40 @@ def test_cli_help_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "leaked: []" in proc.stdout
     assert "{version,completion,init,start,testnet," in proc.stdout
+
+
+_NO_GRPC_PROBE = r"""
+import sys
+sys.modules["grpc"] = None  # as on a machine without grpcio
+import tendermint_tpu_torch.node, tendermint_tpu_torch.cli, tendermint_tpu_torch.privval
+from tendermint_tpu_torch.privval import grpc as pv_grpc, remote as pv_remote
+from tendermint_tpu_torch.utils import grpcutil
+assert grpcutil.grpc is None and pv_grpc.grpc is None
+for make in (lambda: pv_grpc.GRPCSignerClient("grpc://127.0.0.1:1", "c"),
+             lambda: grpcutil.GenericGrpcServer(None, "grpc://127.0.0.1:0")):
+    try:
+        make()
+        raise SystemExit("a grpc:// signer was made without grpcio")
+    except RuntimeError as e:
+        assert "grpcio is not available" in str(e), e
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "tendermint_tpu" or m.startswith("tendermint_tpu."))
+print("leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_node_cli_and_signers_import_without_grpc():
+    """On a machine without grpcio the node, the CLI and
+    privval/ import without it, and a grpc:// signer raises, naming grpcio,
+    with no substitute."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", _NO_GRPC_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
 
 
 def _jobs(n):

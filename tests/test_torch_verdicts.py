@@ -551,11 +551,12 @@ LATER_SETTINGS = [
     ("proxy_app", "unix:///tmp/app.sock", "ROADMAP A15"),
     ("proxy_app", "grpc://127.0.0.1:26658", "ROADMAP A15"),
     ("proxy_app", "builtin:kvstore:snapshot=5", "statesync slice"),
-    ("priv_validator_laddr", "tcp://127.0.0.1:26659", "ROADMAP A14b"),
-    ("priv_validator_laddr", "grpc://127.0.0.1:26659", "ROADMAP A14b"),
-    ("tx_index.indexer", "sqlite", "ROADMAP A14b"),
-    ("tx_index.indexer", "psql", "ROADMAP A14b"),
-    ("instrumentation.flight_interval", 1.0, "ROADMAP A14b"),
+    # A14b's settings, ported since: each is taken now (item None)
+    ("priv_validator_laddr", "tcp://127.0.0.1:26659", None),
+    ("priv_validator_laddr", "grpc://127.0.0.1:26659", None),
+    ("tx_index.indexer", "sqlite", None),
+    ("tx_index.indexer", "psql", None),
+    ("instrumentation.flight_interval", 1.0, None),
     ("statesync.enable", True, "ROADMAP A15"),
 ]
 
@@ -563,14 +564,57 @@ LATER_SETTINGS = [
 @pytest.mark.parametrize("key,value,item", LATER_SETTINGS, ids=[f"{k}={v}" for k, v, _ in LATER_SETTINGS])
 def test_setting_outside_the_slice_names_its_item(tmp_path, key, value, item):
     """A node configured with a setting the port has not reached raises an
-    error naming the item that brings it; nothing is remapped."""
+    error naming the item that brings it; nothing is remapped. A14b's
+    settings (item None) are taken since that item was ported: a remote
+    signer over a socket or over gRPC serves the node's key, the sqlite sink
+    and the flight recorder are built, and the psql sink asks for its DSN
+    as the reference's does."""
     from tendermint_tpu_torch.node import Node
 
     cfg = _home(tmp_path)
+    if key == "priv_validator_laddr" and item is None:  # a free port: the cases may run at once
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            value = value.replace(":26659", f":{sock.getsockname()[1]}")
     section, _, attr = key.rpartition(".")
     setattr(getattr(cfg, section) if section else cfg.base, attr, value)
-    with pytest.raises(NotImplementedError, match=item):
-        Node(cfg, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            Node(cfg, device="cpu")
+        return
+    if key == "tx_index.indexer" and value == "psql":
+        with pytest.raises(ValueError, match="requires `psql-conn`"):
+            Node(cfg, device="cpu")
+        return
+    server = None
+    if key == "priv_validator_laddr":
+        from tendermint_tpu_torch.privval import FilePV
+        from tendermint_tpu_torch.privval.grpc import GRPCSignerServer
+        from tendermint_tpu_torch.privval.remote import SignerServer
+
+        pv = FilePV.load(cfg.priv_validator_key_file, cfg.priv_validator_state_file)
+        server = (GRPCSignerServer(pv, "later-chain", value) if value.startswith("grpc://")
+                  else SignerServer(value, pv, "later-chain"))  # dials the node's listener until it is up
+        server.start()
+    try:
+        node = Node(cfg, device="cpu")
+        node.start()
+        try:
+            if key == "priv_validator_laddr":
+                assert type(node.priv_validator).__name__ == ("GRPCSignerClient" if value.startswith("grpc://")
+                                                              else "SignerClient")
+                assert node.priv_validator.get_pub_key().bytes() == pv.get_pub_key().bytes()
+            elif key == "tx_index.indexer":
+                assert [type(s).__name__ for s in node.sql_sinks] == ["SQLSink"]
+            else:
+                assert node.flight_recorder is not None and node.flight_recorder.interval == value
+        finally:
+            node.stop()
+    finally:
+        if server is not None:
+            server.stop()
 
 
 @pytest.mark.parametrize("knob", ["TM_E2E_DELAYS_MS", "TM_TPU_LOCKCHECK", "TM_TPU_RACECHECK", "TM_TPU_BYZ",
@@ -587,12 +631,26 @@ def test_tooling_knob_names_its_item(tmp_path, monkeypatch, knob):
         cli.main(["--home", cfg.base.home, "start"])
 
 
-@pytest.mark.parametrize("command", sorted(__import__("tendermint_tpu_torch.cli", fromlist=["LATER"]).LATER))
+# the operator's commands of A14b, ported since, and the later items' commands
+A14B_COMMANDS = ("reset", "unsafe-reset-all", "inspect", "light", "debug", "replay", "reindex-event", "compact",
+                 "wal2json", "json2wal", "config-migrate", "completion", "remote-signer")
+
+
+@pytest.mark.parametrize("command", sorted(A14B_COMMANDS + tuple(__import__("tendermint_tpu_torch.cli",
+                                                                            fromlist=["LATER"]).LATER)))
 def test_command_outside_the_slice_names_its_item(command, capsys):
     """Every command of the reference's parser the port has not reached
-    exits non-zero, naming its item."""
+    exits non-zero, naming its item. A14b's commands, ported since, run the
+    reference's function of their name (`unsafe-reset-all` is `reset`'s)."""
     from tendermint_tpu_torch import cli
 
+    if command in A14B_COMMANDS:
+        assert command not in cli.LATER
+        sub = next(a for a in cli.build_parser()._actions if a.dest == "command")
+        fn = sub.choices[command].get_default("fn")
+        assert fn.__name__ == "cmd_" + ("reset" if command == "unsafe-reset-all" else command.replace("-", "_"))
+        assert fn.__module__ == "tendermint_tpu_torch.cli"
+        return
     argv = {"completion": [], "e2e": ["m.toml"], "e2e-generate": ["--output", "o"], "debug": ["kill"],
             "wal2json": ["w"], "json2wal": ["i", "o"], "remote-signer": ["--addr", "a", "--chain-id", "c"],
             "light": ["c", "http://p"]}.get(command, [])
