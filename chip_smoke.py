@@ -1258,14 +1258,8 @@ EXPECTED_LAUNCHES = {
 }
 
 
-def main_path(pool, rng, keys, chain_id):
-    """verify_commit on each plane's commits, with every launch counter set
-    to 0 just before each call and read just after; returns the commits,
-    the tampered index of each, the summed launches and the wall times."""
-    from tendermint_tpu_torch.types.validation import (
-        Fraction, verify_commit, verify_commit_light_trusting,
-    )
-
+def main_commits(pool, rng, keys, chain_id):
+    """Phase 3's commits on each plane, at every size, signed on the pool."""
     commits = {}
     for kind in PLANES:
         t0 = time.perf_counter()
@@ -1273,6 +1267,17 @@ def main_path(pool, rng, keys, chain_id):
         commits[kind] = {n: build_commit(pool, kind, seeds, pubs, rng, n, chain_id, 100 + n)
                          for n in SIZES}
         log(f"phase 3: {kind} commits signed in {time.perf_counter() - t0:.1f} s")
+    return commits
+
+
+def main_path(commits, chain_id):
+    """verify_commit on each plane's commits, with every launch counter set
+    to 0 just before each call and read just after; returns the tampered
+    index of each commit, the summed launches and the wall times."""
+    from tendermint_tpu_torch.types.validation import (
+        Fraction, verify_commit, verify_commit_light_trusting,
+    )
+
     bad_index = {n: (n * 5) // 12 for n in SIZES}
     totals = {}
     runs = []
@@ -1299,7 +1304,7 @@ def main_path(pool, rng, keys, chain_id):
     for r in runs:
         log("phase 3: " + json.dumps(r))
     check_path("phase 3", totals, [w for kind in PLANES for w in EXPECTED_LAUNCHES[kind].values()])
-    return commits, bad_index, totals, runs
+    return bad_index, totals, runs
 
 
 def verify_tampered(chain_id, commit_entry, bad, run):
@@ -5854,6 +5859,9 @@ NET_CONFLICT_VALIDATOR = 7  # (d): the index among the harness's validators of t
 NET_TIMEOUTS = {"propose": 5_000_000_000, "propose_delta": 1_000_000_000, "vote": 1_000_000_000,
                 "vote_delta": 500_000_000, "commit": 5_000_000_000, "bypass_commit_timeout": True}
 NET_STEP_S = 60  # the deadline of each wait of the harness
+# how long a wait of the harness trusts the gossip before it reads the nodes'
+# WALs each second for what a node signed or stepped to and the gossip lost
+NET_GOSSIP_GRACE_S = 10
 NET_MESH_S = 30
 NET_START_S = 120  # a node process's start-up (imports, its stores, its router)
 NET_NODE_SEEDS = tuple(bytes([0x60 + i]) * 32 for i in range(NET_NODES))  # the nodes' p2p keys
@@ -6249,6 +6257,7 @@ class NetChild:
     def __init__(self, ctx, index, spec):
         parent, child = ctx.Pipe()
         self.index, self.conn = index, parent
+        self.wal = os.path.join(spec["where"], "cs.wal")  # cs_node's; NetHarness reads it
         self.proc = start_process(process=ctx.Process(target=net_node_main, args=(child, spec),
                                                        name=f"net-node-{index}", daemon=True))
 
@@ -6282,7 +6291,14 @@ class NetHarness:
     parts; for each complete proposal, its prevotes, then its precommits,
     signed by sign(secrets, msgs) -> sigs (phase 14's pool signer). A replica
     (cs_stores over MemDBs) applies each committed block, as the nodes
-    validated it, to build the harness's proposals and attacks from."""
+    validated it, to build the harness's proposals and attacks from.
+
+    A node's router drops a message to a peer whose send queue stays full,
+    and the harness announces no round state that would make the nodes
+    gossip it again; so a wait that the gossip has not met within
+    NET_GOSSIP_GRACE_S reads each node's WAL (child.wal), where the node
+    fsyncs its own votes and proposal as it signs them and records its round
+    steps, for what is missing (wal_own_records)."""
 
     def __init__(self, m, gen, members, sign, children, dev, dial=None):
         """dial: the one address the harness starts from (node 0's by default)."""
@@ -6302,6 +6318,7 @@ class NetHarness:
         # (height, step); the addresses of halted nodes' validators, whose
         # precommits a LastCommit no longer waits for; the last equivocation
         self.proposed, self.step_times, self.halted, self.equivocation = {}, {}, set(), None
+        self.recovered = []  # (what was awaited, [what the nodes' WALs gave])
         self.cond, self.stop = threading.Condition(), threading.Event()
         key = m.node_key.generate(NET_HARNESS_SEED)
         self.nid = m.p2p.node_id_from_pubkey(key.pub_key())
@@ -6344,10 +6361,49 @@ class NetHarness:
                 self.cond.notify_all()
 
     def wait(self, what, pred, timeout=NET_STEP_S):
-        with self.cond:
-            if not self.cond.wait_for(pred, timeout):
+        """Wait for pred (under self.cond) until the deadline, reading the
+        nodes' WALs each second once NET_GOSSIP_GRACE_S has passed."""
+        now = time.monotonic()
+        deadline, until = now + timeout, now + min(timeout, NET_GOSSIP_GRACE_S)
+        while True:
+            with self.cond:
+                if self.cond.wait_for(pred, max(0.0, until - time.monotonic())):
+                    return
+            if time.monotonic() >= deadline:
                 raise AssertionError(f"phase 15: {what} within {timeout} s (the nodes at "
                                      f"{sorted(self.steps.values())})")
+            got = self._recover()
+            if got:
+                self.recovered.append((what, got))
+                log(f"the harness: waiting for {what}, read from the nodes' WALs what it had not received: "
+                    + ", ".join(got))
+            until = min(deadline, time.monotonic() + 1.0)
+
+    def _recover(self):
+        """Each node's own votes and proposals and its latest round step from
+        its WAL, where the harness lacks them; returns what it added."""
+        got = []
+        for child in self.children:
+            path = getattr(child, "wal", None)
+            if path is None:
+                continue
+            votes, proposals, step = wal_own_records(self.m, path)
+            with self.cond:
+                for v in votes:
+                    have = self.votes.setdefault((v.height, v.round, v.type), {})
+                    if v.validator_index not in have:
+                        have[v.validator_index] = v
+                        got.append(f"node {child.index}'s vote ({v.height}, {v.round}, {v.type})")
+                for p in proposals:
+                    if (p.height, p.round) not in self.proposals:
+                        self.proposals[(p.height, p.round)] = p
+                        got.append(f"node {child.index}'s proposal ({p.height}, {p.round})")
+                if step is not None and step > self.steps.get(child.nid, (0, 0, 0)):
+                    self.steps[child.nid] = step
+                    self.step_times.setdefault((child.nid, step[0], step[2]), time.monotonic())
+                    got.append(f"node {child.index}'s step {step}")
+                self.cond.notify_all()
+        return got
 
     def _votes(self, type_, h, block_id, skip=()):
         vals = self.replica.state.validators
@@ -6481,6 +6537,33 @@ class NetHarness:
         proposal), checked on the host."""
         with env_setting("TM_TPU_CRYPTO", "off"):
             self.replica.pool.add_evidence(ev)
+
+
+def wal_own_records(m, path):
+    """From the WAL at path (its rotated files, then its head; a torn last
+    record left out): the node's own votes, its own proposals, and its latest
+    round step as (height, round, step) or None."""
+    import glob
+
+    own, step = (b'{"type":"msg_info","peer_id":"",', b'{"type":"round_step",')
+    votes, proposals, latest = [], [], None
+    for p in sorted(glob.glob(path + "." + "[0-9]" * 9)) + [path]:
+        try:
+            with open(p, "rb") as f:
+                data = f.read()
+        except FileNotFoundError:  # rotated while read: the next reading has it
+            continue
+        for _, payload in m.wal.iter_wal_records(data):
+            if not payload.startswith((own, step)):
+                continue
+            rec = m.wal._decode_msg(json.loads(payload))
+            if isinstance(rec, m.wal.EventRoundStep):
+                latest = max(latest or (0, 0, 0), (rec.height, rec.round, rec.step))
+            elif isinstance(rec.msg, m.messages.VoteMessage):
+                votes.append(rec.msg.vote)
+            elif isinstance(rec.msg, m.messages.ProposalMessage):
+                proposals.append(rec.msg.proposal)
+    return votes, proposals, latest
 
 
 def net_light_rows(vals, absent):
@@ -7180,6 +7263,8 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
 
     import torch
 
+    from tendermint_tpu_torch.config import load_config
+
     dev = torch.device("cuda", 0)
     ed = plane("ed25519")
     H = CLI_HEIGHTS[kind]
@@ -7193,6 +7278,8 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
               "--starting-port", "0", "--output", out], None),
             (["init", "seed", "--chain-id", chain], os.path.join(where, "seed")),
             (["init", "full", "--chain-id", chain], os.path.join(where, "full"))]
+    if flood:  # phase 18's state-syncing node
+        jobs.append((["init", "full", "--chain-id", chain], os.path.join(where, "statesync")))
     import concurrent.futures
 
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
@@ -7214,6 +7301,8 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
     node_settings = {"p2p.laddr": "tcp://127.0.0.1:0", "rpc.laddr": "tcp://127.0.0.1:0", "p2p.persistent_peers": "",
                      "p2p.bootstrap_peers": seed_addr, "instrumentation.prometheus": True,
                      "instrumentation.prometheus_listen_addr": "127.0.0.1:0", "mempool.precheck_sigs": True}
+    if flood:  # phase 18 restores one of these snapshots
+        node_settings["proxy_app"] = f"builtin:kvstore:snapshot={SS_INTERVAL}"
     homes = [os.path.join(out, f"node{i}") for i in chosen]
     for home in homes:
         cli_config(home, gen, **node_settings)
@@ -7237,6 +7326,7 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
             c.client(m)
             c.nid = c.call("status")["node_info"]["id"]
             c.member_addr = m.keys[members[chosen[c.index]][0]](members[chosen[c.index]][1]).address()
+            c.wal = load_config(c.home).wal_file  # NetHarness reads it
         first_rpc = {c.index: c.t_first_rpc - c.t_spawn for c in nodes}
         log(f"phase 16: {kind} (a) the seed and {CLI_NODES} node processes started by the CLI in "
             f"{time.perf_counter() - t_start:.1f} s; from `start` to the first RPC answer, s: "
@@ -7244,6 +7334,8 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
         # (a) the mesh by PEX through the seed; every node switched to consensus
         harness = NetHarness(m, gen, members, sign, nodes, dev, dial="mconn://" + seed_addr)
         harness.builder.mempool = feed = tx_feed(m)
+        if flood:  # the nodes' snapshots, taken alike by the replica's app
+            harness.replica.client._app.snapshot_interval = SS_INTERVAL
         t0 = time.perf_counter()
         want_peers = lambda c: {o.nid for o in nodes if o is not c} | {harness.nid}  # noqa: E731
         deadline = time.monotonic() + NET_MESH_S + CLI_START_S
@@ -7492,16 +7584,19 @@ def _cli_plane(m, kind, P, chain_id, built, sign, runs, totals, where):
             _cli_full_node(m, kind, P, gen, harness, where, cli, node_settings, top, L, seen, totals, nodes,
                            procs)
         _cli_timings(kind, nodes, live, harness, seen, H, L, F, flood, t_committed, cpu, mesh_s, runs)
-        if flood:  # phase 17 in the ed25519 network
+        if flood:  # phases 17 and 18 (a) in the ed25519 network
             _light_daemon(m, kind, P, chain, nodes, harness, where, seen, totals, procs)
             replay = nodes[1].home, nodes[1].call("status")["sync_info"], replay_prediction(P, harness, top)
+            ss = _statesync_node(m, kind, P, chain, gen, nodes, harness, where, cli, node_settings, seen, totals,
+                                 procs)
     finally:
         if harness is not None:
             harness.close()
         for c in procs:
             c.kill()
-    if flood:  # phase 17 (c), after the network's teardown
+    if flood:  # phases 17 (c) and 18 (b), (c), after the network's teardown
         _replay_phase(kind, P, replay[0], replay[1], where, replay[2], totals, runs)
+        _store_commands(kind, ss, where)
 
 
 def admission_checks(kind, c, label, got, got_rows, n_rows, n_rejected, sources):
@@ -8058,8 +8153,10 @@ def _replay_phase(kind, P, home, node_status, where, prediction, totals, runs):
     app alone, as the state covers it: no commit to check) and with its
     state store holding the genesis state alone, as a node's first start
     saves it (each block through apply_block, its LastCommit checked on the
-    card). Both end at the app hash the node reported over RPC; launches as
-    predicted; blocks/s."""
+    card). Beside them, phase 18 (b): `replay --app grpc://...` on a third
+    copy at genesis, the app the port's kvstore behind the port's
+    GRPCServer in a process of its own. Each ends at the app hash the node
+    reported over RPC; launches as predicted; blocks/s."""
     from tendermint_tpu_torch.state import StateStore, make_genesis_state
     from tendermint_tpu_torch.store.kv import FileDB
     from tendermint_tpu_torch.types.genesis import GenesisDoc
@@ -8067,53 +8164,312 @@ def _replay_phase(kind, P, home, node_status, where, prediction, totals, runs):
     want, rows = prediction
     t_phase = time.perf_counter()
     height, app_hash = int(node_status["latest_block_height"]), node_status["latest_app_hash"]
-    genesis = "with its state at genesis"
-    copies = {"as it stands": os.path.join(where, "replay-home"), genesis: os.path.join(where, "replay-genesis")}
+    genesis, over_grpc = "with its state at genesis", "with its state at genesis, its app over gRPC"
+    copies = {"as it stands": os.path.join(where, "replay-home"), genesis: os.path.join(where, "replay-genesis"),
+              over_grpc: os.path.join(where, "replay-grpc")}
     for path in copies.values():
         shutil.copytree(home, path)
-    state_db = os.path.join(copies[genesis], "data", "state.db")
-    os.remove(state_db)
-    db = FileDB(state_db)
-    StateStore(db).save(make_genesis_state(GenesisDoc.from_file(os.path.join(home, "config", "genesis.json"))))
-    db.close()
+    for label in (genesis, over_grpc):
+        state_db = os.path.join(copies[label], "data", "state.db")
+        os.remove(state_db)
+        db = FileDB(state_db)
+        StateStore(db).save(make_genesis_state(GenesisDoc.from_file(os.path.join(home, "config", "genesis.json"))))
+        db.close()
+    app, app_addr = app_process(where, "grpc-app", "grpc://127.0.0.1:0")
     procs = {}
-    for label, path in copies.items():
-        dump = path + ".json"
-        procs[label] = dump, start_process(counted_argv(dump, ["--home", path, "replay"]), cwd=ROOT,
-                                            env=cli_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                            text=True, start_new_session=True)
+    try:
+        for label, path in copies.items():
+            dump = path + ".json"
+            args = ["--home", path, "replay"] + (["--app", app_addr] if label == over_grpc else [])
+            procs[label] = dump, start_process(counted_argv(dump, args), cwd=ROOT, env=cli_env(),
+                                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                                start_new_session=True)
+        _replay_checks(kind, procs, genesis, over_grpc, copies, app_addr, height, app_hash, want, rows, totals,
+                       runs, t_phase)
+    finally:
+        app.kill()
+    log(f"phase 17: {kind} (c) both replays, and phase 18 (b)'s, in {time.perf_counter() - t_phase:.1f} s")
+
+
+def _replay_checks(kind, procs, genesis, over_grpc, copies, app_addr, height, app_hash, want, rows, totals, runs,
+                   t_phase):
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.store.kv import FileDB
+
     for label, (dump, proc) in procs.items():
+        tag = "phase 18: {} (b)" if label == over_grpc else "phase 17: {} (c)"
+        tag = tag.format(kind)
         try:
             out, err = proc.communicate(timeout=REPLAY_S)
         except subprocess.TimeoutExpired:
-            raise AssertionError(f"phase 17: {kind} (c) replay {label} ran past {REPLAY_S} s") from None
+            raise AssertionError(f"{tag} replay {label} ran past {REPLAY_S} s") from None
         if proc.returncode:
-            raise AssertionError(f"phase 17: {kind} (c) replay {label} exited {proc.returncode}:\n{err[-4000:]}")
+            raise AssertionError(f"{tag} replay {label} exited {proc.returncode}:\n{err[-4000:]}")
         expect = f"replayed to height {height} (app hash {app_hash[:16]})"
         res = read_dump(dump)
         got = {k: v for k, v in res["counts"].items() if v}
-        predicted = want if label == genesis else {}
+        predicted = want if label in (genesis, over_grpc) else {}
         if expect not in out or not res["done"] or got != predicted:
-            raise AssertionError(f"phase 17: {kind} (c) replay {label}: {out.strip()!r}, launched {got}; expected "
+            raise AssertionError(f"{tag} replay {label}: {out.strip()!r}, launched {got}; expected "
                                  f"{expect!r}, launches {predicted}")
-        if label == genesis:
+        if label in (genesis, over_grpc):
+            state_db = os.path.join(copies[label], "data", "state.db")
             db = FileDB(state_db)
             rebuilt = StateStore(db).load()
             db.close()
             if rebuilt.last_block_height != height or rebuilt.app_hash.hex().upper() != app_hash:
-                raise AssertionError(f"phase 17: {kind} (c) the rebuilt state is at {rebuilt.last_block_height}, "
+                raise AssertionError(f"{tag} the rebuilt state is at {rebuilt.last_block_height}, "
                                      f"app hash {rebuilt.app_hash.hex().upper()}; the node reported {height}, "
                                      f"{app_hash}")
             for name, v in got.items():
                 totals[name] = totals.get(name, 0) + v
-        log(f"phase 17: {kind} (c) `replay` (no device argument) on a copy of node 1's home {label}: "
+        log(f"{tag} `replay` (no device argument) on a copy of node 1's home {label}"
+            + (f" ({app_addr})" if label == over_grpc else "") + ": "
             f"{out.strip()}, node 1's app hash over RPC {app_hash}; {height / res['s']:.2f} blocks/s over "
             f"{res['s']:.2f} s in cli.main (the process {time.perf_counter() - t_phase:.2f} s so far); launches "
             f"{json.dumps(got)}, predicted {json.dumps(predicted)}"
             + (f" (LastCommit checks of {rows} keys)" if predicted else "") + f" on {card()}")
-        runs.append({"plane": kind, "run": f"replay {label} (17 c)", "commit": CS_VALIDATORS, "s": res["s"],
+        runs.append({"plane": kind, "run": f"replay {label} ({'18 b' if label == over_grpc else '17 c'})",
+                     "commit": CS_VALIDATORS, "s": res["s"],
                      "blocks_per_s": height / res["s"]})
-    log(f"phase 17: {kind} (c) both replays in {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 18: state sync and the remote app clients in phase 16's ed25519 network --
+
+SS_INTERVAL = 4  # the validators' `builtin:kvstore:snapshot=N`: snapshots at 4 and 8 below the tip 10
+SS_RESTORE_S = 180  # the state-syncing node: start-up, discovery, 40-odd chunks, the backfill, the tail
+
+
+def app_process(where, name, addr):
+    """The port's kvstore behind the port's socket (tcp://, unix://) or gRPC
+    (grpc://) server, in a process of its own (`python -m
+    tendermint_tpu_torch.abci.socket --addr ADDR`): a CliNode whose
+    start-up line is awaited; its listening address."""
+    import queue
+
+    app = CliNode(name, where, [sys.executable, "-u", "-m", "tendermint_tpu_torch.abci.socket", "--addr", addr],
+                  os.path.join(where, f"{name}.log"))
+    deadline = time.monotonic() + CLI_START_S
+    while True:
+        try:
+            line = app.lines.get(timeout=1.0)
+        except queue.Empty:
+            line = None
+        if line is not None and line.startswith("ABCI kvstore listening on "):
+            return app, line.strip().rsplit(" ", 1)[1]
+        if app.proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"phase 18: the {name} app did not start within {CLI_START_S} s (exit code "
+                                 f"{app.proc.poll()}):\n{app.log_tail()}")
+
+
+def statesync_prediction(P, harness, lbs, h, top):
+    """The keys each check of the state-syncing node tallies, in order: the
+    light client's trust root at 1 (2/3), its skipping step 1 -> h + 1 (the
+    1/3 trusting check, then 2/3), the adjacent step to h + 2 (2/3);
+    blocksync's light check and validate_block's LastCommit check of each
+    block h + 1 .. top - 1; the LastCommit check of block top, which comes
+    from the consensus gossip. Returns (launches, keys a check)."""
+    states = harness.replica.states
+    checks = [light_keys(lbs[1].validator_set, lbs[1].signed_header.commit),
+              trusting_keys(lbs[1].validator_set, lbs[h + 1].signed_header.commit),
+              light_keys(lbs[h + 1].validator_set, lbs[h + 1].signed_header.commit),
+              light_keys(lbs[h + 2].validator_set, lbs[h + 2].signed_header.commit)]
+    for x in range(h + 1, top):
+        checks += [light_keys(states.load_validators(x), harness.blocks[x + 1].last_commit),
+                   replay_keys(states.load_validators(x - 1), harness.blocks[x].last_commit)]
+    checks.append(replay_keys(states.load_validators(top - 1), harness.blocks[top].last_commit))
+    return check_launches(P, checks, set()), [len(k) for k in checks]
+
+
+def _statesync_node(m, kind, P, chain, gen, nodes, harness, where, cli, node_settings, seen, totals, procs):
+    """Phase 18 (a) on phase 16's ed25519 network at its tip: the port's
+    kvstore behind its SocketServer in a process of its own; a node from
+    `init full` and `start` (no device argument), knowing only the seed,
+    with statesync.enable, nodes 0 and 1 its RPC servers, the trust root
+    node 0's block 1, and its app at tcp://: it restores the newest
+    snapshot through the socket client, backfills, blocksyncs and takes the
+    tip from the gossip. Held: its app hash and the state it bootstrapped
+    (the validator sets at h + 1 and h + 2 and the params, read back over
+    its RPC) equal node 0's; its status channels equal node 0's; its
+    StateSyncMetrics count the snapshots and the chunks; its launches
+    exactly those the keys of each check predict."""
+    from tendermint_tpu_torch.light.http_provider import HTTPProvider
+
+    t_phase = time.perf_counter()
+    top = max(harness.blocks)
+    snaps = harness.replica.client._app._snapshots
+    h = max(snaps)
+    snap, chunks = snaps[h]
+    if h > top - 2:
+        raise AssertionError(f"phase 18: {kind} (a) the newest snapshot {h} lies less than two heights below the "
+                             f"tip {top}")
+    primary = HTTPProvider(chain, nodes[0].rpc_url)
+    lbs = {x: primary.light_block(x) for x in (1, h + 1, h + 2)}
+    want, sizes = statesync_prediction(P, harness, lbs, h, top)
+    log(f"phase 18: {kind} (a) the replica holds snapshots {sorted(snaps)}; the node must restore {h} "
+        f"({snap.chunks} chunks, {sum(map(len, chunks))} bytes, hash {snap.hash.hex()[:16]}), its checks of "
+        f"{sizes} keys predicted to launch {json.dumps(want)}")
+    app, app_addr = app_process(where, "socket-app", "tcp://127.0.0.1:0")
+    procs.append(app)
+    home = os.path.join(where, "statesync")
+    trust = nodes[0].call("commit", height=1)["signed_header"]["commit"]["block_id"]["hash"]
+    cli_config(home, gen, **{**node_settings, "mode": "full", "proxy_app": app_addr, "statesync.enable": True,
+                             "statesync.rpc_servers": f"{nodes[0].rpc_url},{nodes[1].rpc_url}",
+                             "statesync.trust_height": 1, "statesync.trust_hash": trust.lower()})
+    node = CliNode("statesync", home, cli + ["--home", home, "start"], os.path.join(where, "statesync.log"))
+    procs.append(node)
+    node.ready("node")
+    node.client(m)
+    tip_hash = nodes[0].call("abci_info")["response"]["last_block_app_hash"]
+    marks, deadline = {}, time.monotonic() + SS_RESTORE_S
+    while True:
+        sample = node.scrape()
+        now = time.monotonic() - node.t_spawn
+        if metric(sample, "tendermint_statesync_total_snapshots") and "discovered" not in marks:
+            marks["discovered"] = now
+        if metric(sample, "tendermint_statesync_chunks_applied") and "first chunk" not in marks:
+            marks["first chunk"] = now
+        status = node.call("status")["sync_info"]
+        height = int(status["latest_block_height"])
+        if height >= h and "restored" not in marks and metric(sample, "tendermint_statesync_chunks_applied") \
+                == snap.chunks:
+            marks["restored"] = now
+        got = {label: v for label, v in launches_of(sample).items() if v}
+        if height == top and not status["catching_up"] and \
+                node.call("abci_info")["response"]["last_block_app_hash"] == tip_hash and \
+                sum(got.values()) >= sum(want.values()):
+            marks["caught up"] = now
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 18: {kind} (a) the state-syncing node at {height} of {top}, launches "
+                                 f"{got}, after {SS_RESTORE_S} s:\n{node.log_tail()}")
+        time.sleep(0.1)
+    time.sleep(0.5)  # a launch past the prediction would show in the next scrape
+    sample = node.scrape()
+    names = {"pk_table_build": P.fill.__name__, "bitmap_cached": P.hit.__name__, "rlc": P.rlc.__name__}
+    got = {names[label]: v for label, v in launches_of(sample).items() if v}
+    applied = int(metric(sample, "tendermint_statesync_chunks_applied"))
+    discovered = int(metric(sample, "tendermint_statesync_total_snapshots"))
+    retries = {dict(p).get("result"): int(v) for (n, p), v in sample.items()
+               if n == "tendermint_statesync_chunk_retries_total" and v}
+    if got != want or applied != snap.chunks or discovered != len(snaps):
+        raise AssertionError(f"phase 18: {kind} (a) the state-synced node launched {got} (predicted {want}), "
+                             f"applied {applied} chunks of {snap.chunks}, discovered {discovered} snapshots of "
+                             f"{len(snaps)}")
+    for name, v in got.items():
+        totals[name] = totals.get(name, 0) + v
+    # the state it bootstrapped at h, read back over its RPC (its sets of h + 1
+    # and h + 2; the RPC serves nothing below its lowest block, h + 1), and its channels
+    for x in (h + 1, h + 2):
+        if validator_pages(node, x) != validator_pages(nodes[0], x):
+            raise AssertionError(f"phase 18: {kind} (a) the state-synced node's validators at {x} differ")
+    params = [c.call("consensus_params", height=h + 1) for c in (node, nodes[0])]
+    restored_hash = nodes[0].call("header", height=h + 1)["header"]["app_hash"]
+    ours, theirs = node.call("status"), nodes[0].call("status")
+    blocks = [c.call("block", height=top) for c in (node, nodes[0])]
+    if params[0] != params[1] or ours["node_info"]["channels"] != theirs["node_info"]["channels"] \
+            or not {0x60, 0x61, 0x62, 0x63} <= set(bytes.fromhex(ours["node_info"]["channels"])) \
+            or blocks[0] != blocks[1] or ours["sync_info"]["latest_app_hash"] != theirs["sync_info"]["latest_app_hash"]:
+        raise AssertionError(f"phase 18: {kind} (a) the state-synced node's params, channels, block {top} or app "
+                             f"hash differ from node 0's: {json.dumps(ours)[:1500]}")
+    cpu = proc_cpu_s(node.proc.pid)
+    log(f"phase 18: {kind} (a) the kvstore in a process of its own behind the socket client ({app_addr}); a "
+        f"node from `init full` and `start`, knowing only the seed, restored snapshot {h} by state sync "
+        f"({applied} chunks applied, as many as it has; {discovered} snapshots discovered; chunk re-requests "
+        f"{json.dumps(retries)}), backfilled, blocksynced and took the tip {top} from the gossip; its app hash "
+        f"{ours['sync_info']['latest_app_hash'][:16]} is node 0's, node 0's header {h + 1} carries the restored "
+        f"{restored_hash[:16]}; its validators at {h + 1}-{h + 2}, params at {h + 1}, block {top} and status "
+        f"channels ({ours['node_info']['channels']}) equal node 0's")
+    log(f"phase 18: {kind} (a) its launches {json.dumps(got)}, as predicted (checks of {sizes} keys: the trust "
+        f"root, the trusting and 2/3 checks to {h + 1}, the 2/3 check of {h + 2}, blocksync's light and "
+        f"LastCommit checks of {', '.join(str(x) for x in range(h + 1, top))}, the LastCommit check of {top}); "
+        f"from its start, s: {json.dumps({k: round(v, 3) for k, v in marks.items()})}; the snapshot "
+        f"{snap.chunks} chunks, {sum(map(len, chunks))} bytes; its CPU {cpu:.1f} s; (a) in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card()}")
+    seen["statesync"] = {"marks": marks, "launches": got, "cpu_s": cpu, "chunks": snap.chunks}
+    return SimpleNamespace(home=home, top=top, tip_header=nodes[0].call("header", height=top))
+
+
+def validator_pages(c, height):
+    """A node's validators at height, every page, in the fields the set's
+    hash covers (address, key, power)."""
+    pages, total = [], None
+    while total is None or sum(len(p) for p in pages) < total:
+        res = c.call("validators", height=height, page=len(pages) + 1, per_page=CLI_PAGE)
+        pages.append(res["validators"])
+        total = int(res["total"])
+    return [(v["address"], v["pub_key"], v["voting_power"]) for p in pages for v in p]
+
+
+def _store_commands(kind, ss, where):
+    """Phase 18 (c), after the teardown, on a copy of the state-synced node's
+    home (stopped): `rollback`, then `key-migrate` twice, through cli.main.
+    Held to the reference's effects: the state one height back, at the
+    block and app hash node 0's header of the tip names; the second
+    migrate a no-op (every database byte for byte as the first left it);
+    no launch."""
+    import hashlib
+    import io
+
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.store.kv import FileDB
+
+    t0 = time.perf_counter()
+    home = os.path.join(where, "commands-home")
+    shutil.copytree(ss.home, home)
+    before = read_counts()
+
+    def run(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--home", home] + args)
+        if rc:
+            raise AssertionError(f"phase 18: {kind} (c) `{' '.join(args)}` exited {rc}:\n{out.getvalue()}")
+        return out.getvalue().strip()
+
+    def digests():
+        data = load_config(home).db_dir
+        return {name: hashlib.sha256(open(os.path.join(data, name), "rb").read()).hexdigest()
+                for name in sorted(os.listdir(data)) if name.endswith(".db")}
+
+    header = ss.tip_header["header"]
+    rolled = run(["rollback"])
+    want = f"rolled back state to height {ss.top - 1} and hash {header['app_hash']}"
+    db = FileDB(os.path.join(load_config(home).db_dir, "state.db"))
+    state = StateStore(db).load()
+    db.close()
+    if rolled != want or state.last_block_height != ss.top - 1 \
+            or state.last_block_id.hash.hex().upper() != header["last_block_id"]["hash"] \
+            or state.app_hash.hex().upper() != header["app_hash"]:
+        raise AssertionError(f"phase 18: {kind} (c) rollback said {rolled!r} (expected {want!r}); the state at "
+                             f"{state.last_block_height}, block {state.last_block_id.hash.hex()}")
+    first = run(["key-migrate"])
+    after_first = digests()
+    second = run(["key-migrate"])
+    launched = delta(read_counts(), before)
+    if not second.endswith("total migrated: 0 keys") or digests() != after_first or launched:
+        raise AssertionError(f"phase 18: {kind} (c) key-migrate twice: {first!r}, then {second!r}; the databases "
+                             f"{'changed' if digests() != after_first else 'unchanged'}; launches {launched}")
+    log(f"phase 18: {kind} (c) on a copy of the state-synced node's home: `rollback`: {rolled!r}, the state "
+        f"at {state.last_block_height}, its block and app hash those node 0's header {ss.top} names; "
+        f"`key-migrate`: {first.splitlines()[-1]!r}, then {second.splitlines()[-1]!r} with "
+        f"{len(after_first)} databases byte for byte unchanged; no launch; {time.perf_counter() - t0:.1f} s")
+
+
+ALL_PHASES = frozenset(range(4, 17))
+
+
+def selected_phases(text):
+    """The phases among 4-16 a run drives: all of them, or the list given
+    (13 needs 12's chains)."""
+    if not text:
+        return ALL_PHASES
+    chosen = {int(x) for x in text.split(",") if x.strip()}
+    if not chosen <= ALL_PHASES:
+        raise SystemExit(f"--phases: {sorted(chosen - ALL_PHASES)} not among 4-16")
+    return frozenset(chosen | ({12} if 13 in chosen else set()))
 
 
 def main() -> int:
@@ -8121,6 +8477,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of every key, message and scalar")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding the kernels against their plain versions")
+    ap.add_argument("--phases", metavar="LIST",
+                    help="a partial run: only these of phases 4-16 (e.g. 12,16; 13 brings 12, 16 brings 17 "
+                         "and 18), after phases 1-3; it prints no result line")
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="after phase 4, time the RLC kernels, the uncached bitmaps, the fills and "
                          "the cache hits of the tree unpacked at DIR against this tree's, in turns")
@@ -8163,10 +8522,13 @@ def main() -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-17, then the audit of every process the script started,
-    then the last three lines."""
+    """Phases 1-18 (17 and 18 inside phase 16's ed25519 network), then the
+    audit of every process the script started, then the last three lines.
+    The kernels' nvcc builds run in a thread while the set-up signs on the
+    pool, which phases 12-16 share."""
     import multiprocessing
     import tempfile
+    import threading
 
     import torch
 
@@ -8178,6 +8540,7 @@ def run_phases(args) -> int:
     from tendermint_tpu_torch.parallel import sharded_verify as SV
 
     t_start = time.perf_counter()
+    chosen = selected_phases(args.phases)
     dev = torch.device("cuda", 0)
     card_line = card()
     clock_mhz = float(nvidia_smi("clocks.max.sm"))
@@ -8185,124 +8548,161 @@ def run_phases(args) -> int:
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {sms} SMs at {clock_mhz:.0f} MHz max")
 
-    # phase 1
-    t0 = time.perf_counter()
-    reports = _build.build_all()
-    log(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
-        for fn, regs, spills in ptxas_functions(rep):
-            log(f"phase 1: {name}: {fn}: {regs} registers, {spills}")
+    # phase 1: the native host prep, then the kernels, built beside the set-up
     t0 = time.perf_counter()
     cmd = native.build()
     log(f"phase 1: native host prep: `{' '.join(cmd or native.command(native.target()))}` "
         + (f"built in {time.perf_counter() - t0:.1f} s" if cmd else "(already built)"))
     native.load_prep()
+    built = {}
+
+    def build_kernels():
+        t = time.perf_counter()
+        try:
+            built["reports"] = _build.build_all()
+        except BaseException as e:  # raised in the main thread below
+            built["error"] = e
+        built["s"] = time.perf_counter() - t
+
+    build_thread = threading.Thread(target=build_kernels, daemon=True, name="nvcc-build")
+    build_thread.start()
 
     rng = np.random.default_rng(args.seed)
     planes = {kind: plane(kind) for kind in PLANES}
-    errs = {}
-    for P in planes.values():
-        errs.update(check_kernels(rng, dev, P))
-    errs.update(check_fail_count(rng, dev))
-    if args.kernels_only:
-        audit_or_fail()
-        log(f"kernels only: stopping after phase 2 on {card_line}")
-        return 0
-
     chain_id = "chip-smoke"
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
     tmp12 = tempfile.mkdtemp(prefix="chip-smoke-state-")
-    with ctx.Pool(workers) as pool:
+    with ctx.Pool(workers) as pool:  # the set-up and phases 12-16 sign on one pool
+        t0 = time.perf_counter()
         keys = {}
-        for kind in PLANES:
+        if not args.kernels_only:
+            for kind in PLANES:
+                t1 = time.perf_counter()
+                seeds = [rng.bytes(32) for _ in range(SIZES[-1])]
+                keys[kind] = seeds, make_keys(pool, kind, seeds)
+                log(f"phase 3: {len(seeds)} {kind} validator keys in {time.perf_counter() - t1:.1f} s")
+            commits = main_commits(pool, rng, keys, chain_id)
+            if 9 in chosen:
+                t1 = time.perf_counter()
+                commits9 = engine_commits(pool, rng, keys, chain_id)
+                log(f"phase 9: its commits signed in {time.perf_counter() - t1:.1f} s")
+            if 10 in chosen:
+                t1 = time.perf_counter()
+                chains10, mixed10 = light_setup(pool, rng, chain_id)
+                log(f"phase 10: its light chains and mixed-key commits signed in {time.perf_counter() - t1:.1f} s")
+            if 11 in chosen:
+                t1 = time.perf_counter()
+                chains11 = client_setup(pool, rng, chain_id)
+                log(f"phase 11: its rotating chains, forged blocks and votes signed in "
+                    f"{time.perf_counter() - t1:.1f} s")
+            if chosen & {14, 15, 16}:
+                t1 = time.perf_counter()
+                built14 = consensus_setup(pool, rng, chain_id)
+                log(f"phase 14: its validator keys and signed-tx envelopes made in {time.perf_counter() - t1:.1f} s")
+            log(f"set-up signed during the build in {time.perf_counter() - t0:.1f} s")
+        build_thread.join()
+        if "error" in built:
+            raise built["error"]
+        reports = built["reports"]
+        log(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in {built['s']:.1f} s")
+        for name, rep in reports.items():
+            for fn, regs, spills in ptxas_functions(rep):
+                log(f"phase 1: {name}: {fn}: {regs} registers, {spills}")
+
+        errs = {}
+        for P in planes.values():
+            errs.update(check_kernels(rng, dev, P))
+        errs.update(check_fail_count(rng, dev))
+        if args.kernels_only:
+            audit_or_fail()
+            log(f"kernels only: stopping after phase 2 on {card_line}")
+            return 0
+        bad_index, counts, runs = main_path(commits, chain_id)
+        if 12 in chosen:
             t0 = time.perf_counter()
-            seeds = [rng.bytes(32) for _ in range(SIZES[-1])]
-            keys[kind] = seeds, make_keys(pool, kind, seeds)
-            log(f"phase 3: {len(seeds)} {kind} validator keys in {time.perf_counter() - t0:.1f} s")
-        commits, bad_index, counts, runs = main_path(pool, rng, keys, chain_id)
-        t0 = time.perf_counter()
-        commits9 = engine_commits(pool, rng, keys, chain_id)
-        log(f"phase 9: its commits signed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        chains10, mixed10 = light_setup(pool, rng, chain_id)
-        log(f"phase 10: its light chains and mixed-key commits signed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        chains11 = client_setup(pool, rng, chain_id)
-        log(f"phase 11: its rotating chains, forged blocks and votes signed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        built12 = state_setup(pool, rng, chain_id, tmp12)
-        log(f"phase 12: its source chains signed and applied, and the lunatic blocks signed, in "
-            f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        blocksync_setup(pool, chain_id, built12)
-        log(f"phase 13: its extended commits' extension signatures signed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        built14 = consensus_setup(pool, rng, chain_id)
-        log(f"phase 14: its validator keys and signed-tx envelopes made in {time.perf_counter() - t0:.1f} s")
-    kernels = []
-    for kind, P in planes.items():
-        kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
-                                        int32_rate, runs)
-    if args.ab_parent:
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            ab_parent(planes, dev, chain_id, commits, bad_index, rng, os.path.abspath(args.ab_parent), tmp)
-        log(f"phase 4: the A/B against {args.ab_parent} in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    kernels += geometry_path(planes, dev, chain_id, commits, bad_index, errs, int32_rate, runs)
-    log(f"phase 5: the cache geometries in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    kernels += rlc_cache_path(planes["ed25519"], dev, rng, chain_id, commits["ed25519"], bad_index,
-                              errs, int32_rate, runs)
-    log(f"phase 6: the cached RLC in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    meshes = {"1": SV.make_mesh(), "4": SV.make_mesh(4, device=dev)}
-    with tempfile.TemporaryDirectory() as tmp:
-        counts = sharded_path(planes, meshes, dev, rng, chain_id, commits, bad_index, runs, tmp)
-    kernels += kernels_at_sharded_shapes(planes, dev, rng, chain_id, commits, bad_index, counts, int32_rate)
-    sharded_end_to_end(planes, meshes, dev, chain_id, commits, runs)
-    log(f"phase 7: the sharded path in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        autotune_phase(tmp)
-    log(f"phase 8: the autotune in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        engine_phase(planes, chain_id, commits, commits9, runs, tmp)
-    log(f"phase 9: the engine in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    light_phase(planes, chain_id, chains10, runs)
-    hash_phase(commits["ed25519"][SIZES[-1]][0], runs)
-    mixed_phase(chain_id, mixed10, runs)
-    log(f"phase 10: the light client and the hashes in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    client_phase(planes, chain_id, chains11, runs)
-    log(f"phase 11: the light client's sync modes, witnesses and evidence in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    state_phase(planes, chain_id, built12, runs, tmp12)
-    log(f"phase 12: the state layer's replay, rejections and light client in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    blocksync_phase(planes, chain_id, built12, runs, tmp12)
-    shutil.rmtree(tmp12, ignore_errors=True)
-    log(f"phase 13: blocksync's hand-driven sync, refusals, extended commits and threaded sync in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with ctx.Pool(workers) as pool:  # phases 14-16 sign on one pool: one start-up, not three
+            built12 = state_setup(pool, rng, chain_id, tmp12)
+            log(f"phase 12: its source chains signed and applied, and the lunatic blocks signed, in "
+                f"{time.perf_counter() - t0:.1f} s")
+        if 13 in chosen:
+            t0 = time.perf_counter()
+            blocksync_setup(pool, chain_id, built12)
+            log(f"phase 13: its extended commits' extension signatures signed in {time.perf_counter() - t0:.1f} s")
+        kernels = []
+        if 4 in chosen:
+            for kind, P in planes.items():
+                kernels += kernels_at_main_path(P, dev, rng, chain_id, commits[kind], bad_index, counts, errs,
+                                                int32_rate, runs)
+        if args.ab_parent:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                ab_parent(planes, dev, chain_id, commits, bad_index, rng, os.path.abspath(args.ab_parent), tmp)
+            log(f"phase 4: the A/B against {args.ab_parent} in {time.perf_counter() - t0:.1f} s")
+        if 5 in chosen:
+            t0 = time.perf_counter()
+            kernels += geometry_path(planes, dev, chain_id, commits, bad_index, errs, int32_rate, runs)
+            log(f"phase 5: the cache geometries in {time.perf_counter() - t0:.1f} s")
+        if 6 in chosen:
+            t0 = time.perf_counter()
+            kernels += rlc_cache_path(planes["ed25519"], dev, rng, chain_id, commits["ed25519"], bad_index,
+                                      errs, int32_rate, runs)
+            log(f"phase 6: the cached RLC in {time.perf_counter() - t0:.1f} s")
+        if 7 in chosen:
+            t0 = time.perf_counter()
+            meshes = {"1": SV.make_mesh(), "4": SV.make_mesh(4, device=dev)}
+            with tempfile.TemporaryDirectory() as tmp:
+                counts = sharded_path(planes, meshes, dev, rng, chain_id, commits, bad_index, runs, tmp)
+            kernels += kernels_at_sharded_shapes(planes, dev, rng, chain_id, commits, bad_index, counts, int32_rate)
+            sharded_end_to_end(planes, meshes, dev, chain_id, commits, runs)
+            log(f"phase 7: the sharded path in {time.perf_counter() - t0:.1f} s")
+        if 8 in chosen:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                autotune_phase(tmp)
+            log(f"phase 8: the autotune in {time.perf_counter() - t0:.1f} s")
+        if 9 in chosen:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                engine_phase(planes, chain_id, commits, commits9, runs, tmp)
+            log(f"phase 9: the engine in {time.perf_counter() - t0:.1f} s")
+        if 10 in chosen:
+            t0 = time.perf_counter()
+            light_phase(planes, chain_id, chains10, runs)
+            hash_phase(commits["ed25519"][SIZES[-1]][0], runs)
+            mixed_phase(chain_id, mixed10, runs)
+            log(f"phase 10: the light client and the hashes in {time.perf_counter() - t0:.1f} s")
+        if 11 in chosen:
+            t0 = time.perf_counter()
+            client_phase(planes, chain_id, chains11, runs)
+            log(f"phase 11: the light client's sync modes, witnesses and evidence in {time.perf_counter() - t0:.1f} s")
+        if 12 in chosen:
+            t0 = time.perf_counter()
+            state_phase(planes, chain_id, built12, runs, tmp12)
+            log(f"phase 12: the state layer's replay, rejections and light client in {time.perf_counter() - t0:.1f} s")
+        if 13 in chosen:
+            t0 = time.perf_counter()
+            blocksync_phase(planes, chain_id, built12, runs, tmp12)
+            log(f"phase 13: blocksync's hand-driven sync, refusals, extended commits and threaded sync in "
+                f"{time.perf_counter() - t0:.1f} s")
+        shutil.rmtree(tmp12, ignore_errors=True)
         sign = pool_signer(pool)
-        log(f"phases 14-16: their signing pool started in {time.perf_counter() - t0:.1f} s")
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-consensus-") as tmp:
-            consensus_phase(planes, chain_id, built14, runs, tmp, sign)
-        log(f"phase 14: consensus on one node in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-network-") as tmp:
-            network_phase(planes, chain_id, built14, runs, tmp, sign)
-        log(f"phase 15: the network over TCP in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
-            cli_phase(planes, chain_id, built14, runs, tmp, sign)
-        log(f"phase 16 (and 17, in its ed25519 network): the CLI-started nodes served over JSON-RPC, the light "
-            f"daemon, its proxy and replay in {time.perf_counter() - t0:.1f} s")
+        if 14 in chosen:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-consensus-") as tmp:
+                consensus_phase(planes, chain_id, built14, runs, tmp, sign)
+            log(f"phase 14: consensus on one node in {time.perf_counter() - t0:.1f} s")
+        if 15 in chosen:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-network-") as tmp:
+                network_phase(planes, chain_id, built14, runs, tmp, sign)
+            log(f"phase 15: the network over TCP in {time.perf_counter() - t0:.1f} s")
+        if 16 in chosen:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+                cli_phase(planes, chain_id, built14, runs, tmp, sign)
+            log(f"phase 16 (and 17 and 18, in its ed25519 network): the CLI-started nodes served over JSON-RPC, "
+                f"the light daemon, its proxy and replay, state sync and the remote app clients in "
+                f"{time.perf_counter() - t0:.1f} s")
     for r in runs:
         extra = {k: round(v, 5) for k, v in r.items() if k.endswith("_s") and k not in ("s", "sigs_per_s")}
         log(f"run: {r['plane']} {r['run']} on {r['commit']} validators"
@@ -8310,6 +8710,11 @@ def run_phases(args) -> int:
             + (f", mesh of {r['mesh']}" if "mesh" in r else "") + f": {r['s'] * 1e3:.1f} ms"
             + (f", {r['sigs_per_s']:.0f} sigs/s" if "sigs_per_s" in r else "")
             + (f" {json.dumps(extra)}" if extra else "") + f" on {card()}")
+    if chosen != ALL_PHASES:
+        audit_or_fail()
+        log(f"phases 1-3 and {sorted(chosen)} only, on {card_line}; total {time.perf_counter() - t_start:.1f} s; "
+            f"no result line")
+        return 0
     names = {k["name"].split("[")[0] for k in kernels}
     if names != set(KERNEL_SOURCES):
         raise AssertionError(f"kernels without a main-path record: {sorted(set(KERNEL_SOURCES) - names)}")

@@ -1,8 +1,9 @@
 """ABCI client: the node's handle on the application.
 
 ref: abci/client/client.go:25 (the interface), local_client.go (in-process,
-one call at a time under a mutex). The socket and gRPC transports come
-with the node.
+one call at a time under a mutex). The socket transport (an app in a
+process of its own over tcp:// or unix://) is abci/socket.py, the gRPC one
+abci/grpc.py; both follow the same Client surface.
 """
 
 from __future__ import annotations

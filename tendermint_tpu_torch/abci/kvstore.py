@@ -5,8 +5,9 @@ Transactions are "key=value" (raw bytes without "=" mean key = value =
 tx) or "val:[type:]base64pubkey!power" validator-set updates; the app
 state is the JSON {size, height, app_hash} under stateKey; the app hash is
 the 8-byte varint of size; a duplicate vote costs its validator one power
-in FinalizeBlock. The state-sync snapshots are not here: they come with
-statesync, and a non-zero snapshot_interval raises.
+in FinalizeBlock. With a snapshot_interval, the app takes a chunked
+snapshot of its committed state at every multiple of it (ref:
+test/e2e/app/snapshots.go) and serves and restores them for state sync.
 """
 
 from __future__ import annotations
@@ -49,19 +50,20 @@ def prefix_key(key: bytes) -> bytes:
 class KVStoreApplication(abci.Application):
     """ref: kvstore.Application (abci/example/kvstore/kvstore.go:74)."""
 
+    SNAPSHOT_CHUNK_SIZE = 16 * 1024  # ref: test/e2e/app/snapshots.go snapshotChunkSize
+
     def __init__(self, db: KVStore | None = None, retain_blocks: int = 0, snapshot_interval: int = 0):
-        if snapshot_interval:
-            raise NotImplementedError(
-                f"snapshot_interval={snapshot_interval}: the kvstore app's state-sync snapshots "
-                "come with the statesync slice of the port")
         self._mu = threading.Lock()
         self.db = db if db is not None else MemDB()
         self.retain_blocks = retain_blocks
+        self.snapshot_interval = snapshot_interval
         self.size = 0
         self.height = 0
         self.app_hash = b""
         self.val_updates: list[abci.ValidatorUpdate] = []
         self.val_addr_to_pubkey: dict[bytes, tuple[str, bytes]] = {}
+        self._snapshots: dict[int, tuple[abci.Snapshot, list[bytes]]] = {}
+        self._restore: tuple[abci.Snapshot, list[bytes | None]] | None = None
         # FinalizeBlock effects are buffered here (key -> value, None =
         # delete) and published to the db at Commit: Info can then
         # honestly report the last PERSISTED height (the ABCI contract),
@@ -233,6 +235,8 @@ class KVStoreApplication(abci.Application):
                     self.db.set(k, v)
             self._pending.clear()
             self._save_state()
+            if self.snapshot_interval and self.height > 0 and self.height % self.snapshot_interval == 0:
+                self._take_snapshot()
             resp = abci.ResponseCommit()
             if self.retain_blocks > 0 and self.height >= self.retain_blocks:
                 resp.retain_height = self.height - self.retain_blocks + 1
@@ -242,6 +246,115 @@ class KVStoreApplication(abci.Application):
         """App hash at the end of FinalizeBlock (called under _mu): the
         8-byte varint of size (kvstore.go:201-203)."""
         return _put_varint(self.size)
+
+    # ----------------------------------------------------------- snapshots
+    # ref: test/e2e/app/snapshots.go, the e2e app's chunked state export
+
+    def _iter_state_items(self):
+        """(key, value) pairs of the committed state in key order."""
+        yield from self.db.iterator(None, None)
+
+    def _iter_serialized_state(self):
+        """The snapshot document, json.dumps({height, size, app_hash,
+        items}, sort_keys=True) of the committed state, in pieces, without
+        the whole string: the JSON keys in sorted order (app_hash < height <
+        items < size), the items in key order, which is their hex order."""
+        yield ('{"app_hash": "%s", "height": %d, "items": ['
+               % (self.app_hash.hex(), self.height)).encode()
+        first = True
+        for k, v in self._iter_state_items():
+            piece = '["%s", "%s"]' % (k.hex(), v.hex())
+            yield (piece if first else ", " + piece).encode()
+            first = False
+        yield ('], "size": %d}' % self.size).encode()
+
+    def _take_snapshot(self) -> None:
+        import hashlib
+
+        hasher = hashlib.sha256()
+        chunks: list[bytes] = []
+        buf = bytearray()
+        for piece in self._iter_serialized_state():
+            hasher.update(piece)
+            buf += piece
+            while len(buf) >= self.SNAPSHOT_CHUNK_SIZE:
+                chunks.append(bytes(buf[: self.SNAPSHOT_CHUNK_SIZE]))
+                del buf[: self.SNAPSHOT_CHUNK_SIZE]
+        if buf or not chunks:
+            chunks.append(bytes(buf))
+        snap = abci.Snapshot(
+            height=self.height,
+            format=1,
+            chunks=len(chunks),
+            hash=hasher.digest(),
+        )
+        self._snapshots[self.height] = (snap, chunks)
+        # keep the newest eight, so that a sync in flight can still fetch
+        # its chunks
+        for h in sorted(self._snapshots)[:-8]:
+            del self._snapshots[h]
+
+    def list_snapshots(self, req: abci.RequestListSnapshots) -> abci.ResponseListSnapshots:
+        with self._mu:
+            return abci.ResponseListSnapshots(
+                snapshots=[s for s, _ in sorted(self._snapshots.values(), key=lambda t: t[0].height)]
+            )
+
+    def offer_snapshot(self, req: abci.RequestOfferSnapshot) -> abci.ResponseOfferSnapshot:
+        with self._mu:
+            if req.snapshot.format != 1:
+                return abci.ResponseOfferSnapshot(result=abci.SNAPSHOT_REJECT_FORMAT)
+            if req.snapshot.chunks <= 0:
+                return abci.ResponseOfferSnapshot(result=abci.SNAPSHOT_REJECT)
+            self._restore = (req.snapshot, [None] * req.snapshot.chunks)
+            return abci.ResponseOfferSnapshot(result=abci.SNAPSHOT_ACCEPT)
+
+    def load_snapshot_chunk(self, req: abci.RequestLoadSnapshotChunk) -> abci.ResponseLoadSnapshotChunk:
+        with self._mu:
+            entry = self._snapshots.get(req.height)
+            if entry is None or entry[0].format != req.format or req.chunk >= len(entry[1]):
+                return abci.ResponseLoadSnapshotChunk(chunk=b"")
+            return abci.ResponseLoadSnapshotChunk(chunk=entry[1][req.chunk])
+
+    def apply_snapshot_chunk(self, req: abci.RequestApplySnapshotChunk) -> abci.ResponseApplySnapshotChunk:
+        import hashlib
+
+        with self._mu:
+            if self._restore is None:
+                return abci.ResponseApplySnapshotChunk(result=abci.CHUNK_ABORT)
+            snap, chunks = self._restore
+            if req.index >= len(chunks):
+                return abci.ResponseApplySnapshotChunk(result=abci.CHUNK_REJECT_SNAPSHOT)
+            chunks[req.index] = req.chunk
+            if any(c is None for c in chunks):
+                return abci.ResponseApplySnapshotChunk(result=abci.CHUNK_ACCEPT)
+            data = b"".join(chunks)
+            if hashlib.sha256(data).digest() != snap.hash:
+                self._restore = (snap, [None] * len(chunks))
+                return abci.ResponseApplySnapshotChunk(
+                    result=abci.CHUNK_RETRY_SNAPSHOT, refetch_chunks=list(range(len(chunks))),
+                    reject_senders=[req.sender] if req.sender else [],
+                )
+            doc = json.loads(data)
+            # the snapshot is the whole state: effects still buffered (a
+            # state-syncing node's InitChain writes) would overlay the
+            # restored db and fork the app hash at the first block after it
+            self._pending.clear()
+            self.val_updates = []
+            for k, v in self.db.iterator(None, None):
+                self.db.delete(k)
+            for k_hex, v_hex in doc["items"]:
+                self.db.set(bytes.fromhex(k_hex), bytes.fromhex(v_hex))
+            self.height = doc["height"]
+            self.size = doc["size"]
+            self.app_hash = bytes.fromhex(doc["app_hash"])
+            self.val_addr_to_pubkey = {}
+            for k, v in self.db.iterator(b"val:", b"val;"):
+                kt, _ = self._parse_val_value(v)
+                self.val_addr_to_pubkey[self._pub_to_addr(kt, k[4:])] = (kt, k[4:])
+            self._save_state()
+            self._restore = None
+            return abci.ResponseApplySnapshotChunk(result=abci.CHUNK_ACCEPT)
 
     def query(self, req: abci.RequestQuery) -> abci.ResponseQuery:
         with self._mu:

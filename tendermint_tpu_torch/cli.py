@@ -4,9 +4,10 @@ cmd/tendermint/commands/).
 A copy of the JAX package's cli.py: the commands that make and start a
 node (version, init, start in validator, full and seed modes, testnet,
 show-node-id, show-validator, gen-validator, gen-node-key) and the
-operator's tools (reset and unsafe-reset-all, inspect, the light daemon
-with its verifying proxy, debug, replay, reindex-event, compact, wal2json,
-json2wal, config-migrate, completion and remote-signer). The parser keeps
+operator's tools (reset and unsafe-reset-all, rollback, inspect, the light
+daemon with its verifying proxy, debug, replay, reindex-event, compact,
+key-migrate, wal2json, json2wal, config-migrate, completion and
+remote-signer). The parser keeps
 every command of the reference, so `--help` reads the same; a command the
 port has not reached yet (LATER) exits non-zero with an error that names
 the ROADMAP item that brings it. Run as
@@ -26,11 +27,8 @@ import time
 
 VERSION = "0.35.0-tpu"
 
-# the commands outside this slice, by the ROADMAP item that brings them
-LATER = {
-    **dict.fromkeys(("rollback", "key-migrate"), "A15"),
-    **dict.fromkeys(("e2e", "e2e-generate", "replay-console"), "tooling, not queued"),
-}
+# the commands the port has not reached, by the ROADMAP item that would bring them
+LATER = dict.fromkeys(("e2e", "e2e-generate", "replay-console"), "tooling, not queued")
 
 
 def _default_home() -> str:
@@ -337,6 +335,22 @@ def cmd_reset(args) -> int:
     _rm(wal_dir)
     _zero_pv()
     print(f"reset {db_dir} (privval sign-state zeroed — DANGEROUS on a live chain)")
+    return 0
+
+
+def cmd_rollback(args) -> int:
+    """ref: commands/rollback.go."""
+    from .config import load_config
+    from .node.node import _make_db
+    from .state import StateStore
+    from .state.rollback import rollback_state
+    from .store.blockstore import BlockStore
+
+    cfg = load_config(args.home)
+    state_store = StateStore(_make_db(cfg, "state"))
+    block_store = BlockStore(_make_db(cfg, "blockstore"))
+    height, app_hash = rollback_state(state_store, block_store)
+    print(f"rolled back state to height {height} and hash {app_hash.hex().upper()}")
     return 0
 
 
@@ -700,6 +714,32 @@ def cmd_config_migrate(args) -> int:
     return 0
 
 
+def cmd_key_migrate(args) -> int:
+    """`key-migrate` — upgrade legacy ASCII-decimal store keys to the
+    current fixed-width binary layout (ref: cmd/tendermint/main.go:28-48
+    key-migrate, scripts/keymigrate/migrate.go). Idempotent."""
+    from .config import load_config
+    from .store.kv import FileDB
+    from .store.migrate import migrate_db
+
+    cfg = load_config(args.home)
+    if not os.path.isdir(cfg.db_dir):
+        print(f"no data dir at {cfg.db_dir}")
+        return 1
+    total = 0
+    for name in sorted(os.listdir(cfg.db_dir)):
+        if not name.endswith(".db"):
+            continue
+        path = os.path.join(cfg.db_dir, name)
+        db = FileDB(path)
+        moved = migrate_db(db)
+        db.close()
+        total += moved
+        print(f"migrated {name}: {moved} keys")
+    print(f"total migrated: {total} keys")
+    return 0
+
+
 def cmd_remote_signer(args) -> int:
     """Run a standalone remote signer that dials a validator's privval
     listen address (ref: the reference ships this as the external
@@ -777,7 +817,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("what", nargs="?", default="unsafe-all",
                     choices=["blockchain", "peers", "unsafe-signer", "unsafe-all"])
     sp.set_defaults(fn=cmd_reset)
-    sub.add_parser("rollback", help="rewind state one height").set_defaults(fn=cmd_later)
+    sub.add_parser("rollback", help="rewind state one height").set_defaults(fn=cmd_rollback)
     sub.add_parser("inspect", help="read-only RPC over node data").set_defaults(fn=cmd_inspect)
 
     sp = sub.add_parser("e2e", help="run a manifest-driven multi-process e2e testnet")
@@ -820,7 +860,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser(
         "key-migrate",
         help="upgrade legacy DB key layouts to the current format",
-    ).set_defaults(fn=cmd_later)
+    ).set_defaults(fn=cmd_key_migrate)
 
     sub.add_parser(
         "config-migrate",

@@ -3,8 +3,9 @@
 A Provider serves LightBlocks for a chain and accepts evidence reports.
 `LocalProvider` serves from a node's block store and state store (any
 objects with the methods it calls); tests serve from memory, as the
-reference's light/provider/mocks do. The HTTP provider comes with the RPC
-client."""
+reference's light/provider/mocks do. The HTTP provider is
+light/http_provider.py; state sync's provider over the p2p channels is
+statesync/dispatcher.py."""
 
 from __future__ import annotations
 

@@ -19,7 +19,8 @@ blocksync and the p2p layer beneath it, and ConsensusMetrics
 (tendermint_consensus_*: consensus/state.py) and MempoolMetrics
 (tendermint_mempool_*: mempool/mempool.py) of consensus on one node,
 FlightMetrics (tendermint_flight_*: the node's flight recorder,
-metrics/flight.py), and the node's PrometheusServer, which serves a node's
+metrics/flight.py), StateSyncMetrics (tendermint_statesync_*:
+statesync/reactor.py, statesync/syncer.py), and the node's PrometheusServer, which serves a node's
 registry and the process-global one over HTTP. Names,
 labels, help strings and buckets are the reference's, so one scrape reads
 both packages alike.
@@ -613,6 +614,33 @@ class ProofMetrics:
             f"{ns}_tree_cache_events_total",
             "Hot-tree LRU events (hit/miss/evict)",
             labels=("event",),
+        )
+
+
+class StateSyncMetrics:
+    """ref: internal/statesync/metrics.go."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_statesync"
+        self.snapshots_discovered = reg.counter(
+            f"{ns}_total_snapshots", "Snapshots discovered from peers"
+        )
+        self.chunks_applied = reg.counter(f"{ns}_chunks_applied", "Snapshot chunks applied")
+        self.chunk_process_time = reg.histogram(
+            f"{ns}_chunk_process_seconds", "Fetch-to-apply time per chunk",
+            buckets=(0.01, 0.05, 0.1, 0.5, 1, 5, 30),
+        )
+        self.backfilled_blocks = reg.counter(
+            f"{ns}_backfilled_blocks", "Light blocks backfilled after restore"
+        )
+        # chunk re-requests by cause (no reference analog): "timeout", an
+        # outstanding request expired; "refetch", the app rejected a
+        # delivered chunk; "peer_rotated", the fetch scheduler moved away
+        # from a peer after repeated expiries
+        self.chunk_retries = reg.counter(
+            f"{ns}_chunk_retries_total",
+            "Snapshot chunk re-requests by cause",
+            labels=("result",),
         )
 
 

@@ -10,13 +10,17 @@ node is the only validator, switching to consensus when caught up
 `Node(..., device=None)` runs its verifying layers (BlockExecutor, the
 Handshaker, the EvidencePool, the BlockSyncReactor and the mempool's
 EngineTxPreVerifier) on the card unless the caller passes device="cpu".
-The node wires the file signer or a remote one (privval/remote.py over a
-socket, privval/grpc.py over gRPC), the kv, sqlite and psql event sinks
-and the flight recorder (metrics/flight.py). What the port has not reached
-yet raises an error that names the item that brings it (NotYetPorted),
-never a quiet substitute: state sync and its channels, the socket, gRPC
-and bank apps (A15), and the e2e tooling's environment knobs. `stop()`
-closes the WAL only once the consensus thread has ended.
+The state provider's light client, which `_run_statesync` builds when
+statesync.enable is set on a node at height 0, takes the node's `device`
+too. The node wires the file signer or a remote one (privval/remote.py
+over a socket, privval/grpc.py over gRPC), the builtin kvstore (with its
+snapshots) or an app behind the socket or gRPC client (abci/socket.py,
+abci/grpc.py), the kv, sqlite and psql event sinks, the flight recorder
+(metrics/flight.py) and state sync's reactor on its four channels. What
+the port has not reached yet raises an error that names the item that
+brings it (NotYetPorted), never a quiet substitute: the bank app (A15c)
+and the e2e tooling's environment knobs. `stop()` closes the WAL only
+once the consensus thread has ended.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..blocksync import BlockSyncReactor, blocksync_channel_descriptor
 from ..config import Config
 from ..consensus import WAL, ConsensusState, Handshaker
 from ..consensus.reactor import ConsensusReactor, consensus_channel_descriptors
+from ..crypto.batch import is_fault
 from ..crypto.ed25519 import Ed25519PrivKey
 from ..eventbus import EventBus
 from ..evidence import EvidencePool
@@ -101,12 +106,13 @@ def _make_db(config: Config, name: str):
 
 def _make_app(proxy_app: str, app_db=None):
     """ref: internal/proxy/client.go:26 ClientFactory. kvstore, builtin,
-    builtin:kvstore[:retain=M] map to abci/kvstore.py (app state in
-    `app_db`, the node's FileDB, so a restarted node handshakes from the
-    app's committed height), noop / builtin:noop to BaseApplication. A
-    non-zero snapshot interval raises in KVStoreApplication (state sync's
-    snapshots); builtin:bank and the socket and gRPC transports raise
-    NotYetPorted."""
+    builtin:kvstore[:snapshot=N][:retain=M] map to abci/kvstore.py (app
+    state in `app_db`, the node's FileDB, so a restarted node handshakes
+    from the app's committed height; snapshot = the app's snapshot
+    interval), noop / builtin:noop to BaseApplication; builtin:bank raises
+    NotYetPorted. tcp:// and unix:// addresses dial an external app over
+    the socket ABCI transport (abci/socket.py), grpc:// over gRPC
+    (abci/grpc.py)."""
     check_tooling_env(("TM_E2E_DELAYS_MS",))
     from ..abci.kvstore import KVStoreApplication
 
@@ -126,7 +132,7 @@ def _make_app(proxy_app: str, app_db=None):
                 raise ValueError(f"unknown builtin app option {opt!r} in {proxy_app!r}")
             kw[opt_names[k]] = int(v)
         if name == "bank":
-            raise not_yet("the bank app (statetree/)", "A15")
+            raise not_yet("the bank app (statetree/)", "A15c")
         if name != "kvstore":
             raise ValueError(f"unknown app {name!r} (expected one of ('kvstore', 'bank'))")
         if "genesis_accounts" in kw:
@@ -139,9 +145,17 @@ def _make_app(proxy_app: str, app_db=None):
 
         return LocalClient(BaseApplication())
     if proxy_app.startswith(("tcp://", "unix://")):
-        raise not_yet(f"proxy_app {proxy_app!r} (the socket ABCI client, abci/socket.py)", "A15")
+        from ..abci.socket import SocketClient
+
+        client = SocketClient(proxy_app)
+        client.start()
+        return client
     if proxy_app.startswith("grpc://"):
-        raise not_yet(f"proxy_app {proxy_app!r} (the gRPC ABCI client, abci/grpc.py)", "A15")
+        from ..abci.grpc import GRPCClient
+
+        client = GRPCClient(proxy_app)
+        client.start()
+        return client
     raise ValueError(f"unsupported proxy_app {proxy_app!r}")
 
 
@@ -166,14 +180,13 @@ class Node:
             PrometheusServer,
             Registry,
             StateMetrics,
+            StateSyncMetrics,
         )
         from ..utils.log import Logger, parse_level
 
         self.config = config
         config.validate_basic()
         self.device = device
-        if config.statesync.enable:
-            raise not_yet("statesync.enable = true (statesync/)", "A15")
 
         # ---- observability (ref: node/node.go:575 Prometheus; libs/log)
         self.metrics_registry = Registry()
@@ -182,6 +195,7 @@ class Node:
         self.p2p_metrics = P2PMetrics(self.metrics_registry)
         self.state_metrics = StateMetrics(self.metrics_registry)
         self.blocksync_metrics = BlockSyncMetrics(self.metrics_registry)
+        self.statesync_metrics = StateSyncMetrics(self.metrics_registry)
         self.evidence_metrics = EvidenceMetrics(self.metrics_registry)
         self.prometheus_server = (
             PrometheusServer(self.metrics_registry, config.instrumentation.prometheus_listen_addr)
@@ -320,6 +334,8 @@ class Node:
         # ---- p2p identity + transport + router (node/setup.go:201,290)
         self.node_key = node_key if node_key is not None else NodeKey.load_or_gen(config.node_key_file)
         self.node_id = self.node_key.node_id
+        from ..statesync import statesync_channel_descriptors
+
         from ..p2p.pex import PexReactor, pex_channel_descriptor
 
         # consensus frames carry this node's id as the tmpath journey
@@ -330,7 +346,8 @@ class Node:
         descs = (
             cs_descs
             + [mempool_channel_descriptor(), evidence_channel_descriptor(), blocksync_channel_descriptor()]
-        )  # state sync's four channels come with statesync/ (A15)
+            + statesync_channel_descriptors()
+        )
         if config.p2p.pex:
             descs.append(pex_channel_descriptor())
         laddr = urlparse(config.p2p.laddr if "//" in config.p2p.laddr else "tcp://" + config.p2p.laddr)
@@ -385,6 +402,7 @@ class Node:
         mp_ch = self.router.open_channel(mempool_channel_descriptor())
         ev_ch = self.router.open_channel(evidence_channel_descriptor())
         bs_ch = self.router.open_channel(blocksync_channel_descriptor())
+        ss_chs = [self.router.open_channel(d) for d in statesync_channel_descriptors()]
 
         # ---- PEX (node/node.go:346; internal/p2p/pex/reactor.go)
         self.pex_reactor = None
@@ -479,9 +497,20 @@ class Node:
             device=device,
         )
 
-        # ---- statesync (node/node.go:352-377): its reactor comes with
-        # statesync/ (A15); the local provider serves the light routes
+        # ---- statesync (node/node.go:352-377): always serves snapshots/
+        # light blocks to peers; consumes when config.statesync.enable
+        from ..statesync import StateSyncReactor
+
         self.local_provider = LocalProvider(self.gen_doc.chain_id, self.block_store, self.state_store)
+        self.statesync_reactor = StateSyncReactor(
+            self.app_client,
+            self.state_store,
+            self.block_store,
+            ss_chs[0], ss_chs[1], ss_chs[2], ss_chs[3],
+            self.peer_manager,
+            local_provider=self.local_provider,
+            metrics=self.statesync_metrics,
+        )
 
         # ---- RPC (node/node.go:509)
         self.rpc_server = None
@@ -573,7 +602,8 @@ class Node:
         self.blocksync_reactor.state = state
         # Handshake replay may have advanced state past what the reactor
         # saw at construction (crash between blockstore and state saves);
-        # re-anchor the pool so it doesn't re-request an applied height.
+        # re-anchor the pool so it doesn't re-request an applied height
+        # (the statesync path below resets it the same way).
         self.blocksync_reactor.pool.reanchor(
             max(state.last_block_height + 1, state.initial_height)
         )
@@ -582,17 +612,95 @@ class Node:
         self.evidence_reactor.start()
         self.mempool_reactor.start()
         self.consensus_reactor.start()
+        self.statesync_reactor.start()
         if self.pex_reactor is not None:
             self.pex_reactor.start()
         if self._txs_watcher is not None:
             self._txs_watcher.start()
-        if self.blocksync_reactor.block_sync:
+        if self.config.statesync.enable and state.last_block_height == 0:
+            threading.Thread(target=self._run_statesync, daemon=True, name="statesync").start()
+        elif self.blocksync_reactor.block_sync:
             self.blocksync_reactor.start()
         else:
             self._start_consensus()
         if self.rpc_server is not None:
             self.rpc_server.start()
         self._started.set()
+
+    def _run_statesync(self) -> None:
+        """Statesync → blocksync → consensus (node/node.go:360-377). The
+        light client verifies on the node's device. A failure falls back to
+        blocksync from genesis, as in the reference, except a fault of the
+        verifier, which halts the node (`_on_fatal`)."""
+        import traceback
+
+        from ..light import LightClient, TrustOptions
+        from ..light.http_provider import HTTPProvider
+        from ..statesync.stateprovider import LightClientStateProvider
+
+        cfg = self.config.statesync
+        try:
+            servers = [s.strip() for s in cfg.rpc_servers.split(",") if s.strip()]
+            if not cfg.trust_hash:
+                raise ValueError("statesync requires trust_hash")
+            trust = TrustOptions(
+                period_ns=int(cfg.trust_period * 1e9),
+                height=cfg.trust_height,
+                hash=bytes.fromhex(cfg.trust_hash),
+            )
+            params_fetcher = None
+            if servers:
+                primary = HTTPProvider(self.gen_doc.chain_id, servers[0])
+                witnesses = [HTTPProvider(self.gen_doc.chain_id, s) for s in servers[1:]]
+            else:
+                # p2p mode (ref: config statesync.use-p2p + the p2p state
+                # provider, stateprovider.go): light blocks and consensus
+                # params come from peers over the statesync channels
+                from ..statesync.dispatcher import Dispatcher, P2PLightProvider
+
+                dispatcher = Dispatcher(self.statesync_reactor)
+                primary = P2PLightProvider(
+                    self.gen_doc.chain_id, dispatcher, self.peer_manager.peers
+                )
+                witnesses = []
+                # the light client fetches its trust root at once: wait for
+                # a peer first, within the snapshot search's window
+                deadline = time.monotonic() + cfg.discovery_time
+                while time.monotonic() < deadline and not self.peer_manager.peers():
+                    if self._halted.is_set():
+                        return
+                    time.sleep(0.1)
+
+                def params_fetcher(height, _d=dispatcher):
+                    # a failure aborts the sync (to blocksync from genesis)
+                    # rather than restoring with genesis params, which an
+                    # on-chain update would fork from
+                    return _d.consensus_params(height, self.peer_manager.peers())
+            lc = LightClient(self.gen_doc.chain_id, trust, primary, witnesses=witnesses, device=self.device)
+            sp = LightClientStateProvider(lc, self.gen_doc, params_fetcher=params_fetcher)
+            state, _commit = self.statesync_reactor.sync(sp, self.gen_doc, discovery_time=cfg.discovery_time)
+            self.statesync_reactor.backfill(state, lambda h: self._fetch_lb_quiet(primary, h))
+            self.consensus.update_to_state(state)
+            self.blocksync_reactor.state = state
+            self.blocksync_reactor.pool.reanchor(state.last_block_height + 1)
+            self.blocksync_reactor.start()
+        except Exception as e:
+            if is_fault(e):
+                self._on_fatal(e)
+                return
+            traceback.print_exc()
+            # fall back to blocksync-from-genesis
+            if self.blocksync_reactor.block_sync:
+                self.blocksync_reactor.start()
+            else:
+                self._start_consensus()
+
+    @staticmethod
+    def _fetch_lb_quiet(provider, height: int):
+        try:
+            return provider.light_block(height)
+        except Exception:
+            return None
 
     def _on_blocksync_done(self, state, blocks_synced: int) -> None:
         """ref: node/node.go:360-377 + SwitchToConsensus
@@ -640,6 +748,7 @@ class Node:
         if self.pex_reactor is not None:
             self.pex_reactor.stop()
         self.blocksync_reactor.stop()
+        self.statesync_reactor.stop()
         self.consensus_reactor.stop()
         self.mempool_reactor.stop()
         self.evidence_reactor.stop()

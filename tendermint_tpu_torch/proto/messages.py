@@ -7,8 +7,9 @@ proto/tendermint/crypto/keys.proto, proof.proto,
 proto/tendermint/version/types.proto), the p2p layer's NodeInfo, PEX and
 secret-connection messages (proto/tendermint/p2p/types.proto, pex.proto,
 conn.proto), the bit arrays (proto/tendermint/libs/bits/types.proto), the
-consensus reactor's messages (proto/tendermint/consensus/types.proto) and
-blocksync's (proto/tendermint/blocksync/types.proto).
+consensus reactor's messages (proto/tendermint/consensus/types.proto),
+blocksync's (proto/tendermint/blocksync/types.proto) and state sync's
+(proto/tendermint/statesync/types.proto).
 
 Field numbers and nullability mirror the reference schemas exactly; the
 encodings are byte-identical.
@@ -683,3 +684,74 @@ class BlocksyncMessage(Message):
         Field(4, "message", "status_request", msg_cls=BlocksyncStatusRequest),
         Field(5, "message", "status_response", msg_cls=BlocksyncStatusResponse),
     ]
+
+
+# ------------------------------------------------------------- statesync wire
+# ref: proto/tendermint/statesync/types.proto
+
+
+class SnapshotsRequestProto(Message):
+    fields = []
+
+
+class SnapshotsResponseProto(Message):
+    fields = [
+        Field(1, "uint64", "height"),
+        Field(2, "uint32", "format"),
+        Field(3, "uint32", "chunks"),
+        Field(4, "bytes", "hash"),
+        Field(5, "bytes", "metadata"),
+    ]
+
+
+class ChunkRequestProto(Message):
+    fields = [
+        Field(1, "uint64", "height"),
+        Field(2, "uint32", "format"),
+        Field(3, "uint32", "index"),
+    ]
+
+
+class ChunkResponseProto(Message):
+    fields = [
+        Field(1, "uint64", "height"),
+        Field(2, "uint32", "format"),
+        Field(3, "uint32", "index"),
+        Field(4, "bytes", "chunk"),
+        Field(5, "bool", "missing"),
+    ]
+
+
+class LightBlockRequestProto(Message):
+    fields = [Field(1, "uint64", "height")]
+
+
+class LightBlockResponseProto(Message):
+    fields = [Field(1, "message", "light_block", msg_cls=LightBlock)]
+
+
+class ParamsRequestProto(Message):
+    fields = [Field(1, "uint64", "height")]
+
+
+class ParamsResponseProto(Message):
+    fields = [
+        Field(1, "uint64", "height"),
+        Field(2, "message", "consensus_params", msg_cls=ConsensusParamsUpdate, always_emit=True),
+    ]
+
+
+class StatesyncMessage(Message):
+    """Message oneof (statesync/types.proto:8-17)."""
+
+    fields = [
+        Field(1, "message", "snapshots_request", msg_cls=SnapshotsRequestProto),
+        Field(2, "message", "snapshots_response", msg_cls=SnapshotsResponseProto),
+        Field(3, "message", "chunk_request", msg_cls=ChunkRequestProto),
+        Field(4, "message", "chunk_response", msg_cls=ChunkResponseProto),
+        Field(5, "message", "light_block_request", msg_cls=LightBlockRequestProto),
+        Field(6, "message", "light_block_response", msg_cls=LightBlockResponseProto),
+        Field(7, "message", "params_request", msg_cls=ParamsRequestProto),
+        Field(8, "message", "params_response", msg_cls=ParamsResponseProto),
+    ]
+

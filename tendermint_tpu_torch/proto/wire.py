@@ -83,6 +83,8 @@ def encode_fixed64(value: int) -> bytes:
 
 
 def decode_fixed64(buf: bytes, offset: int = 0) -> tuple[int, int]:
+    if offset + 8 > len(buf):
+        raise ValueError("truncated fixed64")
     return struct.unpack_from("<q", buf, offset)[0], offset + 8
 
 
@@ -91,6 +93,8 @@ def encode_fixed32(value: int) -> bytes:
 
 
 def decode_fixed32(buf: bytes, offset: int = 0) -> tuple[int, int]:
+    if offset + 4 > len(buf):
+        raise ValueError("truncated fixed32")
     return struct.unpack_from("<i", buf, offset)[0], offset + 4
 
 

@@ -66,7 +66,9 @@ for name in ("crypto.merlin", "crypto.merlin_batch", "crypto.sr25519", "native",
              "indexer.service", "config", "config.config", "rpc", "rpc.server", "rpc.core", "rpc.client",
              "node", "node.node", "node.setup", "node.seed", "cli", "__main__", "light.http_provider",
              "light.proxy", "privval.remote", "privval.grpc", "privval.proto", "utils.grpcutil",
-             "indexer.sink_sql", "indexer.sink_psql", "metrics.flight", "abci.proto"):
+             "indexer.sink_sql", "indexer.sink_psql", "metrics.flight", "abci.proto", "abci.socket",
+             "abci.grpc", "statesync", "statesync.dispatcher", "statesync.stateprovider", "statesync.syncer",
+             "statesync.reactor", "state.rollback", "store.migrate"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     if name != pkg.__name__ + ".__main__":  # runs the CLI: the second probe's
@@ -88,6 +90,11 @@ from tendermint_tpu_torch.light import proxy as light_proxy
 from tendermint_tpu_torch.privval import grpc as pv_grpc, remote as pv_remote
 from tendermint_tpu_torch.indexer import sink_psql, sink_sql
 from tendermint_tpu_torch.metrics import flight
+from tendermint_tpu_torch import statesync
+from tendermint_tpu_torch.abci import grpc as abci_grpc, proto as abci_proto, socket as abci_socket
+from tendermint_tpu_torch.statesync import dispatcher as ss_dispatcher, stateprovider as ss_stateprovider
+from tendermint_tpu_torch.state import rollback as state_rollback
+from tendermint_tpu_torch.store import migrate as store_migrate
 for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (verify_sr, ("build_sr_tables", "verify_sr_kernel_cached")),
                  (msm, ("msm_verify_kernel_cached", "verify_batch_rlc_cached_async")),
@@ -134,7 +141,15 @@ for mod, fns in ((verify, ("build_pk_tables", "verify_kernel_cached")),
                  (pv_remote, ("SignerClient", "SignerServer", "SignerListenerEndpoint")),
                  (pv_grpc, ("GRPCSignerClient", "GRPCSignerServer")), (sink_sql, ("SQLSink",)),
                  (sink_psql, ("PsqlSink",)), (flight, ("FlightRecorder",)), (metrics, ("FlightMetrics",)),
-                 (cli, ("cmd_light", "cmd_replay", "cmd_inspect", "cmd_remote_signer", "cmd_reset"))):
+                 (cli, ("cmd_light", "cmd_replay", "cmd_inspect", "cmd_remote_signer", "cmd_reset")),
+                 (statesync, ("StateSyncReactor", "Syncer", "statesync_channel_descriptors")),
+                 (ss_dispatcher, ("Dispatcher", "P2PLightProvider")),
+                 (ss_stateprovider, ("LightClientStateProvider",)), (metrics, ("StateSyncMetrics",)),
+                 (abci_socket, ("SocketClient", "SocketServer", "serve_app")),
+                 (abci_grpc, ("GRPCClient", "GRPCServer", "serve_app")),
+                 (abci_proto, ("request_to_pb", "request_from_pb", "response_to_pb", "response_from_pb")),
+                 (state_rollback, ("rollback_state",)), (store_migrate, ("migrate_db",)),
+                 (cli, ("cmd_rollback", "cmd_key_migrate"))):
     for fn in fns:
         assert callable(getattr(mod, fn)), fn
 native.load_prep()
@@ -195,10 +210,12 @@ import sys
 sys.modules["grpc"] = None  # as on a machine without grpcio
 import tendermint_tpu_torch.node, tendermint_tpu_torch.cli, tendermint_tpu_torch.privval
 from tendermint_tpu_torch.privval import grpc as pv_grpc, remote as pv_remote
+from tendermint_tpu_torch.abci import grpc as abci_grpc, socket as abci_socket
 from tendermint_tpu_torch.utils import grpcutil
-assert grpcutil.grpc is None and pv_grpc.grpc is None
+assert grpcutil.grpc is None and pv_grpc.grpc is None and abci_grpc.grpc is None
 for make in (lambda: pv_grpc.GRPCSignerClient("grpc://127.0.0.1:1", "c"),
-             lambda: grpcutil.GenericGrpcServer(None, "grpc://127.0.0.1:0")):
+             lambda: grpcutil.GenericGrpcServer(None, "grpc://127.0.0.1:0"),
+             lambda: abci_grpc.GRPCClient("grpc://127.0.0.1:1")):
     try:
         make()
         raise SystemExit("a grpc:// signer was made without grpcio")
@@ -213,9 +230,9 @@ sys.exit(1 if bad else 0)
 
 
 def test_node_cli_and_signers_import_without_grpc():
-    """On a machine without grpcio the node, the CLI and
-    privval/ import without it, and a grpc:// signer raises, naming grpcio,
-    with no substitute."""
+    """On a machine without grpcio the node, the CLI, privval/ and the ABCI
+    transports import without it, and a grpc:// signer or app client
+    raises, naming grpcio, with no substitute."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
     env["PYTHONPATH"] = ROOT
     proc = subprocess.run([sys.executable, "-c", _NO_GRPC_PROBE], cwd=ROOT, env=env,

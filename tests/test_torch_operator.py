@@ -548,8 +548,9 @@ def test_phase_17_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     the CPU (every check below the device cutover, so the predictions are
     no launch): the daemon started through the CLI verifies the tip, its
     proxy's answers equal the node's (header and validators in the fields it
-    serves), SIGTERM ends it and its session; replay on both copies of the
-    stopped node's home ends at the node's app hash."""
+    serves), SIGTERM ends it and its session; replay on the three copies of
+    the stopped node's home (phase 18 (b)'s over gRPC among them) ends at
+    the node's app hash."""
     import chip_smoke as cs
     from tendermint_tpu_torch.rpc.client import HTTPClient
 
@@ -587,11 +588,12 @@ def test_phase_17_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     assert procs[0].proc.returncode is not None
     assert prediction == ({}, [1] * (top - 1))
     cs._replay_phase("ed25519", P, home, status, where, prediction, totals, runs)
-    assert totals == {} and [r["run"] for r in runs] == ["replay as it stands (17 c)",
-                                                          "replay with its state at genesis (17 c)"]
+    assert totals == {} and [r["run"] for r in runs] == [
+        "replay as it stands (17 c)", "replay with its state at genesis (17 c)",
+        "replay with its state at genesis, its app over gRPC (18 b)"]
     text = "\n".join(logged)
     print(text)  # the phase's lines, shown when a check below fails
     assert f"verified the tip {top}" in text and "launches {}, as predicted" in text
     assert "(d) SIGTERM ended the light daemon" in text
-    assert text.count(f"replayed to height {top} (app hash {status['latest_app_hash'][:16]})") == 2
+    assert text.count(f"replayed to height {top} (app hash {status['latest_app_hash'][:16]})") == 3
     shutil.rmtree(where, ignore_errors=True)

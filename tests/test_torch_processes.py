@@ -145,3 +145,44 @@ def test_run_process_checks_the_exit_code_and_the_time_limit():
     assert len(started) == 3 and all(g == h.pid for h, g in started)
     assert all(h.poll() is not None for h, _ in started)
     del cs.STARTED[n:]
+
+
+APP_SCRIPT = r"""
+import json, os, sys
+import chip_smoke as cs
+
+run_dir, addr = sys.argv[1], sys.argv[2]
+cs.RUN_DIRS.append(run_dir)
+try:
+    app, listening = cs.app_process(run_dir, "left-app", addr)
+    print(json.dumps({"app": app.proc.pid, "addr": listening}), flush=True)
+    cs.audit_or_fail()
+finally:
+    cs.reap_all(grace=2.0)
+    print(json.dumps({"left": [list(f) for f in cs.audit_processes()]}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("scheme", ["tcp", "grpc"])
+def test_audit_names_a_left_over_app_process(tmp_path, scheme):
+    """Phase 18's apps: the port's kvstore behind its socket or gRPC server in
+    a process of its own (chip_smoke.app_process), left running, is named
+    by the audit (its command line), fails the run, and the teardown reaps
+    it."""
+    if scheme == "grpc":
+        pytest.importorskip("grpc")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = ROOT
+    run_dir = str(tmp_path / "chip-smoke-run")
+    os.makedirs(run_dir)
+    proc = subprocess.Popen([sys.executable, "-c", APP_SCRIPT, run_dir, f"{scheme}://127.0.0.1:0"], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 1, out + err
+    first = json.loads(out.splitlines()[0])
+    assert first["addr"].startswith(f"{scheme}://127.0.0.1:")
+    line = next(x for x in out.splitlines() if x.startswith(f"audit: process {first['app']} "))
+    assert "-m tendermint_tpu_torch.abci.socket --addr" in line
+    assert "AssertionError: audit: 1 process(es) that the script started are still alive" in err
+    assert json.loads(out.splitlines()[-1]) == {"left": []}
+    assert _gone(first["app"])

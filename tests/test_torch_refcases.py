@@ -44,6 +44,7 @@ def port_source(name: str) -> str:
         src = re.sub(rf"^from tendermint_tpu\.{re.escape(mod)} import [^\n(]*\n", "", src, flags=re.M)
     src = re.sub(r"\btendermint_tpu\b", "tendermint_tpu_torch", src)
     shared = "|".join(SHARED)
+    src = re.sub(rf"^([ \t]*)import ({shared}) as ", r"\1import \2__port as ", src, flags=re.M)
     return re.sub(rf"^([ \t]*)from ({shared}) import", r"\1from \2__port import", src, flags=re.M)
 
 
@@ -52,7 +53,7 @@ def port_copy(name: str) -> types.ModuleType:
     if name not in _COPIES:
         src = port_source(name)
         for dep in SHARED:
-            if re.search(rf"^[ \t]*from {dep}__port import", src, flags=re.M):
+            if re.search(rf"^[ \t]*(from {dep}__port import|import {dep}__port as )", src, flags=re.M):
                 port_copy(dep)
         mod = types.ModuleType(name + "__port")
         mod.__file__ = os.path.join(HERE, name + ".py")
@@ -103,7 +104,8 @@ def run_reference_case(name: str, test: str, kw: dict, request) -> None:
                                   "test_mempool", "test_privval", "test_p2p", "test_mconn", "test_pex",
                                   "test_consensus_reactor", "test_mempool_reactor", "test_rpc", "test_node",
                                   "test_events", "test_eventlog", "test_metrics", "test_light_proxy",
-                                  "test_cli_ops", "test_privval_remote", "test_privval_grpc", "test_sink_psql"])
+                                  "test_cli_ops", "test_privval_remote", "test_privval_grpc", "test_sink_psql",
+                                  "test_statesync", "test_abci_socket", "test_abci_grpc"])
 def test_port_copies_reach_only_the_port(name):
     """A port copy names no module of the JAX package, and every package
     module in its namespace is the port's."""
@@ -116,9 +118,11 @@ def test_port_copies_reach_only_the_port(name):
 
 
 # the reference cases of the node slice (ROADMAP A14a) that wait for a later
-# item, by the module they need
-NODE_LATER = {
-    "test_metrics.py::test_subsystem_metrics_surface": "StateSyncMetrics with statesync/ (A15)",
+# item, by the module they need; none is left
+NODE_LATER: dict[str, str] = {}
+# the cases that waited for a later item and run in test_node_cases since it landed
+NODE_LANDED = {
+    "test_metrics.py::test_subsystem_metrics_surface": "StateSyncMetrics with statesync/ (A15a)",
 }
 NODE_FILES = ("test_rpc", "test_node", "test_events", "test_eventlog", "test_metrics")
 
@@ -136,20 +140,28 @@ def test_node_cases(name, test, kw, request):
     run_reference_case(name, test, kw, request)
 
 
-@pytest.mark.parametrize("case", sorted(NODE_LATER))
+@pytest.mark.parametrize("case", sorted({**NODE_LATER, **NODE_LANDED}))
 def test_node_cases_waiting_for_a_later_item_are_named(case):
     """Each reference case left out of test_node_cases exists and names the
-    module and ROADMAP item it waits for."""
+    module and ROADMAP item it waits for; one whose item has landed is
+    collected by test_node_cases."""
     name, test = case.split("::")
     assert test in vars(port_copy(name[:-3])), case
+    if case in NODE_LANDED:
+        assert case not in NODE_LATER and "(A1" in NODE_LANDED[case]
+        assert test in [c.values[1] for c in reference_cases(name[:-3])]
+        return
     assert "(A1" in NODE_LATER[case]
 
 
 # the reference cases of the operator's tools (ROADMAP A14b) that wait for a
-# later item: key-migrate's store/migrate.py and the tooling's WAL console
+# later item: the tooling's WAL console
 OPERATOR_LATER = {
-    "test_cli_ops.py::test_key_migrate_legacy_layout": "store/migrate.py with key-migrate (A15)",
     "test_cli_ops.py::test_replay_console_steps_and_rewinds": "consensus/replay_console.py (tooling, not queued)",
+}
+# the cases that waited for a later item and run in test_operator_cases since it landed
+OPERATOR_LANDED = {
+    "test_cli_ops.py::test_key_migrate_legacy_layout": "store/migrate.py with key-migrate (A15b)",
 }
 OPERATOR_FILES = ("test_light_proxy", "test_cli_ops", "test_privval_grpc", "test_sink_psql")
 
@@ -195,10 +207,33 @@ def test_remote_signer_node_cases(name, test, kw, request):
     run_reference_case(name, test, kw, request)
 
 
-@pytest.mark.parametrize("case", sorted(OPERATOR_LATER))
+@pytest.mark.parametrize("case", sorted({**OPERATOR_LATER, **OPERATOR_LANDED}))
 def test_operator_cases_waiting_for_a_later_item_are_named(case):
     """Each reference case left out of test_operator_cases exists and names
-    the module and item it waits for."""
+    the module and item it waits for; one whose item has landed is
+    collected by test_operator_cases."""
     name, test = case.split("::")
     assert test in vars(port_copy(name[:-3])), case
+    if case in OPERATOR_LANDED:
+        assert case not in OPERATOR_LATER and "(A1" in OPERATOR_LANDED[case]
+        assert test in [c.values[1] for c in reference_cases(name[:-3])]
+        return
     assert "(A1" in OPERATOR_LATER[case] or "(tooling" in OPERATOR_LATER[case]
+
+
+# the reference's cases of state sync (ROADMAP A15a) and the remote app
+# clients (A15b): the kvstore's snapshots, a sync over the p2p channels and
+# by a node over HTTP and over p2p, the wire codec, the syncer's retries,
+# the socket and gRPC transports and nodes on external app processes
+STATESYNC_FILES = ("test_statesync", "test_abci_socket", "test_abci_grpc")
+
+# the remote app clients' function-scoped pairs, on the port
+socket_pair = port_copy("test_abci_socket").socket_pair
+grpc_pair = port_copy("test_abci_grpc").grpc_pair
+
+
+@pytest.mark.parametrize("name,test,kw", [case for name in STATESYNC_FILES for case in reference_cases(name)])
+def test_statesync_and_remote_app_cases(name, test, kw, request):
+    """The reference's cases of state sync and the socket and gRPC ABCI
+    transports on the port."""
+    run_reference_case(name, test, kw, request)

@@ -14,6 +14,7 @@ class and message; the commit checks' host ValueErrors ("nil validator
 set") are verdicts too."""
 
 import copy
+import re
 
 import pytest
 import torch
@@ -546,38 +547,45 @@ def _home(tmp_path):
 
 
 LATER_SETTINGS = [
-    ("proxy_app", "builtin:bank", "ROADMAP A15"),
-    ("proxy_app", "tcp://127.0.0.1:26658", "ROADMAP A15"),
-    ("proxy_app", "unix:///tmp/app.sock", "ROADMAP A15"),
-    ("proxy_app", "grpc://127.0.0.1:26658", "ROADMAP A15"),
-    ("proxy_app", "builtin:kvstore:snapshot=5", "statesync slice"),
+    ("proxy_app", "builtin:bank", "ROADMAP A15c"),
+    # A15a's and A15b's settings, ported since: each is taken now (item None)
+    ("proxy_app", "tcp://127.0.0.1:26658", None),
+    ("proxy_app", "unix:///tmp/app.sock", None),
+    ("proxy_app", "grpc://127.0.0.1:26658", None),
+    ("proxy_app", "builtin:kvstore:snapshot=5", None),
     # A14b's settings, ported since: each is taken now (item None)
     ("priv_validator_laddr", "tcp://127.0.0.1:26659", None),
     ("priv_validator_laddr", "grpc://127.0.0.1:26659", None),
     ("tx_index.indexer", "sqlite", None),
     ("tx_index.indexer", "psql", None),
     ("instrumentation.flight_interval", 1.0, None),
-    ("statesync.enable", True, "ROADMAP A15"),
+    ("statesync.enable", True, None),
 ]
 
 
 @pytest.mark.parametrize("key,value,item", LATER_SETTINGS, ids=[f"{k}={v}" for k, v, _ in LATER_SETTINGS])
 def test_setting_outside_the_slice_names_its_item(tmp_path, key, value, item):
     """A node configured with a setting the port has not reached raises an
-    error naming the item that brings it; nothing is remapped. A14b's
-    settings (item None) are taken since that item was ported: a remote
-    signer over a socket or over gRPC serves the node's key, the sqlite sink
-    and the flight recorder are built, and the psql sink asks for its DSN
-    as the reference's does."""
+    error naming the item that brings it; nothing is remapped. A14b's and
+    A15's settings (item None) are taken since those items were ported: a
+    remote signer over a socket or over gRPC serves the node's key, the
+    sqlite sink and the flight recorder are built, and the psql sink asks for
+    its DSN as the reference's does; an app over tcp://, unix:// or grpc://
+    answers through the socket or gRPC client, the builtin kvstore takes
+    snapshots at the interval asked, and statesync.enable with no trust hash
+    falls back, as the reference's node does, to consensus (a lone
+    validator)."""
     from tendermint_tpu_torch.node import Node
 
     cfg = _home(tmp_path)
-    if key == "priv_validator_laddr" and item is None:  # a free port: the cases may run at once
-        import socket
+    if (key == "priv_validator_laddr" or str(value).startswith(("tcp://", "grpc://"))) and item is None:
+        import socket  # a free port: the cases may run at once
 
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
-            value = value.replace(":26659", f":{sock.getsockname()[1]}")
+            value = re.sub(r":2665[89]$", f":{sock.getsockname()[1]}", value)
+    if value == "unix:///tmp/app.sock":
+        value = f"unix://{tmp_path}/app.sock"
     section, _, attr = key.rpartition(".")
     setattr(getattr(cfg, section) if section else cfg.base, attr, value)
     if item is not None:
@@ -589,6 +597,16 @@ def test_setting_outside_the_slice_names_its_item(tmp_path, key, value, item):
             Node(cfg, device="cpu")
         return
     server = None
+    if key == "proxy_app" and "://" in value:
+        from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+
+        if value.startswith("grpc://"):
+            pytest.importorskip("grpc")
+            from tendermint_tpu_torch.abci.grpc import serve_app
+        else:
+            from tendermint_tpu_torch.abci.socket import serve_app
+        app = KVStoreApplication()
+        server = serve_app(app, value)
     if key == "priv_validator_laddr":
         from tendermint_tpu_torch.privval import FilePV
         from tendermint_tpu_torch.privval.grpc import GRPCSignerServer
@@ -608,6 +626,18 @@ def test_setting_outside_the_slice_names_its_item(tmp_path, key, value, item):
                 assert node.priv_validator.get_pub_key().bytes() == pv.get_pub_key().bytes()
             elif key == "tx_index.indexer":
                 assert [type(s).__name__ for s in node.sql_sinks] == ["SQLSink"]
+            elif key == "proxy_app" and "://" in value:
+                from tendermint_tpu_torch.abci.types import RequestInfo
+
+                assert type(node.app_client).__name__ == ("GRPCClient" if value.startswith("grpc://")
+                                                          else "SocketClient")
+                assert wait_for(lambda: node.app_client.info(RequestInfo()).last_block_height >= 1)
+                assert app.height >= 1
+            elif key == "proxy_app":
+                assert node.app_client._app.snapshot_interval == 5
+            elif key == "statesync.enable":
+                assert node.statesync_reactor is not None
+                assert wait_for(lambda: node.block_store.height() >= 1)  # the fallback: consensus
             else:
                 assert node.flight_recorder is not None and node.flight_recorder.interval == value
         finally:
@@ -631,20 +661,23 @@ def test_tooling_knob_names_its_item(tmp_path, monkeypatch, knob):
         cli.main(["--home", cfg.base.home, "start"])
 
 
-# the operator's commands of A14b, ported since, and the later items' commands
+# the operator's commands of A14b and the store commands of A15b, ported
+# since, and the later items' commands
 A14B_COMMANDS = ("reset", "unsafe-reset-all", "inspect", "light", "debug", "replay", "reindex-event", "compact",
                  "wal2json", "json2wal", "config-migrate", "completion", "remote-signer")
+A15_COMMANDS = ("rollback", "key-migrate")
 
 
-@pytest.mark.parametrize("command", sorted(A14B_COMMANDS + tuple(__import__("tendermint_tpu_torch.cli",
-                                                                            fromlist=["LATER"]).LATER)))
+@pytest.mark.parametrize("command", sorted(A14B_COMMANDS + A15_COMMANDS + tuple(
+    __import__("tendermint_tpu_torch.cli", fromlist=["LATER"]).LATER)))
 def test_command_outside_the_slice_names_its_item(command, capsys):
     """Every command of the reference's parser the port has not reached
-    exits non-zero, naming its item. A14b's commands, ported since, run the
-    reference's function of their name (`unsafe-reset-all` is `reset`'s)."""
+    exits non-zero, naming its item. A14b's and A15's commands, ported
+    since, run the reference's function of their name (`unsafe-reset-all`
+    is `reset`'s)."""
     from tendermint_tpu_torch import cli
 
-    if command in A14B_COMMANDS:
+    if command in A14B_COMMANDS + A15_COMMANDS:
         assert command not in cli.LATER
         sub = next(a for a in cli.build_parser()._actions if a.dest == "command")
         fn = sub.choices[command].get_default("fn")
